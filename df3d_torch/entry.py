@@ -1,0 +1,101 @@
+"""Entry points of the port: build a CenterPoint, run the serving path.
+
+* `build_centerpoint(cfg, device, seed)`: the model on `device`, with
+  random flax-like weights drawn from a seeded `torch.Generator`, in eval
+  mode.
+* `infer(model, cfg, points, valid)`: voxelize -> model -> decode + NMS.
+* `entry(device)`: the counterpart of the JAX package's
+  `__graft_entry__.entry()`: `(fn, args)` for a small CenterPoint forward.
+
+Everything runs on the card unless the caller passes `device="cpu"`; with
+no card, the default raises.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from df3d_torch.models.detectors.centerpoint import (
+    CenterPoint, CenterPointConfig, centerpoint_predict,
+)
+from df3d_torch.ops.voxelize import voxelize_batch
+
+
+def resolve_device(device=None) -> torch.device:
+    """`device`, or the card when None; raises if a CUDA device is asked
+    for and there is none."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "df3d_torch runs on a CUDA device and none is available; pass "
+            "device='cpu' to run the plain PyTorch path")
+    return device
+
+
+def build_centerpoint(cfg: CenterPointConfig, device=None,
+                      seed: int = 0) -> CenterPoint:
+    device = resolve_device(device)
+    model = CenterPoint(cfg).init_weights(torch.Generator().manual_seed(seed))
+    return model.to(device).eval()
+
+
+@torch.no_grad()
+def infer(model: CenterPoint, cfg: CenterPointConfig, points: torch.Tensor,
+          valid: torch.Tensor):
+    """points (B, P, F) xyz first, valid (B, P) -> (detections, cap
+    overflows). Detections: boxes (B, K, 9), scores, labels, valid (B, K)."""
+    res = voxelize_batch(points, valid, cfg.voxel_size, cfg.pc_range,
+                         cfg.grid_size, cfg.max_voxels,
+                         cfg.max_points_per_voxel)
+    preds, _, overflow = model(res.features, res.coords)
+    return centerpoint_predict(cfg, preds), overflow
+
+
+def small_cfg() -> CenterPointConfig:
+    """The JAX package's `__graft_entry__._small_cfg()`."""
+    return CenterPointConfig(
+        pc_range=(-25.6, -25.6, -2.4, 25.6, 25.6, 2.4),
+        voxel_size=(0.4, 0.4, 0.2),
+        grid_size=(24, 128, 128),
+        max_voxels=2048,
+        num_point_features=5,
+        stage_caps=(2048, 1024, 512, 256),
+        tasks=(1, 2, 2, 1, 2, 2),
+        out_size_factor=8,
+        max_objs=32,
+        post_center_range=(-30.0, -30.0, -4.0, 30.0, 30.0, 4.0),
+        nms_pre_max_size=128,
+        nms_post_max_size=16,
+    )
+
+
+def random_points(rng: np.random.RandomState, batch: int, n: int,
+                  f: int = 5) -> np.ndarray:
+    """Uniform points over the small config's range (the JAX package's
+    `__graft_entry__._random_points`)."""
+    return np.concatenate([
+        rng.uniform(-25, 25, (batch, n, 2)),
+        rng.uniform(-1.8, 1.8, (batch, n, 1)),
+        rng.uniform(0, 1, (batch, n, f - 3)),
+    ], axis=-1).astype(np.float32)
+
+
+def entry(device=None):
+    """-> (fn, (voxel_features, voxel_coords)); fn runs the CenterPoint
+    forward and returns the per-task head maps."""
+    device = resolve_device(device)
+    cfg = small_cfg()
+    points = torch.from_numpy(
+        random_points(np.random.RandomState(0), 1, 2000)).to(device)
+    valid = torch.ones(points.shape[:2], dtype=torch.bool, device=device)
+    res = voxelize_batch(points, valid, cfg.voxel_size, cfg.pc_range,
+                         cfg.grid_size, cfg.max_voxels,
+                         cfg.max_points_per_voxel)
+    model = build_centerpoint(cfg, device)
+
+    @torch.no_grad()
+    def fn(feats, coords):
+        return model(feats, coords)[0]
+
+    return fn, (res.features, res.coords)

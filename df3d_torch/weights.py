@@ -1,0 +1,131 @@
+"""Carry the JAX package's flax variables across to the port's modules.
+
+`state_dict_from_flax(model, variables)` turns `{"params": ...,
+"batch_stats": ...}` (nested dicts of numpy arrays, as the JAX package's
+`model.init` gives them after `jax.tree_util.tree_map(np.asarray, ...)`)
+into a `state_dict` for `model`:
+
+* sparse conv taps `(K, Cin, Cout)` are kept as they are;
+* flax conv kernels HWIO -> OIHW;
+* flax `ConvTranspose` kernels `(kh, kw, in, out)` -> torch `(in, out, kh,
+  kw)` with both spatial axes flipped;
+* BatchNorm scale/bias -> weight/bias, batch_stats mean/var ->
+  running_mean/running_var.
+
+Flax names a module's children `<Class>_<i>` by creation order; the tables
+below give each torch module's attribute for them. A leaf that maps to no
+torch entry, a torch entry that no leaf fills, or a shape that disagrees
+raises.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from df3d_torch.models.heads.center_head import CenterHead, SepHeadBranch
+from df3d_torch.models.layers import (
+    ConvBNReLU2d, DeconvBNReLU2d, MaskedBatchNorm, SparseBasicBlock,
+    SparseConv3d, SparseConvBNReLU, SubMConv3d,
+)
+from df3d_torch.models.necks import BEVBackbone
+
+_CHILD_NAMES = {
+    SparseConvBNReLU: {"SubMConv3d_0": "conv", "SparseConv3d_0": "conv",
+                       "MaskedBatchNorm_0": "bn"},
+    SparseBasicBlock: {"SubMConv3d_0": "conv1", "MaskedBatchNorm_0": "bn1",
+                       "SubMConv3d_1": "conv2", "MaskedBatchNorm_1": "bn2"},
+    ConvBNReLU2d: {"Conv_0": "conv", "BatchNorm_0": "bn"},
+    DeconvBNReLU2d: {"ConvTranspose_0": "deconv", "BatchNorm_0": "bn"},
+    CenterHead: {"Conv_0": "shared_conv", "BatchNorm_0": "shared_bn"},
+}
+
+
+def _child(module: nn.Module, name: str) -> tuple[nn.Module, str]:
+    """The torch child (and its attribute path) that flax calls `name`."""
+    if isinstance(module, SepHeadBranch):
+        kind, i = name.rsplit("_", 1)
+        i = int(i)
+        if kind == "Conv":
+            attr = f"convs.{i}" if i < len(module.convs) else "out"
+        elif kind == "BatchNorm":
+            attr = f"bns.{i}"
+        else:
+            raise KeyError(name)
+    elif isinstance(module, CenterHead) and name.startswith("task"):
+        task, branch = name[len("task"):].split("_", 1)
+        attr = f"tasks.{int(task)}.{branch}"
+    elif isinstance(module, BEVBackbone):
+        attr = f"blocks.{name}"
+    else:
+        attr = _CHILD_NAMES.get(type(module), {}).get(name, name)
+    return module.get_submodule(attr), attr
+
+
+def _leaf(module: nn.Module, collection: str, name: str,
+          value: np.ndarray) -> tuple[str, np.ndarray]:
+    """(torch entry name, value in the torch layout) for one flax leaf."""
+    if isinstance(module, (SubMConv3d, SparseConv3d)) and name == "kernel":
+        return "weight", value
+    if isinstance(module, (MaskedBatchNorm, nn.BatchNorm2d)):
+        table = {("params", "scale"): "weight", ("params", "bias"): "bias",
+                 ("batch_stats", "mean"): "running_mean",
+                 ("batch_stats", "var"): "running_var"}
+        return table[(collection, name)], value
+    if isinstance(module, nn.ConvTranspose2d) and name == "kernel":
+        return "weight", value[::-1, ::-1].transpose(2, 3, 0, 1)
+    if isinstance(module, nn.Conv2d):
+        if name == "kernel":
+            return "weight", value.transpose(3, 2, 0, 1)
+        if name == "bias":
+            return "bias", value
+    raise KeyError(f"{type(module).__name__} has no counterpart for {name}")
+
+
+def _flatten(tree, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, dict) or hasattr(v, "items"):
+            yield from _flatten(v, prefix + (k,))
+        else:
+            yield prefix + (k,), np.asarray(v)
+
+
+def state_dict_from_flax(model: nn.Module, variables) -> dict:
+    """flax variables -> `state_dict` of `model` (torch tensors on the CPU,
+    float32). Raises on an unmapped leaf, an unfilled entry or a shape
+    mismatch."""
+    target = model.state_dict()
+    out = {}
+    for collection in ("params", "batch_stats"):
+        for path, value in _flatten(variables.get(collection, {})):
+            module, names = model, []
+            try:
+                for seg in path[:-1]:
+                    module, attr = _child(module, seg)
+                    names.append(attr)
+                entry, value = _leaf(module, collection, path[-1], value)
+            except (KeyError, AttributeError, ValueError) as e:
+                raise KeyError(
+                    f"flax leaf {collection}/{'/'.join(path)} has no torch "
+                    f"counterpart: {e}") from None
+            key = ".".join(names + [entry])
+            if key not in target:
+                raise KeyError(f"flax leaf {collection}/{'/'.join(path)} -> "
+                               f"{key}, which the model does not have")
+            if tuple(target[key].shape) != value.shape:
+                raise ValueError(
+                    f"{key}: torch shape {tuple(target[key].shape)} vs "
+                    f"carried {value.shape} from {'/'.join(path)}")
+            out[key] = torch.from_numpy(
+                np.ascontiguousarray(value, dtype=np.float32))
+    # BatchNorm2d's step counter has no flax counterpart and no effect in
+    # eval mode
+    missing = [k for k in target
+               if k not in out and not k.endswith("num_batches_tracked")]
+    if missing:
+        raise KeyError(f"torch entries no flax leaf fills: {missing}")
+    for k in target:
+        if k.endswith("num_batches_tracked"):
+            out[k] = torch.zeros((), dtype=torch.long)
+    return out
