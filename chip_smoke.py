@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's CenterPoint serving path on one CUDA card.
+"""Drive the PyTorch port's serving paths on one CUDA card: CenterPoint
+(LiDAR only) and CenterPoint + 3D-DF (six cameras + LiDAR).
 
     python3 chip_smoke.py
 
@@ -12,7 +13,8 @@ any failure raises and the process exits non-zero:
    started together, into build/df3d_torch/.
 3. small input: the port's full path on the card (kernels) against the same
    path on the CPU (plain PyTorch versions), same weights and points, on a
-   small config: heatmaps to atol = rtol = 1e-3, same kept boxes.
+   small config: heatmaps to atol = rtol = 1e-3, same kept boxes, voxel
+   coords and cap overflows.
 4. kernels: one full-width nuScenes frame (260k ray-cast points, 0.075 m
    voxels, stage caps 102400/73728/27648/10240); the inputs of every K1
    launch of one forward are captured and each kernel output is held
@@ -21,19 +23,39 @@ any failure raises and the process exits non-zero:
    (CUDA events), the bound, the non-miss (tap, row) pairs.
 5. main path: `infer` on full-width frames, warm-up then timed frames, with
    every kernel's launch count set to 0 just before and read just after;
-   K1 must launch 16 times per frame. Prints ms/frame, a per-stage split,
-   cap overflows, kept boxes and peak memory.
+   K1 must launch 16 times per frame and K2 not at all. Prints ms/frame, a
+   per-stage split, cap overflows, kept boxes and peak memory.
+6. small fused input: the camera+LiDAR path (`infer_fused`) on the card
+   against the same path on the CPU, same weights, points, images and
+   camera rig, on a small config: head maps to atol = rtol = 1e-3, same
+   kept boxes, same voxel coords and cap overflows.
+7. K2: one full-width fused frame (the `centerpoint_3ddf_nusc` preset: six
+   448x800 cameras, DeepLabV3 ResNet-50 taps, ACTRv2 at d_model 128, the
+   stage caps above); the inputs of every K2 launch are captured and each
+   output is held against the plain version with the tolerance of phase
+   4, as are small inputs at K2's edge cases; kernel and plain times (CUDA
+   events) and the bound. The frame must launch K2 once and K1 16 times.
+8. fused main path: `infer_fused` on full-width frames (260k ray-cast
+   points, six random normalized images, the nuScenes-like rig of
+   `utils.synth.camera_rig`), warm-up then timed frames, launch counts set
+   to 0 around the loop. Prints ms/frame, peak memory, the share of the
+   stage-4 voxels each camera sees, a host-clock stage split and a
+   one-frame profile.
 
 TF32 is off for matmuls and cuDNN convs: the port serves in f32 (the JAX
 package's "exact" profile) and the comparisons need full f32. cuDNN picks
 its conv algorithms by timing them (cudnn.benchmark).
 
-The last two lines of stdout are one JSON object on the kernels (times from
-this run, bound from this run's inputs) and the result line
+Each timed path prints a host-clock stage split (`df3d_torch.utils.stages`)
+and a one-frame profile. The last two lines of stdout are one JSON object
+on the kernels (times from this run, bound from this run's inputs,
+launches from the timed runs of both paths, also given by path) and the
+result line
 {"ok": true, "device": {...}}. With no CUDA device, or outside a checkout,
 the script exits non-zero without them.
 """
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -49,7 +71,12 @@ FP32_FLOP_PER_S = 67e12
 REALISTIC_STAGE_CAPS = (102_400, 73_728, 27_648, 10_240)
 NUM_POINTS = 260_000
 TIMED_FRAMES = 10
+FUSED_TIMED_FRAMES = 5
 K1_PER_FRAME = 16
+K2_PER_FUSED_FRAME = 1
+# a K2 output element costs ~14 FLOP of corner arithmetic per sample and
+# head (shared by its D channels) plus a multiply-add per in-bounds corner
+K2_FLOP_PER_SAMPLE = 14
 
 
 def log(*args):
@@ -83,45 +110,60 @@ def card_line():
         check=True, capture_output=True, text=True).stdout.strip()
 
 
-def phase_small_input(dev):
-    """Kernels on the card vs plain versions on the CPU, whole path."""
-    from df3d_torch.entry import build_centerpoint, infer, random_points, small_cfg
+def card_vs_cpu(label, build, cfg, inputs, infer_fn, dev):
+    """The path with its kernels on the card against the same path with the
+    plain versions on the CPU: same weights (`build(device)`) and inputs
+    (CPU tensors: points, valid, then the fused path's images and proj).
+    Voxel coords, cap overflows and kept boxes equal; head maps to atol =
+    rtol = 1e-3."""
     from df3d_torch.ops.voxelize import voxelize_batch
+
+    out = []
+    for d in ("cpu", dev):
+        model = build(d)
+        args = [t.to(d) for t in inputs]
+        with torch.no_grad():
+            res = voxelize_batch(args[0], args[1], cfg.voxel_size,
+                                 cfg.pc_range, cfg.grid_size, cfg.max_voxels,
+                                 cfg.max_points_per_voxel)
+            preds, _, _ = model(res.features, res.coords, *args[2:])
+            det, overflow = infer_fn(model, cfg, *args)
+        out.append((res.coords.cpu(),
+                    [{k: t.cpu() for k, t in p.items()} for p in preds],
+                    {k: t.cpu() for k, t in det.items()},
+                    {k: t.cpu() for k, t in overflow.items()}))
+    (c_coords, c_preds, c_det, c_ov), (g_coords, g_preds, g_det, g_ov) = out
+    check(torch.equal(c_coords, g_coords), f"{label}: voxel coords differ")
+    for k in c_ov:
+        check(torch.equal(c_ov[k], g_ov[k]), f"{label}: {k} differs")
+    worst = 0.0
+    for cp, gp in zip(c_preds, g_preds):
+        for k in cp:
+            check(torch.isfinite(gp[k]).all(), f"{label}: non-finite {k}")
+            torch.testing.assert_close(gp[k], cp[k], atol=1e-3, rtol=1e-3)
+            worst = max(worst, (gp[k] - cp[k]).abs().max().item())
+    check(torch.equal(c_det["valid"], g_det["valid"]),
+          f"{label}: kept sets differ")
+    m = c_det["valid"]
+    check(torch.equal(c_det["labels"][m], g_det["labels"][m]),
+          f"{label}: kept labels differ")
+    torch.testing.assert_close(g_det["boxes"][m], c_det["boxes"][m],
+                               atol=1e-3, rtol=1e-3)
+    log(f"{label}: card vs CPU plain path agree: max head-map diff "
+        f"{worst:.3g}, {int(m.sum())} kept boxes equal, cap overflow "
+        + ", ".join(f"{k}={int(v.sum())}" for k, v in c_ov.items()))
+
+
+def phase_small_input(dev):
+    from df3d_torch.entry import (
+        build_centerpoint, infer, random_points, small_cfg,
+    )
 
     cfg = small_cfg()
     pts = torch.from_numpy(random_points(np.random.RandomState(0), 1, 2000))
     valid = torch.ones(pts.shape[:2], dtype=torch.bool)
-    cpu = build_centerpoint(cfg, "cpu", seed=0)
-    gpu = build_centerpoint(cfg, dev, seed=0)
-    out = {}
-    for name, model, d in (("cpu", cpu, "cpu"), ("gpu", gpu, dev)):
-        p, v = pts.to(d), valid.to(d)
-        with torch.no_grad():
-            res = voxelize_batch(p, v, cfg.voxel_size, cfg.pc_range,
-                                 cfg.grid_size, cfg.max_voxels,
-                                 cfg.max_points_per_voxel)
-            preds, _, _ = model(res.features, res.coords)
-            det, _ = infer(model, cfg, p, v)
-        out[name] = (res.coords.cpu(), [{k: t.cpu() for k, t in pr.items()}
-                                        for pr in preds],
-                     {k: t.cpu() for k, t in det.items()})
-    (c_coords, c_preds, c_det), (g_coords, g_preds, g_det) = \
-        out["cpu"], out["gpu"]
-    check(torch.equal(c_coords, g_coords), "voxel coords differ")
-    worst = 0.0
-    for cp, gp in zip(c_preds, g_preds):
-        for k in cp:
-            check(torch.isfinite(gp[k]).all(), f"non-finite {k}")
-            torch.testing.assert_close(gp[k], cp[k], atol=1e-3, rtol=1e-3)
-            worst = max(worst, (gp[k] - cp[k]).abs().max().item())
-    check(torch.equal(c_det["valid"], g_det["valid"]), "kept sets differ")
-    m = c_det["valid"]
-    check(torch.equal(c_det["labels"][m], g_det["labels"][m]),
-          "kept labels differ")
-    torch.testing.assert_close(g_det["boxes"][m], c_det["boxes"][m],
-                               atol=1e-3, rtol=1e-3)
-    log(f"small input: card vs CPU plain path agree: max head-map diff "
-        f"{worst:.3g}, {int(m.sum())} kept boxes equal")
+    card_vs_cpu("small input", lambda d: build_centerpoint(cfg, d, seed=0),
+                cfg, [pts, valid], infer, dev)
 
 
 def full_width_frames(n):
@@ -204,50 +246,15 @@ def phase_k1(model, cfg, frame, dev):
         library_ms=None)
 
 
-def stage_split(model, cfg, pts, valid):
-    """Host-clock split of one frame by stage, synchronising between."""
-    from df3d_torch.models.detectors.centerpoint import centerpoint_predict
-    from df3d_torch.ops.sparse import SparseTensor
-    from df3d_torch.ops.voxelize import voxelize_batch
-
-    times, t = {}, time.perf_counter()
-
-    def mark(name):
-        nonlocal t
-        torch.cuda.synchronize()
-        now = time.perf_counter()
-        times[name] = 1e3 * (now - t)
-        t = now
-
-    with torch.no_grad():
-        res = voxelize_batch(pts, valid, cfg.voxel_size, cfg.pc_range,
-                             cfg.grid_size, cfg.max_voxels,
-                             cfg.max_points_per_voxel)
-        mark("voxelize")
-        st = SparseTensor(res.features, res.coords, cfg.sparse_shape)
-        caps = tuple(min(c, cfg.max_voxels) for c in cfg.stage_caps)
-        bev, _, _ = model.backbone(st, caps)
-        mark("backbone_3d")
-        x = model.neck(bev)
-        mark("neck")
-        preds = model.head(x)
-        mark("head")
-        centerpoint_predict(cfg, preds)
-        mark("decode_nms")
-    return times
-
-
-def profile_frame(model, cfg, pts, valid):
-    """One frame under torch.profiler: device-busy share of the wall time
-    and the kernels that take the most device time."""
+def profile_frame(run_frame):
+    """One frame, `run_frame()`, under torch.profiler: device-busy share of
+    the wall time and the kernels that take the most device time."""
     from torch.profiler import ProfilerActivity, profile
-
-    from df3d_torch.entry import infer
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        infer(model, cfg, pts, valid)
+        run_frame()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     kernels = [e for e in prof.key_averages()
@@ -261,52 +268,258 @@ def profile_frame(model, cfg, pts, valid):
             f"{e.key[:100]}")
 
 
+def timed_path(label, run, cfg, inputs, n_frames, per_frame):
+    """`run(*inputs[i])` on full-width frames: one warm-up pass over the
+    inputs, then `n_frames` timed frames with every kernel's launch count
+    set to 0 just before and read just after; `per_frame` maps each kernel
+    module to the launches a frame must make. Prints ms/frame, launches,
+    peak memory, overflows and kept boxes, then a host-clock stage split
+    and a one-frame profile of inputs[0]. Returns the launch counts."""
+    from df3d_torch.utils import stages
+
+    for args in inputs:
+        run(*args)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    for kernel in per_frame:
+        kernel.launches = 0
+    per_frame_ms, dets = [], []
+    for i in range(n_frames):
+        t0 = time.perf_counter()
+        det, overflow = run(*inputs[i % len(inputs)])
+        torch.cuda.synchronize()
+        per_frame_ms.append(1e3 * (time.perf_counter() - t0))
+        dets.append((det, overflow))
+    launches = {k: k.launches for k in per_frame}
+    peak = torch.cuda.max_memory_allocated()
+
+    for kernel, want in per_frame.items():
+        check(launches[kernel] == want * n_frames,
+              f"{label}: {kernel.SOURCE} launched {launches[kernel]} times "
+              f"in {n_frames} frames, expected {want} per frame")
+    for det, _ in dets:
+        for key, t in det.items():
+            if t.is_floating_point():
+                check(torch.isfinite(t).all(), f"{label}: non-finite {key}")
+        shape = (1, len(cfg.tasks) * cfg.nms_post_max_size, 9)
+        check(tuple(det["boxes"].shape) == shape,
+              f"{label}: boxes {tuple(det['boxes'].shape)}, expected {shape}")
+    log(f"{label}: {n_frames} frames, ms/frame mean "
+        f"{np.mean(per_frame_ms):.3f} median {np.median(per_frame_ms):.3f} "
+        f"min {np.min(per_frame_ms):.3f}; per frame "
+        f"{[round(x, 3) for x in per_frame_ms]}")
+    log(f"{label}: launches "
+        + ", ".join(f"{k.SOURCE} {v} ({v // n_frames} per frame)"
+                    for k, v in launches.items())
+        + f"; peak memory {peak / 2**30:.3f} GiB")
+    for i, (det, overflow) in enumerate(dets[:len(inputs)]):
+        log(f"{label} frame {i}: kept boxes {int(det['valid'].sum())}; cap "
+            "overflow " + ", ".join(f"{k}={int(v.sum())}"
+                                    for k, v in overflow.items()))
+    with torch.no_grad(), stages.recording() as split:
+        run(*inputs[0])
+    log(f"{label} stage split (ms, host clock, synchronised): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
+    profile_frame(lambda: run(*inputs[0]))
+    return launches
+
+
 def phase_main_path(model, cfg, frames, dev):
     from df3d_torch.entry import infer
-    from df3d_torch.ops import sparse_conv_kernel as K
+    from df3d_torch.ops import msda_kernel as K2
+    from df3d_torch.ops import sparse_conv_kernel as K1
 
     inputs = [(torch.from_numpy(f[None]).to(dev),
                torch.ones(1, len(f), dtype=torch.bool, device=dev))
               for f in frames]
-    for pts, valid in inputs:  # warm-up
-        infer(model, cfg, pts, valid)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    return timed_path("main path", lambda *a: infer(model, cfg, *a), cfg,
+                      inputs, TIMED_FRAMES, {K1: K1_PER_FRAME, K2: 0})
 
-    K.launches = 0
-    per_frame, dets = [], []
-    for i in range(TIMED_FRAMES):
-        pts, valid = inputs[i % len(inputs)]
-        t0 = time.perf_counter()
-        det, overflow = infer(model, cfg, pts, valid)
+
+def fused_inputs(frame, num_cams, image_shape, dev, seed):
+    """(points, valid, images, proj) on `dev` for one fused frame: the
+    lidar frame, random normalized images and the nuScenes-like rig."""
+    from df3d_torch.utils.synth import camera_rig
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    images = torch.randn(1, num_cams, *image_shape, 3, generator=g,
+                         device=dev)
+    proj = torch.from_numpy(camera_rig(num_cams, image_shape)[None]).to(dev)
+    pts = torch.from_numpy(frame[None]).to(dev)
+    valid = torch.ones(pts.shape[:2], dtype=torch.bool, device=dev)
+    return pts, valid, images, proj
+
+
+def small_fused_configs():
+    from df3d_torch.entry import centerpoint_3ddf_nusc, fused_config, small_cfg
+
+    preset = centerpoint_3ddf_nusc()
+    actr = dataclasses.replace(preset["actr"], lt_npoint=64)
+    return small_cfg(), fused_config(preset, image_shape=(64, 112),
+                                     image_layers=(1, 1, 1, 1), num_cams=2,
+                                     actr=actr)
+
+
+def phase_small_fused(dev):
+    from df3d_torch.entry import (
+        build_centerpoint3ddf, infer_fused, random_points,
+    )
+
+    cfg, fcfg = small_fused_configs()
+    frame = random_points(np.random.RandomState(1), 1, 2000)[0]
+    card_vs_cpu("small fused input",
+                lambda d: build_centerpoint3ddf(cfg, fcfg, d, seed=0), cfg,
+                list(fused_inputs(frame, fcfg.num_cams, fcfg.image_shape,
+                                  "cpu", 0)), infer_fused, dev)
+
+
+def full_fused_configs():
+    from df3d_torch.entry import centerpoint_3ddf_nusc, fused_config
+
+    preset = centerpoint_3ddf_nusc()
+    cfg = dataclasses.replace(preset["lidar"],
+                              max_voxels=REALISTIC_STAGE_CAPS[0],
+                              stage_caps=REALISTIC_STAGE_CAPS)
+    return cfg, fused_config(preset)
+
+
+def k2_edge_cases(launch, plain):
+    """K2 against its plain version where a kernel breaks first: Q not a
+    multiple of the block, head_dim other than 16, locations in [-0.2,
+    1.2], samples on the last pixel centre (x = W-1, y = H-1), at -0.5 px,
+    and far off the map."""
+    g = torch.Generator(device="cuda").manual_seed(3)
+    shapes = ((6, 9), (3, 5))
+    for b, q, nh, d, p in ((2, 10, 2, 8, 4), (1, 1000, 8, 16, 4),
+                           (3, 77, 3, 5, 2)):
+        value = torch.randn(b, 69, nh, d, device="cuda", generator=g)
+        locs = torch.rand(b, q, nh, 2, p, 2, device="cuda",
+                          generator=g) * 1.4 - 0.2
+        for lid, (h, w) in enumerate(shapes):
+            locs[:, 0, :, lid, 0] = torch.tensor([(w - 0.5) / w,
+                                                  (h - 0.5) / h])
+        locs[:, 1, :, :, 0] = 0.0
+        locs[:, 2, :, :, 0] = torch.tensor([-1e6, 1e7])
+        attn = torch.rand(b, q, nh, 2, p, device="cuda", generator=g)
+        out, ref = launch(value, shapes, locs, attn), plain(value, shapes,
+                                                            locs, attn)
         torch.cuda.synchronize()
-        per_frame.append(1e3 * (time.perf_counter() - t0))
-        dets.append((det, overflow))
-    launches = K.launches
-    peak = torch.cuda.max_memory_allocated()
+        err = (out - ref).abs().max().item()
+        tol = 1e-4 * ref.abs().max().item() + 1e-5
+        check(err <= tol, f"K2 edge case B={b} Q={q} nH={nh} D={d} P={p}: "
+              f"max abs err {err} > {tol}")
+    log("K2 edge cases (Q not a multiple of the block, D != 16, locations "
+        "in [-0.2, 1.2], the last pixel centre, far off the map): agree "
+        "with the plain version")
 
-    check(launches == K1_PER_FRAME * TIMED_FRAMES,
-          f"K1 launched {launches} times in {TIMED_FRAMES} frames")
-    for det, overflow in dets:
-        for key, t in det.items():
-            if t.is_floating_point():
-                check(torch.isfinite(t).all(), f"non-finite {key}")
-        shape = (1, len(cfg.tasks) * cfg.nms_post_max_size, 9)
-        check(tuple(det["boxes"].shape) == shape,
-              f"boxes {tuple(det['boxes'].shape)}, expected {shape}")
-    log(f"main path: {TIMED_FRAMES} frames, ms/frame mean "
-        f"{np.mean(per_frame):.3f} median {np.median(per_frame):.3f} "
-        f"min {np.min(per_frame):.3f}; per frame "
-        f"{[round(x, 3) for x in per_frame]}")
-    log(f"main path: K1 launches {launches} ({launches // TIMED_FRAMES} per "
-        f"frame); peak memory {peak / 2**30:.3f} GiB")
-    for i, (det, overflow) in enumerate(dets[:len(inputs)]):
-        log(f"frame {i}: kept boxes {int(det['valid'].sum())}; cap overflow "
-            + ", ".join(f"{k}={int(v.sum())}" for k, v in overflow.items()))
-    split = stage_split(model, cfg, *inputs[0])
-    log("stage split (ms, host clock, synchronised): "
-        + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
-    profile_frame(model, cfg, *inputs[0])
+
+def phase_k2(model, cfg, inputs):
+    """Capture every K2 launch of one fused frame (and count K1's); hold
+    each K2 output against the plain version and time both."""
+    from df3d_torch.entry import infer_fused
+    from df3d_torch.ops import msda_kernel as K2
+    from df3d_torch.ops import sparse_conv_kernel as K1
+
+    captured = []
+    launch = K2.msda_cuda
+
+    def recording(value, shapes, locs, attn):
+        captured.append((value.clone(), tuple(shapes), locs.clone(),
+                         attn.clone()))
+        return launch(value, shapes, locs, attn)
+
+    K1.launches = 0
+    K2.msda_cuda = recording
+    try:
+        infer_fused(model, cfg, *inputs)
+    finally:
+        K2.msda_cuda = launch
+    torch.cuda.synchronize()
+    check(len(captured) == K2_PER_FUSED_FRAME,
+          f"expected {K2_PER_FUSED_FRAME} K2 launch per fused frame, saw "
+          f"{len(captured)}")
+    check(K1.launches == K1_PER_FRAME,
+          f"expected {K1_PER_FRAME} K1 launches per fused frame, saw "
+          f"{K1.launches}")
+
+    k2_edge_cases(launch, K2.msda_plain)
+    rows, max_err = [], 0.0
+    log("K2 per launch (tolerance: max|kernel - plain| <= 1e-4*max|plain| "
+        "+ 1e-5):")
+    for i, (value, shapes, locs, attn) in enumerate(captured):
+        b, len_v, nh, d = value.shape
+        q, nl, npnt = locs.shape[1], locs.shape[3], locs.shape[4]
+        out = launch(value, shapes, locs, attn)
+        ref = K2.msda_plain(value, shapes, locs, attn)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        tol = 1e-4 * ref.abs().max().item() + 1e-5
+        check(torch.isfinite(out).all(), f"K2 launch {i}: non-finite output")
+        check(err <= tol, f"K2 launch {i}: max abs err {err} > {tol}")
+        max_err = max(max_err, err)
+        ms = cuda_ms(lambda: launch(value, shapes, locs, attn), 20)
+        plain_ms = cuda_ms(lambda: K2.msda_plain(value, shapes, locs, attn),
+                           5)
+        # the in-bounds corners this frame's locations need
+        corners = 0
+        for lid, (h, w) in enumerate(shapes):
+            px = locs[:, :, :, lid, :, 0] * w - 0.5
+            py = locs[:, :, :, lid, :, 1] * h - 0.5
+            x0, y0 = torch.floor(px), torch.floor(py)
+            for cx in (x0, x0 + 1):
+                for cy in (y0, y0 + 1):
+                    corners += int(((cx >= 0) & (cx < w) & (cy >= 0)
+                                    & (cy < h)).sum().item())
+        samples = b * q * nh * nl * npnt
+        flops = float(K2_FLOP_PER_SAMPLE * samples + 2 * d * corners)
+        nbytes = 4.0 * (value.numel() + locs.numel() + attn.numel()
+                        + out.numel())
+        t_ops, t_bytes = flops / FP32_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
+        bound_ms = 1e3 * max(t_ops, t_bytes)
+        bound_by = "operations" if t_ops >= t_bytes else "bytes"
+        rows.append(dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                         t_ops=t_ops, t_bytes=t_bytes))
+        log(f"  #{i}: value {tuple(value.shape)}, locations "
+            f"{tuple(locs.shape)}, levels {list(shapes)}; in-bounds corners "
+            f"{corners} of {4 * samples} ({corners / (4 * samples):.3f}); "
+            f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP; kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms "
+            f"({bound_by}); max abs err {err:.3g} (tol {tol:.3g})")
+    total = {key: sum(r[key] for r in rows) for key in rows[0]}
+    return dict(
+        name="msda_sampling", route="cuda", source="df3d_torch/csrc/msda.cu",
+        replaces="df3d/ops/pallas/msda_kernel.py:31",
+        max_abs_err=max_err, ms=total["ms"], plain_ms=total["plain_ms"],
+        bound_ms=total["bound_ms"],
+        bound_by=("operations" if total["t_ops"] >= total["t_bytes"]
+                  else "bytes"),
+        library_ms=None)
+
+
+def phase_fused_main_path(model, cfg, fcfg, frames, dev):
+    from df3d_torch.entry import infer_fused
+    from df3d_torch.ops import msda_kernel as K2
+    from df3d_torch.ops import sparse_conv_kernel as K1
+
+    inputs = [fused_inputs(f, fcfg.num_cams, fcfg.image_shape, dev, 10 + i)
+              for i, f in enumerate(frames)]
+    launches = timed_path(
+        "fused main path", lambda *a: infer_fused(model, cfg, *a), cfg,
+        inputs, FUSED_TIMED_FRAMES, {K1: K1_PER_FRAME,
+                                     K2: K2_PER_FUSED_FRAME})
+
+    # which stage-4 voxels each camera sees (ACTR's query mask)
+    seen = []
+    handle = model.detector.backbone.fusion_hook.actr.register_forward_hook(
+        lambda mod, inp, out: seen.append(inp[4]))
+    infer_fused(model, cfg, *inputs[0])
+    handle.remove()
+    mask = seen[0].view(fcfg.num_cams, -1)
+    log(f"queries: {mask.shape[1]} stage-4 rows per camera, "
+        f"{fcfg.num_cams * mask.shape[1]} in all; share each camera sees "
+        f"(of the rows): {[round(v, 4) for v in mask.float().mean(1).tolist()]}"
+        f"; rows seen by any camera {int(mask.any(0).sum())}")
     return launches
 
 
@@ -315,8 +528,10 @@ def main():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
     from df3d_torch.models.detectors.centerpoint import CenterPointConfig
-    from df3d_torch.entry import build_centerpoint
+    from df3d_torch.entry import build_centerpoint, build_centerpoint3ddf
     from df3d_torch.ops import build
+    from df3d_torch.ops import msda_kernel as K2
+    from df3d_torch.ops import sparse_conv_kernel as K1
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -348,10 +563,24 @@ def main():
     model = build_centerpoint(cfg, dev, seed=0)
     frames = full_width_frames(3)
     k1 = phase_k1(model, cfg, frames[0], dev)
-    k1["launches"] = phase_main_path(model, cfg, frames, dev)
+    lidar = phase_main_path(model, cfg, frames, dev)
+    del model
+
+    phase_small_fused(dev)
+    fcfg_l, fcfg = full_fused_configs()
+    fmodel = build_centerpoint3ddf(fcfg_l, fcfg, dev, seed=0)
+    k2 = phase_k2(fmodel, fcfg_l, fused_inputs(frames[0], fcfg.num_cams,
+                                               fcfg.image_shape, dev, 10))
+    fused = phase_fused_main_path(fmodel, fcfg_l, fcfg, frames, dev)
+    # each path's timed run, counts set to 0 just before it and read just
+    # after; "launches" sums the paths
+    for entry, kernel in ((k1, K1), (k2, K2)):
+        entry["launches_by_path"] = {"lidar": lidar[kernel],
+                                     "fused": fused[kernel]}
+        entry["launches"] = lidar[kernel] + fused[kernel]
 
     log(f"card: {card}")
-    print(json.dumps({"kernels": [k1]}))
+    print(json.dumps({"kernels": [k1, k2]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

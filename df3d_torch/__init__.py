@@ -2,6 +2,7 @@
 
 Mirrors the module layout and names of the JAX package `df3d/` so each
 counterpart is easy to find. It imports torch and numpy only; the sparse
-conv body runs as a hand-written CUDA kernel (`csrc/sparse_conv.cu`) on
-CUDA tensors and as its plain PyTorch version on CPU tensors.
+conv body (`csrc/sparse_conv.cu`) and the multi-scale deformable-attention
+sampling (`csrc/msda.cu`) run as hand-written CUDA kernels on CUDA tensors
+and as their plain PyTorch versions on CPU tensors.
 """

@@ -6,6 +6,10 @@
 * `infer(model, cfg, points, valid)`: voxelize -> model -> decode + NMS.
 * `entry(device)`: the counterpart of the JAX package's
   `__graft_entry__.entry()`: `(fn, args)` for a small CenterPoint forward.
+* `build_centerpoint3ddf(cfg, fcfg, device, seed)` and `infer_fused(model,
+  cfg, points, valid, images, proj)`: the same for the camera+LiDAR
+  CenterPoint + 3D-DF detector; `centerpoint_3ddf_nusc()` is the port's
+  copy of the JAX package's preset of that name.
 
 Everything runs on the card unless the caller passes `device="cpu"`; with
 no card, the default raises.
@@ -19,7 +23,10 @@ import torch
 from df3d_torch.models.detectors.centerpoint import (
     CenterPoint, CenterPointConfig, centerpoint_predict,
 )
+from df3d_torch.models.detectors.fused import CenterPoint3DDF, FusedConfig
+from df3d_torch.models.fusion.actr import ACTRConfig
 from df3d_torch.ops.voxelize import voxelize_batch
+from df3d_torch.utils import stages
 
 
 def resolve_device(device=None) -> torch.device:
@@ -40,16 +47,71 @@ def build_centerpoint(cfg: CenterPointConfig, device=None,
     return model.to(device).eval()
 
 
+def _serve(model, cfg: CenterPointConfig, points, valid, *model_inputs):
+    """voxelize -> model(features, coords, *model_inputs) -> decode + NMS."""
+    res = voxelize_batch(points, valid, cfg.voxel_size, cfg.pc_range,
+                         cfg.grid_size, cfg.max_voxels,
+                         cfg.max_points_per_voxel)
+    stages.mark("voxelize")
+    preds, _, overflow = model(res.features, res.coords, *model_inputs)
+    det = centerpoint_predict(cfg, preds)
+    stages.mark("decode_nms")
+    return det, overflow
+
+
 @torch.no_grad()
 def infer(model: CenterPoint, cfg: CenterPointConfig, points: torch.Tensor,
           valid: torch.Tensor):
     """points (B, P, F) xyz first, valid (B, P) -> (detections, cap
     overflows). Detections: boxes (B, K, 9), scores, labels, valid (B, K)."""
-    res = voxelize_batch(points, valid, cfg.voxel_size, cfg.pc_range,
-                         cfg.grid_size, cfg.max_voxels,
-                         cfg.max_points_per_voxel)
-    preds, _, overflow = model(res.features, res.coords)
-    return centerpoint_predict(cfg, preds), overflow
+    return _serve(model, cfg, points, valid)
+
+
+def build_centerpoint3ddf(cfg: CenterPointConfig, fcfg: FusedConfig,
+                          device=None, seed: int = 0) -> CenterPoint3DDF:
+    device = resolve_device(device)
+    model = CenterPoint3DDF(cfg, fcfg).init_weights(
+        torch.Generator().manual_seed(seed))
+    return model.to(device).eval()
+
+
+@torch.no_grad()
+def infer_fused(model: CenterPoint3DDF, cfg: CenterPointConfig,
+                points: torch.Tensor, valid: torch.Tensor,
+                images: torch.Tensor, proj: torch.Tensor):
+    """points (B, P, F), valid (B, P), images (B, n_cam, H, W, 3)
+    normalized, proj (B, n_cam, 3, 4) lidar -> image -> (detections, cap
+    overflows), as `infer`."""
+    return _serve(model, cfg, points, valid, images, proj)
+
+
+def centerpoint_3ddf_nusc() -> dict:
+    """The JAX package's `centerpoint_3ddf_nusc` preset
+    (df3d/config/presets.py): the LiDAR model of `centerpoint_nusc` with
+    the 6-camera ACTRv2 hybrid fusion of det3d's
+    nusc_centerpoint_voxelnet_0075voxel_fix_bn_z_multimodal_pfat_hybrid7_ifat
+    config."""
+    return {
+        "lidar": CenterPointConfig(),
+        "actr": ACTRConfig(
+            d_model=128, n_levels=3, num_layers=1, q_method="gating",
+            attn_layer="BiGateSum1D_2", model_name="ACTRv2",
+        ),
+        "max_ne_voxel": 26000,
+        "num_cams": 6,
+        "image_shape": (448, 800),
+    }
+
+
+def fused_config(preset: dict, **overrides) -> FusedConfig:
+    """A `FusedConfig` for a fused preset: the DeepLabV3 ResNet-50 branch
+    at stride 8, IFAT on, fusion at the stage-4 stride."""
+    fields = dict(image_shape=preset["image_shape"], image_branch="deeplabv3",
+                  image_layers=(3, 4, 6, 3), n_levels=preset["actr"].n_levels,
+                  num_cams=preset["num_cams"], actr=preset["actr"],
+                  use_ifat=True, fusion_downsample=8)
+    fields.update(overrides)
+    return FusedConfig(**fields)
 
 
 def small_cfg() -> CenterPointConfig:

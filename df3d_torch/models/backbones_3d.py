@@ -4,6 +4,11 @@
 `down4` (hybrid tail, `dense_tail=True`, `dense_from=4`), then `densify` and
 the dense stage-4 blocks. Conv plans are built once per coord set and shared
 by every submanifold layer of a stage (spconv's indice_key pattern).
+
+With a `fusion_hook` (the 3D-DF camera fusion) the stage-4 grid goes back
+to rows (`sparsify`, capped at the stage-4 cap), through the hook, and is
+densified again before `extra_conv`. The hook is a child module, so its
+parameters sit under the backbone as flax puts them.
 """
 
 from __future__ import annotations
@@ -13,9 +18,12 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from df3d_torch.ops.dense3d import DenseConvSpec, bev_from_dense, densify
+from df3d_torch.ops.dense3d import (
+    DenseConvSpec, bev_from_dense, densify, sparsify,
+)
 from df3d_torch.ops.sparse import SparseTensor, build_conv_plan, build_subm_plan
 from df3d_torch.models.layers import SparseBasicBlock, SparseConvBNReLU
+from df3d_torch.utils import stages
 
 
 def _overflow(plan) -> torch.Tensor:
@@ -26,7 +34,8 @@ def _overflow(plan) -> torch.Tensor:
 class SpMiddleResNetFHD(nn.Module):
     """det3d resnet-style middle encoder: 8x BEV downsample + z collapse."""
 
-    def __init__(self, num_input_features: int):
+    def __init__(self, num_input_features: int,
+                 fusion_hook: nn.Module | None = None):
         super().__init__()
         c1, c2, c3, c4 = 16, 32, 64, 128
         self.conv_input = SparseConvBNReLU(num_input_features, c1)
@@ -43,6 +52,7 @@ class SpMiddleResNetFHD(nn.Module):
         self.res4b = SparseBasicBlock(c4)
         self.extra_conv = SparseConvBNReLU(c4, c4, subm=False,
                                            kernel_size=(3, 1, 1))
+        self.fusion_hook = fusion_hook
 
     @staticmethod
     def out_depth(sparse_z: int) -> int:
@@ -53,9 +63,12 @@ class SpMiddleResNetFHD(nn.Module):
             z = (z + 2 * pad - 3) // 2 + 1
         return z
 
-    def forward(self, st: SparseTensor, stage_caps: Sequence[int]):
+    def forward(self, st: SparseTensor, stage_caps: Sequence[int],
+                fusion_kwargs: dict | None = None):
         """stage_caps: static max voxel counts after each downsample
-        (input/conv1, conv2, conv3, conv4).
+        (input/conv1, conv2, conv3, conv4). fusion_kwargs: the hook's
+        inputs (image_feats, proj); without them the hook passes the
+        stage through, as in the JAX package.
 
         -> (BEV map (B, Y, X, Z*C), per-stage tensors, cap overflows)."""
         _, n2, n3, n4 = stage_caps
@@ -89,8 +102,20 @@ class SpMiddleResNetFHD(nn.Module):
         x = self.res4a(x, spec_s)
         x_conv4 = self.res4b(x, spec_s)
 
+        if self.fusion_hook is not None:
+            # the JAX package sows this count summed over the batch
+            overflow["cap_overflow_dense_tail"] = (
+                x_conv4.mask.sum(dtype=torch.int32) - n4).clamp_min(0)
+            x_conv4_sp = sparsify(x_conv4, n4)
+            stages.mark("backbone_3d")
+            if fusion_kwargs:
+                x_conv4_sp = self.fusion_hook(x_conv4_sp, **fusion_kwargs)
+            x_conv4 = densify(x_conv4_sp)
+
         spec_x = DenseConvSpec((3, 1, 1), (2, 1, 1), (0, 0, 0))
         out = self.extra_conv(x_conv4, spec_x)
+        stages.mark("backbone_3d" if self.fusion_hook is None
+                    else "backbone_3d_tail")
         ms = {"conv1": x_conv1, "conv2": x_conv2, "conv3": x_conv3,
               "conv4": x_conv4}
         return bev_from_dense(out), ms, overflow

@@ -19,6 +19,7 @@ from df3d_torch.models.heads.center_head import CenterHead, center_head_predict
 from df3d_torch.models.layers import SparseConv3d, SubMConv3d
 from df3d_torch.models.necks import BEVBackbone
 from df3d_torch.ops.sparse import SparseTensor
+from df3d_torch.utils import stages
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,14 +69,16 @@ class CenterPoint(nn.Module):
     """Build on the target device, call `init_weights` (or load a state
     dict), then `.eval()`: only the inference path is ported."""
 
-    def __init__(self, cfg: CenterPointConfig):
+    def __init__(self, cfg: CenterPointConfig,
+                 fusion_hook: nn.Module | None = None):
         super().__init__()
         if not (cfg.dense_tail and cfg.dense_from == 4) or cfg.dcn_head:
             raise NotImplementedError(
                 "only the hybrid dense tail (dense_from=4) without the DCN "
                 "head is ported")
         self.cfg = cfg
-        self.backbone = SpMiddleResNetFHD(cfg.num_point_features)
+        self.backbone = SpMiddleResNetFHD(cfg.num_point_features,
+                                          fusion_hook)
         bev_channels = 128 * SpMiddleResNetFHD.out_depth(cfg.sparse_shape[0])
         self.neck = BEVBackbone(
             bev_channels, layer_nums=(5, 5), layer_strides=(1, 2),
@@ -84,9 +87,10 @@ class CenterPoint(nn.Module):
         self.head = CenterHead(512, cfg.tasks)
 
     def forward(self, voxel_features: torch.Tensor,
-                voxel_coords: torch.Tensor):
+                voxel_coords: torch.Tensor, fusion_kwargs: dict | None = None):
         """voxel_features (B, V, F); voxel_coords (B, V, 3) (z, y, x), key
-        sorted with -1 padding rows (the voxelizer's output).
+        sorted with -1 padding rows (the voxelizer's output); fusion_kwargs
+        the fusion hook's inputs.
 
         Returns (preds, ms, overflow): per-task dicts of (B, H, W, c) maps,
         the per-stage backbone tensors, and the strided stages' cap
@@ -94,8 +98,11 @@ class CenterPoint(nn.Module):
         st = SparseTensor(voxel_features, voxel_coords, self.cfg.sparse_shape)
         v = voxel_features.shape[1]
         caps = tuple(min(c, v) for c in self.cfg.stage_caps)
-        bev, ms, overflow = self.backbone(st, caps)
-        preds = self.head(self.neck(bev))
+        bev, ms, overflow = self.backbone(st, caps, fusion_kwargs)
+        bev = self.neck(bev)
+        stages.mark("neck")
+        preds = self.head(bev)
+        stages.mark("head")
         return preds, ms, overflow
 
     @torch.no_grad()

@@ -4,7 +4,8 @@ Channel-last (B, Z, Y, X, C) features with the active-site mask riding
 along; a submanifold conv is a dense conv times the input mask, a strided
 conv's new mask is the any-pool dilation of the input mask (exact spconv
 semantics, uncapped). The dense tail is plain XLA in the JAX package, so
-`F.conv3d` computes it here.
+`F.conv3d` computes it here. `sparsify` takes the grid back to rows for the
+fusion hook.
 """
 
 from __future__ import annotations
@@ -56,6 +57,29 @@ def densify(st: SparseTensor) -> DenseTensor:
     mask.scatter_(1, flat_idx, valid)
     return DenseTensor(feats[:, :cells].reshape(b, z, y, x, c),
                        mask[:, :cells].reshape(b, z, y, x))
+
+
+def sparsify(dt: DenseTensor, max_rows: int) -> SparseTensor:
+    """DenseTensor -> SparseTensor of `max_rows` rows per sample: the first
+    `max_rows` active cells in key order, then padding rows (coords -1,
+    features 0), the row order the JAX package's cumsum-rank compaction
+    gives."""
+    b, z, y, x, c = dt.features.shape
+    cells = z * y * x
+    flat_m = dt.mask.reshape(b, cells)
+    # stable sort of the inactive flag: active cells first, in key order
+    order = torch.sort((~flat_m).to(torch.int8), dim=1, stable=True).indices
+    if max_rows > cells:
+        order = torch.cat([order, order.new_zeros(b, max_rows - cells)], 1)
+    key = order[:, :max_rows]
+    ok = flat_m.gather(1, key)
+    ok &= torch.arange(max_rows, device=key.device) < cells
+    coords = torch.stack([key // (y * x), (key // x) % y, key % x], -1)
+    coords = torch.where(ok[..., None], coords, -1).to(torch.int32)
+    feats = dt.features.reshape(b, cells, c).gather(
+        1, key[..., None].expand(-1, -1, c))
+    return SparseTensor(feats * ok[..., None].to(feats.dtype), coords,
+                        (z, y, x))
 
 
 def dense_conv(dt: DenseTensor, w_taps: torch.Tensor, ksize, stride=1,

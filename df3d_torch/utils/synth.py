@@ -7,6 +7,9 @@ facades + poles, accumulated over 10 sweeps with ego motion: the
 acquisition geometry of a nuScenes key frame. Points lie on surfaces sampled
 by ray geometry, so sparse-conv occupancy dilates like a real scan. The same
 seed gives the same frame as the JAX package's generator.
+
+``camera_rig`` is test data of the port's own: a nuScenes-like ring of six
+pinhole cameras around the lidar.
 """
 
 from __future__ import annotations
@@ -167,3 +170,29 @@ def make_raycast_frame(rng: np.random.RandomState,
     if extra_features > 2:
         out[:, 5:] = rng.rand(n_points, extra_features - 2)
     return out
+
+
+# nuScenes camera order (FRONT, FRONT_RIGHT, FRONT_LEFT, BACK, BACK_LEFT,
+# BACK_RIGHT) and each camera's yaw from the lidar's x (forward) axis
+NUSC_CAM_YAWS_DEG = (0.0, -55.0, 55.0, 180.0, 110.0, -110.0)
+
+
+def camera_rig(num_cams: int = 6, image_shape=(448, 800)) -> np.ndarray:
+    """(num_cams, 3, 4) float32 lidar -> image projections of a
+    nuScenes-like rig: the first `num_cams` of the yaws above, each camera
+    0.5 m out from the lidar along its axis and 0.3 m below it, its optical
+    axis (camera z) horizontal along the yaw, image y pointing down, and
+    the 1600x900 intrinsics (f ~ 1266 px) scaled to `image_shape` (f ~ 633,
+    cx 400, cy 224 at 448x800)."""
+    h, w = image_shape
+    f = 1266.0 * w / 1600.0
+    k = np.array([[f, 0.0, w / 2.0], [0.0, f, h / 2.0], [0.0, 0.0, 1.0]])
+    out = []
+    for yaw in np.deg2rad(NUSC_CAM_YAWS_DEG[:num_cams]):
+        fwd = np.array([np.cos(yaw), np.sin(yaw), 0.0])
+        right = np.array([np.sin(yaw), -np.cos(yaw), 0.0])
+        down = np.array([0.0, 0.0, -1.0])
+        rot = np.stack([right, down, fwd])          # lidar -> camera axes
+        center = 0.5 * fwd + np.array([0.0, 0.0, -0.3])
+        out.append(k @ np.concatenate([rot, -rot @ center[:, None]], 1))
+    return np.stack(out).astype(np.float32)

@@ -10,7 +10,15 @@ into a `state_dict` for `model`:
 * flax `ConvTranspose` kernels `(kh, kw, in, out)` -> torch `(in, out, kh,
   kw)` with both spatial axes flipped;
 * BatchNorm scale/bias -> weight/bias, batch_stats mean/var ->
-  running_mean/running_var.
+  running_mean/running_var; LayerNorm and GroupNorm scale/bias ->
+  weight/bias;
+* Dense kernels `(in, out)` -> Linear `(out, in)`; the attention's
+  `DenseGeneral` kernels `(in, heads, head_dim)` (query/key/value) and
+  `(heads, head_dim, out)` (out), and a 1x1 Conv kernel `(1, 1, in, out)`
+  that the port runs as a Linear, flatten to `(in, out)` first;
+* the multi-camera fusion hook's children (`ifat`, `actr`,
+  `actr_out_proj`), which flax puts under the backbone, live under the
+  backbone's `fusion_hook` module.
 
 Flax names a module's children `<Class>_<i>` by creation order; the tables
 below give each torch module's attribute for them. A leaf that maps to no
@@ -24,6 +32,11 @@ import numpy as np
 import torch
 from torch import nn
 
+from df3d_torch.models.backbones_3d import SpMiddleResNetFHD
+from df3d_torch.models.fusion.actr import (
+    ACTR, EncoderLayer, FusionEncoderLayer,
+)
+from df3d_torch.models.fusion.pointformer import PreNormEncoderLayer
 from df3d_torch.models.heads.center_head import CenterHead, SepHeadBranch
 from df3d_torch.models.layers import (
     ConvBNReLU2d, DeconvBNReLU2d, MaskedBatchNorm, SparseBasicBlock,
@@ -39,6 +52,15 @@ _CHILD_NAMES = {
     ConvBNReLU2d: {"Conv_0": "conv", "BatchNorm_0": "bn"},
     DeconvBNReLU2d: {"ConvTranspose_0": "deconv", "BatchNorm_0": "bn"},
     CenterHead: {"Conv_0": "shared_conv", "BatchNorm_0": "shared_bn"},
+    SpMiddleResNetFHD: {"ifat": "fusion_hook.ifat",
+                        "actr": "fusion_hook.actr",
+                        "actr_out_proj": "fusion_hook.actr_out_proj"},
+    PreNormEncoderLayer: {"LayerNorm_0": "norm1", "LayerNorm_1": "norm2",
+                          "Dense_0": "ff1", "Dense_1": "ff2"},
+    EncoderLayer: {"LayerNorm_0": "norm1", "Dense_0": "ff1",
+                   "Dense_1": "ff2", "LayerNorm_1": "norm2"},
+    FusionEncoderLayer: {"LayerNorm_0": "norm_attn", "LayerNorm_1": "norm_i",
+                         "LayerNorm_2": "norm_p"},
 }
 
 
@@ -73,6 +95,16 @@ def _leaf(module: nn.Module, collection: str, name: str,
                  ("batch_stats", "mean"): "running_mean",
                  ("batch_stats", "var"): "running_var"}
         return table[(collection, name)], value
+    if isinstance(module, (nn.LayerNorm, nn.GroupNorm)):
+        return {"scale": "weight", "bias": "bias"}[name], value
+    if isinstance(module, nn.Linear):
+        if name == "kernel":
+            return "weight", value.reshape(module.in_features,
+                                           module.out_features).T
+        if name == "bias":
+            return "bias", value.reshape(-1)
+    if isinstance(module, ACTR) and name == "level_embed":
+        return "level_embed", value
     if isinstance(module, nn.ConvTranspose2d) and name == "kernel":
         return "weight", value[::-1, ::-1].transpose(2, 3, 0, 1)
     if isinstance(module, nn.Conv2d):

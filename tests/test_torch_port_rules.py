@@ -1,7 +1,7 @@
 """Rules of the PyTorch port: df3d_torch and chip_smoke.py import nothing of
 JAX or of the JAX package; with no CUDA device the entry points raise
-rather than fall back, and the K1 launcher never answers with its plain
-version."""
+rather than fall back, and the K1 and K2 launchers never answer with their
+plain versions."""
 
 import ast
 from pathlib import Path
@@ -12,6 +12,8 @@ import torch
 
 from df3d_torch import entry as entry_mod
 from df3d_torch.ops import sparse as tsp
+from df3d_torch.ops import msda as tmsda
+from df3d_torch.ops import msda_kernel as k2
 from df3d_torch.ops import sparse_conv_kernel as k1
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -52,6 +54,10 @@ def test_entry_without_cuda_raises():
         entry_mod.build_centerpoint(entry_mod.small_cfg())
     fn, (feats, coords) = entry_mod.entry(device="cpu")
     assert feats.device.type == "cpu"
+    preset = entry_mod.centerpoint_3ddf_nusc()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        entry_mod.build_centerpoint3ddf(preset["lidar"],
+                                        entry_mod.fused_config(preset))
 
 
 def test_k1_launcher_raises_on_cpu_tensors():
@@ -69,3 +75,28 @@ def test_k1_launcher_raises_on_cpu_tensors():
     out = tsp.apply_sparse_conv(f, plan, w)
     np.testing.assert_array_equal(out.numpy(), np.zeros((1, 4, 3)))
     assert k1.launches == before
+
+
+def test_k2_launcher_raises_on_cpu_tensors(monkeypatch):
+    """The K2 launcher raises on CPU tensors and never reaches the plain
+    version; only ops.msda.ms_deform_attn's CPU-tensor branch does."""
+    rng = np.random.RandomState(0)
+    shapes = ((3, 4), (2, 2))
+    value = torch.from_numpy(rng.randn(1, 16, 2, 4).astype(np.float32))
+    locs = torch.from_numpy(rng.rand(1, 5, 2, 2, 3, 2).astype(np.float32))
+    w = torch.from_numpy(rng.rand(1, 5, 2, 2, 3).astype(np.float32))
+    plain = k2.msda_plain
+    want = plain(value, shapes, locs, w)
+
+    def no_plain(*args):
+        raise AssertionError("the launcher reached the plain version")
+
+    monkeypatch.setattr(k2, "msda_plain", no_plain)
+    before = k2.launches
+    with pytest.raises(RuntimeError, match="CUDA"):
+        k2.msda_cuda(value, shapes, locs, w)
+    assert k2.launches == before
+    monkeypatch.setattr(k2, "msda_plain", plain)
+    got = tmsda.ms_deform_attn(value, shapes, locs, w)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    assert k2.launches == before
