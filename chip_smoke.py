@@ -19,8 +19,14 @@ any failure raises and the process exits non-zero:
    voxels, stage caps 102400/73728/27648/10240); the inputs of every K1
    launch of one forward are captured and each kernel output is held
    against the plain version: max|kernel - plain| <= 1e-4 * max|plain| +
-   1e-5 (f32, other summation order). Per launch: kernel and plain times
-   (CUDA events), the bound, the non-miss (tap, row) pairs.
+   1e-5 (f32, other summation order), and a repeat launch against the
+   first, bit for bit; so are small inputs at K1's edge cases. Per launch:
+   the hit (tap, row) pairs, the (64-row tile, tap) pairs with a hit and
+   the rows the product runs on under v1's rule and v2's compaction; the
+   stream time of back-to-back wrapper calls (CUDA events, as for K2) and,
+   beside it, the kernel's device time (events, calls queued while the
+   card spins); the plain version's time; the tensor-core bound (3 x FLOP
+   as TF32, which K1 runs on) and the f32 CUDA-core bound.
 5. main path: `infer` on full-width frames, warm-up then timed frames, with
    every kernel's launch count set to 0 just before and read just after;
    K1 must launch 16 times per frame and K2 not at all. Prints ms/frame, a
@@ -48,9 +54,9 @@ its conv algorithms by timing them (cudnn.benchmark).
 
 Each timed path prints a host-clock stage split (`df3d_torch.utils.stages`)
 and a one-frame profile. The last two lines of stdout are one JSON object
-on the kernels (times from this run, bound from this run's inputs,
-launches from the timed runs of both paths, also given by path) and the
-result line
+on the kernels (times from this run, bounds from this run's inputs,
+launches from the timed runs of both paths, also given by path; K1 also
+gives its device time and its f32 CUDA-core bound) and the result line
 {"ok": true, "device": {...}}. With no CUDA device, or outside a checkout,
 the script exits non-zero without them.
 """
@@ -67,12 +73,14 @@ import torch
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+TF32_FLOP_PER_S = 495e12
 
 REALISTIC_STAGE_CAPS = (102_400, 73_728, 27_648, 10_240)
 NUM_POINTS = 260_000
 TIMED_FRAMES = 10
 FUSED_TIMED_FRAMES = 5
 K1_PER_FRAME = 16
+K1_TILE_ROWS = 64
 K2_PER_FUSED_FRAME = 1
 # a K2 output element costs ~14 FLOP of corner arithmetic per sample and
 # head (shared by its D channels) plus a multiply-add per in-bounds corner
@@ -95,6 +103,23 @@ def cuda_ms(fn, reps):
     fn()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def device_ms(fn, reps):
+    """Mean device time of fn() over `reps` back-to-back calls, after one
+    warm-up call: the card first spins ~10 ms (torch.cuda._sleep) while the
+    host queues the calls, so the events time the card alone, whatever the
+    host takes per call."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -173,9 +198,86 @@ def full_width_frames(n):
             for i in range(n)]
 
 
+def k1_work(idx, n_in, k):
+    """What one K1 launch executes, from its plan: hit (tap, row) pairs,
+    (64-row tile, tap) pairs with a hit, and the rows the product runs on
+    under v1's rule (all 64 rows of such a pair) and under v2's (the hits
+    compacted into chunks of 8)."""
+    b, n_out = idx.shape[0], idx.shape[1] // k
+    hit = ((idx >= 0) & (idx < n_in)).view(b, k, n_out).int()
+    hit = torch.nn.functional.pad(hit, (0, (-n_out) % K1_TILE_ROWS))
+    per = hit.view(b, k, -1, K1_TILE_ROWS).sum(-1)
+    tile_taps = int((per > 0).sum().item())
+    return dict(pairs=int(per.sum().item()), tile_taps=tile_taps,
+                v1_rows=K1_TILE_ROWS * tile_taps,
+                v2_rows=8 * int(((per + 7) // 8).sum().item()))
+
+
+def k1_check(label, launch, plain, f, idx, w):
+    """One K1 launch against the plain version, and a second launch that
+    must give the same bits. Returns (output, plain output, max abs err)."""
+    out = launch(f, idx, w)
+    again = launch(f, idx, w)
+    ref = plain(f, idx, w)
+    torch.cuda.synchronize()
+    err = (out - ref).abs().max().item() if out.numel() else 0.0
+    tol = 1e-4 * (ref.abs().max().item() if ref.numel() else 0.0) + 1e-5
+    check(torch.isfinite(out).all(), f"{label}: non-finite output")
+    check(err <= tol, f"{label}: max abs err {err} > {tol}")
+    check(torch.equal(out, again), f"{label}: a repeat launch differs")
+    return out, ref, err
+
+
+def k1_edge_cases(launch, plain):
+    """K1 against its plain version where the v2 design breaks first: Cin
+    5 (padded to 8, 4-byte row copies) and 12 (padded to 16), Cin 72, 96
+    and 128 (the widest instantiations, at each column-block width), Cout 6
+    (4-byte W copies), Cout 8 and 12 (a partial m16 slice), Cout 128 (two
+    column blocks), N_out not a multiple of the 64-row tile, N_out > N_in +
+    1, an all-miss plan, a tile with a single hit (row, tap), and B = 2
+    with different occupancies. Each repeat launch must give the same
+    bits."""
+    g = torch.Generator(device="cuda").manual_seed(4)
+    # (B, N_in, N_out, K, Cin, Cout, hit share per sample)
+    cases = [(1, 300, 300, 27, 5, 16, (0.3,)),
+             (1, 300, 257, 27, 12, 8, (0.3,)),
+             (1, 200, 130, 27, 16, 12, (0.5,)),
+             (1, 300, 200, 27, 32, 6, (0.3,)),
+             (1, 500, 200, 27, 64, 128, (0.3,)),
+             (1, 300, 200, 27, 128, 16, (0.3,)),
+             (1, 300, 190, 27, 96, 32, (0.3,)),
+             (1, 400, 200, 3, 72, 128, (0.6,)),
+             (1, 50, 300, 27, 32, 32, (0.2,)),
+             (1, 100, 100, 27, 16, 16, (0.0,)),
+             (1, 100, 100, 27, 32, 64, ("single",)),
+             (2, 400, 333, 27, 32, 64, (0.05, 0.6))]
+    for b, n_in, n_out, k, cin, cout, shares in cases:
+        f = torch.randn(b, n_in, cin, device="cuda", generator=g)
+        w = torch.randn(k, cin, cout, device="cuda", generator=g) * 0.3
+        rows = torch.randint(0, n_in, (b, k * n_out), device="cuda",
+                             generator=g, dtype=torch.int32)
+        idx = torch.full_like(rows, n_in)
+        for i, share in enumerate(shares):
+            if share == "single":  # one hit: row 70 (second tile), tap 5
+                idx[i, 5 * n_out + 70] = rows[i, 0]
+            else:
+                keep = torch.rand(k * n_out, device="cuda", generator=g)
+                idx[i] = torch.where(keep < share, rows[i], idx[i])
+        label = (f"K1 edge case B={b} N_in={n_in} N_out={n_out} Cin={cin} "
+                 f"Cout={cout} hits={shares}")
+        out, _, _ = k1_check(label, launch, plain, f, idx, w)
+        if shares == (0.0,):
+            check(not out.any(), f"{label}: an all-miss plan gave non-zeros")
+    log("K1 edge cases (Cin 5, 12, 72, 96 and 128, Cout 6, 8, 12 and 128, "
+        "N_out not a multiple of 64, N_out > N_in + 1, all-miss, a single "
+        "hit, B = 2 with different occupancies): agree with the plain "
+        "version, and repeat launches give the same bits")
+
+
 def phase_k1(model, cfg, frame, dev):
     """Capture every K1 launch of one forward; hold each against the plain
-    version and time both."""
+    version (and a repeat launch against the first, bit for bit) and time
+    both."""
     from df3d_torch.entry import infer
     from df3d_torch.ops import sparse_conv_kernel as K
 
@@ -198,43 +300,55 @@ def phase_k1(model, cfg, frame, dev):
     check(len(captured) == K1_PER_FRAME,
           f"expected {K1_PER_FRAME} K1 launches per frame, saw {len(captured)}")
 
+    k1_edge_cases(launch, K.sparse_conv_plain)
     rows, max_err = [], 0.0
     log("K1 per launch (tolerance: max|kernel - plain| <= 1e-4*max|plain| "
-        "+ 1e-5):")
-    log("  #  N_in    N_out  K  Cin Cout  pairs(non-miss)  kernel_ms  "
-        "plain_ms  bound_ms  bound_by  ceiling_GFLOP  max_abs_err")
+        "+ 1e-5; a repeat launch equals the first bit for bit). Rows run: "
+        "v1 = 64 per (tile, tap) with a hit, v2 = hits in chunks of 8; "
+        "bound = 3 x FLOP as TF32 on the tensor cores, f32_bound = FLOP on "
+        "the f32 CUDA cores:")
+    log("  kernel_ms is the stream time of back-to-back wrapper calls (CUDA "
+        "events); device_ms queues the same calls behind a spin, so it "
+        "times the card alone where the host is slower than the card")
+    log("  #  N_in    N_out  K  Cin Cout  hit_pairs  tile_taps  v1_rows   "
+        "v2_rows   kernel_ms  device_ms plain_ms  bound_ms  bound_by   "
+        "f32_bound_ms max_abs_err")
     for i, (f, idx, w) in enumerate(captured):
         b, n_in, cin = f.shape
         k, _, cout = w.shape
         n_out = idx.shape[1] // k
-        out = launch(f, idx, w)
-        ref = K.sparse_conv_plain(f, idx, w)
-        torch.cuda.synchronize()
-        err = (out - ref).abs().max().item()
-        tol = 1e-4 * ref.abs().max().item() + 1e-5
-        check(torch.isfinite(out).all(), f"launch {i}: non-finite output")
-        check(err <= tol, f"launch {i}: max abs err {err} > {tol}")
+        _, _, err = k1_check(f"launch {i}", launch, K.sparse_conv_plain, f,
+                             idx, w)
         max_err = max(max_err, err)
         ms = cuda_ms(lambda: launch(f, idx, w), 20)
+        dev_ms = device_ms(lambda: launch(f, idx, w), 20)
         plain_ms = cuda_ms(lambda: K.sparse_conv_plain(f, idx, w), 5)
-        pairs = int(((idx >= 0) & (idx < n_in)).sum().item())
-        flops = 2.0 * pairs * cin * cout
+        work = k1_work(idx, n_in, k)
+        flops = 2.0 * work["pairs"] * cin * cout
         nbytes = 4.0 * (idx.numel() + f.numel() + w.numel() + b * n_out * cout)
-        t_ops, t_bytes = flops / FP32_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
+        # K1 runs its products on the tensor cores as 3xTF32
+        t_ops, t_bytes = 3 * flops / TF32_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
         bound_ms = 1e3 * max(t_ops, t_bytes)
         bound_by = "operations" if t_ops >= t_bytes else "bytes"
-        ceiling = 2.0 * k * b * n_out * cin * cout / 1e9
-        rows.append(dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                         t_ops=t_ops, t_bytes=t_bytes, flops=flops,
-                         ceiling=ceiling))
+        f32_bound_ms = 1e3 * max(flops / FP32_FLOP_PER_S, t_bytes)
+        rows.append(dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                         bound_ms=bound_ms, f32_bound_ms=f32_bound_ms,
+                         t_ops=t_ops, t_bytes=t_bytes, flops=flops, **work))
         log(f"  {i:<2d} {n_in:<7d} {n_out:<6d} {k:<2d} {cin:<4d} {cout:<4d} "
-            f"{pairs:<16d} {ms:<10.4f} {plain_ms:<9.4f} {bound_ms:<9.5f} "
-            f"{bound_by:<9} {ceiling:<14.3f} {err:.3g}")
+            f"{work['pairs']:<10d} {work['tile_taps']:<10d} "
+            f"{work['v1_rows']:<9d} {work['v2_rows']:<9d} {ms:<10.4f} "
+            f"{dev_ms:<9.4f} {plain_ms:<9.4f} {bound_ms:<9.5f} {bound_by:<10} "
+            f"{f32_bound_ms:<12.5f} {err:.3g}")
     total = {key: sum(r[key] for r in rows) for key in rows[0]}
-    log(f"K1 per frame: {len(rows)} launches, kernel {total['ms']:.4f} ms, "
-        f"plain {total['plain_ms']:.4f} ms, bound {total['bound_ms']:.5f} ms "
-        f"({total['flops'] / 1e9:.3f} GFLOP of non-miss pairs; ceiling over "
-        f"every capped row {total['ceiling']:.3f} GFLOP)")
+    log(f"K1 per frame: {len(rows)} launches, kernel {total['ms']:.4f} ms "
+        f"(device time {total['device_ms']:.4f} ms), "
+        f"plain {total['plain_ms']:.4f} ms, bound {total['bound_ms']:.5f} ms, "
+        f"f32 bound {total['f32_bound_ms']:.5f} ms "
+        f"({total['flops'] / 1e9:.3f} GFLOP in {total['pairs']} hit pairs; "
+        f"rows run v1 "
+        f"{total['v1_rows']} ({total['v1_rows'] / total['pairs']:.3f}x the "
+        f"hits), v2 {total['v2_rows']} "
+        f"({total['v2_rows'] / total['pairs']:.3f}x))")
     return dict(
         name="sparse_conv_gather_gemm", route="cuda",
         source="df3d_torch/csrc/sparse_conv.cu",
@@ -243,7 +357,8 @@ def phase_k1(model, cfg, frame, dev):
         bound_ms=total["bound_ms"],
         bound_by=("operations" if total["t_ops"] >= total["t_bytes"]
                   else "bytes"),
-        library_ms=None)
+        library_ms=None, device_ms=total["device_ms"],
+        f32_bound_ms=total["f32_bound_ms"])
 
 
 def profile_frame(run_frame):

@@ -2,8 +2,9 @@
 
 Port of df3d/ops/pallas/sparse_conv_kernel.py (`_kernel_v2`). The kernel is
 `df3d_torch/csrc/sparse_conv.cu` (its header note gives the design and what
-bounds it); this module holds its wrapper, its launch count and its plain
-PyTorch version:
+bounds it: per 64-row tile and tap it compacts the hit rows into chunks of
+8 and runs them on the tensor cores as 3xTF32); this module holds its
+wrapper, its launch count and its plain PyTorch version:
 
 * `sparse_conv_cuda` launches the kernel on CUDA tensors and raises on
   anything else. It never falls back.
@@ -21,6 +22,10 @@ import torch
 from df3d_torch.ops import build
 
 SOURCE = "sparse_conv.cu"
+# the kernel pads Cin to a multiple of 8 in shared memory, up to this, and
+# keeps a bit per tap
+MAX_CIN = 128
+MAX_TAPS = 128
 # kernel launches made by `sparse_conv_cuda` since the last reset
 launches = 0
 
@@ -74,6 +79,9 @@ def sparse_conv_cuda(features: torch.Tensor, gather_idx: torch.Tensor,
         raise ValueError(
             f"sparse_conv_cuda: shapes {tuple(features.shape)}, "
             f"{tuple(gather_idx.shape)}, {tuple(weights.shape)} disagree")
+    if cin > MAX_CIN or k > MAX_TAPS:
+        raise ValueError(f"sparse_conv_cuda: Cin {cin} > {MAX_CIN} or "
+                         f"{k} taps > {MAX_TAPS}")
     if len({features.device, gather_idx.device, weights.device}) != 1:
         raise ValueError("sparse_conv_cuda: inputs on different devices")
     n_out = gather_idx.shape[1] // k

@@ -1,7 +1,7 @@
-"""Rules of the PyTorch port: df3d_torch and chip_smoke.py import nothing of
-JAX or of the JAX package; with no CUDA device the entry points raise
-rather than fall back, and the K1 and K2 launchers never answer with their
-plain versions."""
+"""Rules of the PyTorch port: df3d_torch, chip_smoke.py, k1_ablate.py and
+lidar_wall.py import nothing of JAX or of the JAX package; with no CUDA
+device the entry points raise rather than fall back, and the K1 and K2
+launchers never answer with their plain versions."""
 
 import ast
 from pathlib import Path
@@ -21,7 +21,9 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "df3d")
 
 
 def _port_files():
-    return sorted((ROOT / "df3d_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted((ROOT / "df3d_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "k1_ablate.py",
+        ROOT / "lidar_wall.py"]
 
 
 def _imported_roots(path):

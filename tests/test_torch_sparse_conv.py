@@ -1,6 +1,8 @@
 """df3d_torch.ops.sparse against df3d.ops.sparse: conv plans bit for bit,
-and the plain version of the K1 conv body against the XLA conv and the
-Pallas kernel (interpret mode) on the same inputs."""
+the plain version of the K1 conv body against the XLA conv and the Pallas
+kernel (interpret mode) on the same inputs, and the K1 kernel's schedule
+(hit rows compacted per tile and tap, emulated in torch) against all
+three."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -10,7 +12,8 @@ import torch
 from df3d.ops import sparse as jsp
 from df3d.ops.pallas.sparse_conv_kernel import apply_sparse_conv_pallas_v2
 from df3d_torch.ops import sparse as tsp
-from torch_port_helpers import sparse_inputs
+from df3d_torch.ops import sparse_conv_kernel as k1
+from torch_port_helpers import k1_emulate, sparse_inputs
 
 # (name, spatial shape, valid rows, padded rows, plan kind and geometry)
 PLAN_CASES = [
@@ -98,3 +101,55 @@ def test_plain_conv_matches_xla_and_pallas(case):
     np.testing.assert_allclose(got.numpy(), want_xla, atol=1e-5, rtol=1e-5)
     np.testing.assert_allclose(got.numpy(), want_pallas, atol=1e-5,
                                rtol=1e-5)
+
+
+# output rows per block of the K1 kernel: 128 for 16-channel launches,
+# else 64
+K1_TILE_ROWS = (64, 128)
+
+
+@pytest.mark.parametrize("case", PLAN_CASES, ids=[c[0] for c in PLAN_CASES])
+def test_k1_schedule_covers_each_hit_once(case):
+    """The kernel's compaction adds every hit (row, tap) of the plan in
+    exactly once and nothing else, for both tile heights, on every plan
+    kind: subm, strided, (3, 1, 1), cap truncation, B = 2, padding rows
+    interleaved."""
+    _, tst, _, tplan = _plans(case, np.random.RandomState(7))
+    k, n_in = tplan.num_taps, tst.num_rows
+    hits = ((tplan.gather_idx >= 0) & (tplan.gather_idx < n_in)).view(
+        tst.batch_size, k, -1).long()
+    assert hits.sum() > 0
+    w = torch.zeros(k, tst.features.shape[-1], 1)
+    for rows in K1_TILE_ROWS:
+        _, executed = k1_emulate(tst.features, tplan.gather_idx, w, rows)
+        assert torch.equal(executed, hits)
+
+
+@pytest.mark.parametrize("case", PLAN_CASES, ids=[c[0] for c in PLAN_CASES])
+def test_k1_schedule_matches_plain_xla_and_pallas(case):
+    """The kernel's order of work (compacted chunks of 8 hit rows, taps in
+    order, a per-tile accumulator), emulated in torch, against
+    sparse_conv_plain to atol = rtol = 1e-6 (f32, other summation order),
+    and against the JAX XLA conv body and the Pallas kernel (interpret
+    mode) to atol = rtol = 1e-5. The Pallas kernel needs N_out <= N_in + 1,
+    so its table is padded with zero rows, which the plan never reads."""
+    rng = np.random.RandomState(13)
+    jst, tst, jplan, tplan = _plans(case, rng)
+    cin, cout = tst.features.shape[-1], 12
+    w = (rng.randn(tplan.num_taps, cin, cout) * 0.3).astype(np.float32)
+    wt = torch.from_numpy(w)
+    plain = k1.sparse_conv_plain(tst.features, tplan.gather_idx, wt)
+    want_xla = np.asarray(jsp.apply_sparse_conv(jst.features, jplan,
+                                                jnp.asarray(w)))
+    short = tplan.num_out_rows - 1 - tst.num_rows
+    table = jnp.pad(jst.features, ((0, 0), (0, max(short, 0)), (0, 0)))
+    want_pallas = np.asarray(apply_sparse_conv_pallas_v2(
+        table, jplan.gather_idx, jnp.asarray(w), interpret=True))
+    for rows in K1_TILE_ROWS:
+        got, _ = k1_emulate(tst.features, tplan.gather_idx, wt, rows)
+        np.testing.assert_allclose(got.numpy(), plain.numpy(), atol=1e-6,
+                                   rtol=1e-6)
+        np.testing.assert_allclose(got.numpy(), want_xla, atol=1e-5,
+                                   rtol=1e-5)
+        np.testing.assert_allclose(got.numpy(), want_pallas, atol=1e-5,
+                                   rtol=1e-5)

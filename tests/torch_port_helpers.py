@@ -63,3 +63,48 @@ def sparse_inputs(rng, batch=2, shape=(8, 12, 12), n=64, cin=5, pad_to=96):
         all_feats.append(
             np.concatenate([feats, np.zeros((pad, cin), np.float32)]))
     return np.stack(all_feats), np.stack(all_coords)
+
+
+def k1_schedule(gather_idx, n_in, k, tile_rows, chunk=8):
+    """The schedule of the K1 v2 kernel (df3d_torch/csrc/sparse_conv.cu),
+    emulated: per sample, tile of `tile_rows` output rows and tap with a
+    hit, the tile's hit rows in row order, cut into chunks of `chunk` slots
+    (the last one partly empty). Yields (b, tap, rows, sources): rows
+    (n_chunks, chunk) output rows of each slot, -1 for an empty slot, and
+    sources the input rows they gather."""
+    b_size, total = gather_idx.shape
+    n_out = total // k
+    idx = gather_idx.view(b_size, k, n_out).long()
+    for b in range(b_size):
+        for m0 in range(0, n_out, tile_rows):
+            tile = idx[b, :, m0:m0 + tile_rows]
+            for t in range(k):
+                hit = torch.nonzero((tile[t] >= 0) & (tile[t] < n_in))[:, 0]
+                if hit.numel() == 0:
+                    continue
+                slots = -(-hit.numel() // chunk) * chunk
+                rows = torch.full((slots,), -1, dtype=torch.long)
+                rows[:hit.numel()] = m0 + hit
+                src = torch.zeros(slots, dtype=torch.long)
+                src[:hit.numel()] = tile[t, hit]
+                yield b, t, rows.view(-1, chunk), src.view(-1, chunk)
+
+
+def k1_emulate(features, gather_idx, weights, tile_rows):
+    """K1 v2's arithmetic in the kernel's order: per sample and tile, taps
+    in order, each chunk of compacted hit rows multiplied by W[t] and added
+    into the tile's accumulator at its rows; empty slots are dropped.
+    Returns (output (B, N_out, Cout), executed (B, K, N_out) counts of how
+    often each (row, tap) was added in)."""
+    b_size, n_in, _ = features.shape
+    k, _, cout = weights.shape
+    n_out = gather_idx.shape[1] // k
+    out = features.new_zeros(b_size, n_out, cout)
+    executed = torch.zeros(b_size, k, n_out, dtype=torch.long)
+    for b, t, rows, src in k1_schedule(gather_idx, n_in, k, tile_rows):
+        for r, s in zip(rows, src):
+            prod = features[b, s] @ weights[t]
+            keep = r >= 0
+            out[b, r[keep]] += prod[keep]
+            executed[b, t, r[keep]] += 1
+    return out, executed
