@@ -37,10 +37,16 @@ any failure raises and the process exits non-zero:
    kept boxes, same voxel coords and cap overflows.
 7. K2: one full-width fused frame (the `centerpoint_3ddf_nusc` preset: six
    448x800 cameras, DeepLabV3 ResNet-50 taps, ACTRv2 at d_model 128, the
-   stage caps above); the inputs of every K2 launch are captured and each
-   output is held against the plain version with the tolerance of phase
-   4, as are small inputs at K2's edge cases; kernel and plain times (CUDA
-   events) and the bound. The frame must launch K2 once and K1 16 times.
+   stage caps above); the inputs of every K2 launch are captured, each
+   launch must take the kernel's warp path on the tensors the path passes,
+   and its output is held against the plain version with the tolerance of
+   phase 4 and a repeat launch against the first, bit for bit; so are
+   small inputs at K2's edge cases, on both of the kernel's paths. Per launch: the stream time of
+   back-to-back wrapper calls and the device time (as for K1), the plain
+   version's time, the bound (the locations, weights and output once and
+   the (camera, pixel, head) value rows that in-bounds corners touch) and,
+   beside it, the bound with the whole value table read. The frame must
+   launch K2 once and K1 16 times.
 8. fused main path: `infer_fused` on full-width frames (260k ray-cast
    points, six random normalized images, the nuScenes-like rig of
    `utils.synth.camera_rig`), warm-up then timed frames, launch counts set
@@ -55,8 +61,9 @@ its conv algorithms by timing them (cudnn.benchmark).
 Each timed path prints a host-clock stage split (`df3d_torch.utils.stages`)
 and a one-frame profile. The last two lines of stdout are one JSON object
 on the kernels (times from this run, bounds from this run's inputs,
-launches from the timed runs of both paths, also given by path; K1 also
-gives its device time and its f32 CUDA-core bound) and the result line
+launches from the timed runs of both paths, also given by path; both give
+their device time, K1 its f32 CUDA-core bound, K2 its whole-table bound)
+and the result line
 {"ok": true, "device": {...}}. With no CUDA device, or outside a checkout,
 the script exits non-zero without them.
 """
@@ -274,10 +281,9 @@ def k1_edge_cases(launch, plain):
         "version, and repeat launches give the same bits")
 
 
-def phase_k1(model, cfg, frame, dev):
-    """Capture every K1 launch of one forward; hold each against the plain
-    version (and a repeat launch against the first, bit for bit) and time
-    both."""
+def capture_k1(model, cfg, frame, dev):
+    """The (features, gather_idx, weights) of every K1 launch of one
+    `infer` of `frame`, cloned as the wrapper was given them."""
     from df3d_torch.entry import infer
     from df3d_torch.ops import sparse_conv_kernel as K
 
@@ -297,6 +303,17 @@ def phase_k1(model, cfg, frame, dev):
     finally:
         K.sparse_conv_cuda = launch
     torch.cuda.synchronize()
+    return captured
+
+
+def phase_k1(model, cfg, frame, dev):
+    """Capture every K1 launch of one forward; hold each against the plain
+    version (and a repeat launch against the first, bit for bit) and time
+    both."""
+    from df3d_torch.ops import sparse_conv_kernel as K
+
+    captured = capture_k1(model, cfg, frame, dev)
+    launch = K.sparse_conv_cuda
     check(len(captured) == K1_PER_FRAME,
           f"expected {K1_PER_FRAME} K1 launches per frame, saw {len(captured)}")
 
@@ -499,108 +516,197 @@ def full_fused_configs():
     return cfg, fused_config(preset)
 
 
-def k2_edge_cases(launch, plain):
-    """K2 against its plain version where a kernel breaks first: Q not a
-    multiple of the block, head_dim other than 16, locations in [-0.2,
-    1.2], samples on the last pixel centre (x = W-1, y = H-1), at -0.5 px,
-    and far off the map."""
+K2_LEVELS = ((6, 9), (3, 5), (4, 7))
+K2_LEVELS_8 = ((6, 9), (3, 5), (4, 7), (2, 3), (5, 5), (1, 1), (7, 2),
+               (3, 3))
+
+
+def k2_inputs(g, b, q, nh, d, shapes, p, off_map=(), value_offset=0):
+    """Seeded K2 inputs on the card: locations in [-0.2, 1.2] and, at
+    every level, point 0 of query 0 on the last pixel centre (x = W-1, y =
+    H-1), of query 1 at -0.5 px and of query 2 far off the map; every
+    sample of the queries in `off_map` far off the map. With
+    `value_offset` the value table starts that many floats into its
+    storage (a pointer the warp path does not take)."""
+    len_v = sum(h * w for h, w in shapes)
+    storage = torch.randn(value_offset + b * len_v * nh * d, device="cuda",
+                          generator=g)
+    value = storage[value_offset:].view(b, len_v, nh, d)
+    locs = torch.rand(b, q, nh, len(shapes), p, 2, device="cuda",
+                      generator=g) * 1.4 - 0.2
+    for lid, (h, w) in enumerate(shapes):
+        locs[:, 0, :, lid, 0] = torch.tensor([(w - 0.5) / w, (h - 0.5) / h])
+    locs[:, 1 % q, :, :, 0] = 0.0
+    locs[:, 2 % q, :, :, 0] = torch.tensor([-1e6, 1e7])
+    for i in off_map:
+        locs[:, i] = torch.tensor([-1e6, 1e7])
+    attn = torch.rand(b, q, nh, len(shapes), p, device="cuda", generator=g)
+    return value, locs, attn
+
+
+def k2_check(label, launch, plain, value, shapes, locs, attn):
+    """One K2 launch against the plain version, and a second launch that
+    must give the same bits. Returns (output, plain output, max abs err,
+    tolerance)."""
+    out = launch(value, shapes, locs, attn)
+    again = launch(value, shapes, locs, attn)
+    ref = plain(value, shapes, locs, attn)
+    torch.cuda.synchronize()
+    err = (out - ref).abs().max().item()
+    tol = 1e-4 * ref.abs().max().item() + 1e-5
+    check(torch.isfinite(out).all(), f"{label}: non-finite output")
+    check(err <= tol, f"{label}: max abs err {err} > {tol}")
+    check(torch.equal(out, again), f"{label}: a repeat launch differs")
+    return out, ref, err, tol
+
+
+def k2_edge_cases(launch, plain, warp_path):
+    """K2 against its plain version on both of the kernel's paths. Warp
+    path (nH 8, D 16, L 3, P 4): a small map, Q not a multiple of the 8
+    queries a block holds, Q = 1, B = 6, and a wholly off-map query between
+    two visible ones in one block (its output must be exactly 0). General
+    path: the same shapes with an unaligned value table; D 5 and 8, nH 2
+    and 3, L 1, 2 and 8, P 1 and 2. Every case also puts samples on the
+    last pixel centre, at -0.5 px and far off the map. Each repeat launch
+    must give the same bits."""
     g = torch.Generator(device="cuda").manual_seed(3)
-    shapes = ((6, 9), (3, 5))
-    for b, q, nh, d, p in ((2, 10, 2, 8, 4), (1, 1000, 8, 16, 4),
-                           (3, 77, 3, 5, 2)):
-        value = torch.randn(b, 69, nh, d, device="cuda", generator=g)
-        locs = torch.rand(b, q, nh, 2, p, 2, device="cuda",
-                          generator=g) * 1.4 - 0.2
-        for lid, (h, w) in enumerate(shapes):
-            locs[:, 0, :, lid, 0] = torch.tensor([(w - 0.5) / w,
-                                                  (h - 0.5) / h])
-        locs[:, 1, :, :, 0] = 0.0
-        locs[:, 2, :, :, 0] = torch.tensor([-1e6, 1e7])
-        attn = torch.rand(b, q, nh, 2, p, device="cuda", generator=g)
-        out, ref = launch(value, shapes, locs, attn), plain(value, shapes,
-                                                            locs, attn)
-        torch.cuda.synchronize()
-        err = (out - ref).abs().max().item()
-        tol = 1e-4 * ref.abs().max().item() + 1e-5
-        check(err <= tol, f"K2 edge case B={b} Q={q} nH={nh} D={d} P={p}: "
-              f"max abs err {err} > {tol}")
-    log("K2 edge cases (Q not a multiple of the block, D != 16, locations "
-        "in [-0.2, 1.2], the last pixel centre, far off the map): agree "
-        "with the plain version")
+    # (B, Q, nH, D, levels, P, off-map queries, value offset, warp path)
+    cases = [(2, 37, 8, 16, K2_LEVELS, 4, (9,), 0, True),
+             (1, 1, 8, 16, K2_LEVELS, 4, (), 0, True),
+             (6, 20, 8, 16, K2_LEVELS, 4, (11,), 0, True),
+             (2, 37, 8, 16, K2_LEVELS, 4, (9,), 1, False),
+             (2, 10, 2, 8, K2_LEVELS[:2], 4, (), 0, False),
+             (1, 1000, 8, 16, K2_LEVELS[:2], 4, (), 0, False),
+             (3, 77, 3, 5, K2_LEVELS[:2], 2, (), 0, False),
+             (1, 50, 4, 8, K2_LEVELS[:1], 1, (5,), 0, False),
+             (2, 33, 2, 8, K2_LEVELS_8, 2, (), 0, False)]
+    for b, q, nh, d, shapes, p, off_map, offset, warp in cases:
+        value, locs, attn = k2_inputs(g, b, q, nh, d, shapes, p, off_map,
+                                      offset)
+        label = (f"K2 edge case B={b} Q={q} nH={nh} D={d} L={len(shapes)} "
+                 f"P={p} off-map queries {off_map} value offset {offset}")
+        check(warp_path(value, shapes, locs) == warp,
+              f"{label}: expected the {'warp' if warp else 'general'} path")
+        out, _, _, _ = k2_check(label, launch, plain, value, shapes, locs,
+                                attn)
+        for i in off_map:
+            check(not out[:, i].any(), f"{label}: off-map query {i} is not 0")
+    log("K2 edge cases (warp path: a small map, Q = 37 and 1, B = 6, an "
+        "off-map query inside a block; general path: an unaligned table, D "
+        "5 and 8, nH 2 and 3, L 1, 2 and 8, P 1 and 2; samples on the last "
+        "pixel centre, at -0.5 px and far off the map): agree with the "
+        "plain version, and repeat launches give the same bits")
 
 
-def phase_k2(model, cfg, inputs):
-    """Capture every K2 launch of one fused frame (and count K1's); hold
-    each K2 output against the plain version and time both."""
+def k2_touched_rows(value, shapes, locs):
+    """The in-bounds corners of these locations and the distinct (camera,
+    pixel, head) value rows they touch."""
+    b, len_v, nh, _ = value.shape
+    cam = torch.arange(b, device=value.device).view(b, 1, 1, 1)
+    head = torch.arange(nh, device=value.device).view(1, 1, nh, 1)
+    keys, start = [], 0
+    for lid, (h, w) in enumerate(shapes):
+        x0 = torch.floor(locs[:, :, :, lid, :, 0] * w - 0.5)
+        y0 = torch.floor(locs[:, :, :, lid, :, 1] * h - 0.5)
+        for cx in (x0, x0 + 1):
+            for cy in (y0, y0 + 1):
+                inb = (cx >= 0) & (cx < w) & (cy >= 0) & (cy < h)
+                pix = start + (cy.clamp(0, h - 1) * w
+                               + cx.clamp(0, w - 1)).long()
+                keys.append(((cam * len_v + pix) * nh + head)[inb])
+        start += h * w
+    keys = torch.cat(keys)
+    return keys.numel(), int(torch.unique(keys).numel())
+
+
+def capture_k2(model, cfg, inputs):
+    """Every K2 launch of one `infer_fused` of `inputs`: the wrapper's
+    (value, shapes, locations, weights), cloned, and whether the kernel
+    takes its warp path on the tensors the path passed (asked before the
+    clone, which is always aligned)."""
     from df3d_torch.entry import infer_fused
     from df3d_torch.ops import msda_kernel as K2
-    from df3d_torch.ops import sparse_conv_kernel as K1
 
     captured = []
     launch = K2.msda_cuda
 
     def recording(value, shapes, locs, attn):
         captured.append((value.clone(), tuple(shapes), locs.clone(),
-                         attn.clone()))
+                         attn.clone(), K2.warp_path(value, shapes, locs)))
         return launch(value, shapes, locs, attn)
 
-    K1.launches = 0
     K2.msda_cuda = recording
     try:
         infer_fused(model, cfg, *inputs)
     finally:
         K2.msda_cuda = launch
     torch.cuda.synchronize()
+    return captured
+
+
+def phase_k2(model, cfg, inputs):
+    """Capture every K2 launch of one fused frame (and count K1's); hold
+    each K2 output against the plain version and time both."""
+    from df3d_torch.ops import msda_kernel as K2
+    from df3d_torch.ops import sparse_conv_kernel as K1
+
+    K1.launches = 0
+    captured = capture_k2(model, cfg, inputs)
+    launch = K2.msda_cuda
     check(len(captured) == K2_PER_FUSED_FRAME,
           f"expected {K2_PER_FUSED_FRAME} K2 launch per fused frame, saw "
           f"{len(captured)}")
     check(K1.launches == K1_PER_FRAME,
           f"expected {K1_PER_FRAME} K1 launches per fused frame, saw "
           f"{K1.launches}")
+    for i, (*_, warp) in enumerate(captured):
+        check(warp, f"K2 launch {i}: the main path's tensors missed the "
+              "warp path")
 
-    k2_edge_cases(launch, K2.msda_plain)
+    k2_edge_cases(launch, K2.msda_plain, K2.warp_path)
     rows, max_err = [], 0.0
     log("K2 per launch (tolerance: max|kernel - plain| <= 1e-4*max|plain| "
-        "+ 1e-5):")
-    for i, (value, shapes, locs, attn) in enumerate(captured):
+        "+ 1e-5; a repeat launch equals the first bit for bit). kernel = "
+        "stream time of back-to-back wrapper calls, device = the same calls "
+        "queued behind a spin (CUDA events); bound = locations and weights "
+        "read and the output written once, and the value rows that in-bounds "
+        "corners touch read once; table bound = the same with the whole "
+        "value table:")
+    for i, (value, shapes, locs, attn, _) in enumerate(captured):
         b, len_v, nh, d = value.shape
         q, nl, npnt = locs.shape[1], locs.shape[3], locs.shape[4]
-        out = launch(value, shapes, locs, attn)
-        ref = K2.msda_plain(value, shapes, locs, attn)
-        torch.cuda.synchronize()
-        err = (out - ref).abs().max().item()
-        tol = 1e-4 * ref.abs().max().item() + 1e-5
-        check(torch.isfinite(out).all(), f"K2 launch {i}: non-finite output")
-        check(err <= tol, f"K2 launch {i}: max abs err {err} > {tol}")
+        out, _, err, tol = k2_check(f"K2 launch {i}", launch, K2.msda_plain,
+                                    value, shapes, locs, attn)
         max_err = max(max_err, err)
         ms = cuda_ms(lambda: launch(value, shapes, locs, attn), 20)
+        dev_ms = device_ms(lambda: launch(value, shapes, locs, attn), 20)
         plain_ms = cuda_ms(lambda: K2.msda_plain(value, shapes, locs, attn),
                            5)
-        # the in-bounds corners this frame's locations need
-        corners = 0
-        for lid, (h, w) in enumerate(shapes):
-            px = locs[:, :, :, lid, :, 0] * w - 0.5
-            py = locs[:, :, :, lid, :, 1] * h - 0.5
-            x0, y0 = torch.floor(px), torch.floor(py)
-            for cx in (x0, x0 + 1):
-                for cy in (y0, y0 + 1):
-                    corners += int(((cx >= 0) & (cx < w) & (cy >= 0)
-                                    & (cy < h)).sum().item())
+        # the in-bounds corners this frame's locations need, and the rows
+        corners, touched = k2_touched_rows(value, shapes, locs)
         samples = b * q * nh * nl * npnt
         flops = float(K2_FLOP_PER_SAMPLE * samples + 2 * d * corners)
-        nbytes = 4.0 * (value.numel() + locs.numel() + attn.numel()
-                        + out.numel())
+        side = 4.0 * (locs.numel() + attn.numel() + out.numel())
+        nbytes = side + 4.0 * touched * d
+        table_bytes = side + 4.0 * value.numel()
         t_ops, t_bytes = flops / FP32_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
         bound_ms = 1e3 * max(t_ops, t_bytes)
+        table_ms = 1e3 * max(t_ops, table_bytes / HBM_BYTES_PER_S)
         bound_by = "operations" if t_ops >= t_bytes else "bytes"
-        rows.append(dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                         t_ops=t_ops, t_bytes=t_bytes))
+        rows.append(dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                         bound_ms=bound_ms, table_bound_ms=table_ms,
+                         touched_rows=touched, t_ops=t_ops, t_bytes=t_bytes))
         log(f"  #{i}: value {tuple(value.shape)}, locations "
             f"{tuple(locs.shape)}, levels {list(shapes)}; in-bounds corners "
             f"{corners} of {4 * samples} ({corners / (4 * samples):.3f}); "
-            f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP; kernel "
-            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms "
-            f"({bound_by}); max abs err {err:.3g} (tol {tol:.3g})")
+            f"touched rows {touched} of {b * len_v * nh} "
+            f"({touched / (b * len_v * nh):.3f}); {nbytes / 1e6:.1f} MB "
+            f"({table_bytes / 1e6:.1f} MB with the whole table), "
+            f"{flops / 1e9:.3f} GFLOP; kernel {ms:.4f} ms, device "
+            f"{dev_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{bound_ms:.5f} ms ({bound_by}), table bound {table_ms:.5f} "
+            f"ms; max abs err {err:.3g} "
+            f"(tol {tol:.3g})")
     total = {key: sum(r[key] for r in rows) for key in rows[0]}
     return dict(
         name="msda_sampling", route="cuda", source="df3d_torch/csrc/msda.cu",
@@ -609,7 +715,9 @@ def phase_k2(model, cfg, inputs):
         bound_ms=total["bound_ms"],
         bound_by=("operations" if total["t_ops"] >= total["t_bytes"]
                   else "bytes"),
-        library_ms=None)
+        library_ms=None, device_ms=total["device_ms"],
+        table_bound_ms=total["table_bound_ms"],
+        touched_rows=total["touched_rows"])
 
 
 def phase_fused_main_path(model, cfg, fcfg, frames, dev):
@@ -668,8 +776,10 @@ def main():
                                build.build_seconds.items()) + ")")
     for name, text in build.build_log.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+            if "entry function" in line:
+                log(f"  {name}: {line.split('entry function')[1].strip()}")
+            elif "registers" in line or "spill" in line:
+                log(f"  {name}:   {line.strip()}")
 
     phase_small_input(dev)
 

@@ -4,8 +4,9 @@ Each source under `df3d_torch/csrc/` becomes a shared library with a plain
 C interface, loaded with ctypes, in `build/df3d_torch/` at the root of the
 checkout (listed in `.gitignore`). The library's file name carries a hash
 of its source, so an edited source is rebuilt. `build_all()` starts one
-nvcc per source, all at once; `load()` builds on first use. Nothing here
-runs at import time.
+nvcc per source, all at once; `load()` builds on first use;
+`build_variants()` builds edited copies of a source for the measurement
+scripts. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -78,6 +79,41 @@ def build_all(names: list[str] | None = None) -> dict[str, Path]:
     if failed:
         raise RuntimeError("\n".join(failed))
     return {name: library_path(name) for name in names}
+
+
+def build_variants(source: str, variants: dict[str, list[tuple[str, str]]],
+                   out_dir: Path, extra: dict[str, Path] | None = None
+                   ) -> dict[str, tuple[ctypes.CDLL, str]]:
+    """Builds for measurement: for each variant a copy of `csrc/<source>`
+    with its (old, new) edits made, each `old` found exactly once, and each
+    file of `extra` as it is, compiled into `out_dir`, one nvcc each, all
+    started together. Returns each build's loaded library and nvcc's ptxas
+    report, `extra` first. Raises when an edit no longer applies or a
+    compile fails."""
+    text = (CSRC / source).read_text()
+    texts = {name: path.read_text() for name, path in (extra or {}).items()}
+    for name, edits in variants.items():
+        texts[name] = text
+        for old, new in edits:
+            if texts[name].count(old) != 1:
+                raise RuntimeError(f"{name}: the edit no longer applies")
+            texts[name] = texts[name].replace(old, new)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    jobs = {}
+    for name, body in texts.items():
+        cu = out_dir / f"{name}.cu"
+        cu.write_text(body)
+        jobs[name] = subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(out_dir / f"{name}.so"),
+             str(cu)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)
+    reports = {name: proc.communicate()[1] for name, proc in jobs.items()}
+    failed = [f"nvcc failed for {name}:\n{reports[name]}"
+              for name, proc in jobs.items() if proc.returncode]
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return {name: (ctypes.CDLL(str(out_dir / f"{name}.so")), report)
+            for name, report in reports.items()}
 
 
 def load(source: str) -> ctypes.CDLL:

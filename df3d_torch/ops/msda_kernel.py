@@ -9,7 +9,8 @@ version. Both take the reference layout:
     attention_weights (B, Q, nH, L, P)  ->  (B, Q, nH * D)
 
 * `msda_cuda` launches the kernel on CUDA tensors and raises on anything
-  else. It never falls back.
+  else. It never falls back. The kernel has a warp path for the preset's
+  shapes and a general path for the rest (`warp_path` says which).
 * `msda_plain` computes the same function with an explicit four-corner
   gather. `ops.msda.ms_deform_attn` uses it for CPU tensors; the tests and
   `chip_smoke.py` hold the kernel against it.
@@ -63,14 +64,49 @@ def msda_plain(value: torch.Tensor, spatial_shapes, sampling_locations:
     return out.reshape(b, q, nh * d)
 
 
-def _launcher():
-    """The C entry point, built and loaded on first use. Pointers and the
-    stream go as c_void_p: ctypes would pass a bare int as 32 bits."""
-    fn = build.load(SOURCE).df3d_msda_f32
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_int)]
-                   + [ctypes.c_int] * 7 + [ctypes.c_void_p])
-    return fn
+# msda.cu's C entry points, each returning an int, and their arguments.
+# Pointers and the stream go as c_void_p: ctypes would pass a bare int as
+# 32 bits.
+ENTRY_POINTS = {
+    "df3d_msda_f32": ([ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_int)]
+                      + [ctypes.c_int] * 7 + [ctypes.c_void_p]),
+    "df3d_msda_warp_path": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7,
+}
+
+
+def bind(lib: ctypes.CDLL, names=tuple(ENTRY_POINTS)) -> ctypes.CDLL:
+    """Set the signatures of the entry points `names` of a library built
+    from msda.cu and return it."""
+    for name in names:
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = ENTRY_POINTS[name]
+    return lib
+
+
+_lib: ctypes.CDLL | None = None
+
+
+def _library() -> ctypes.CDLL:
+    """The kernel's library, built, loaded and bound on first use."""
+    global _lib
+    if _lib is None:
+        _lib = bind(build.load(SOURCE))
+    return _lib
+
+
+def warp_path(value: torch.Tensor, spatial_shapes,
+              sampling_locations: torch.Tensor) -> bool:
+    """Whether `msda_cuda` runs these CUDA inputs on the kernel's warp path
+    (the preset's shapes) rather than its general path; the kernel decides
+    (`df3d_msda_warp_path`). The output `msda_cuda` allocates is always
+    aligned, so it is not asked about."""
+    b, len_v, nh, d = value.shape
+    q, nl, npnt = (sampling_locations.shape[1],
+                   *sampling_locations.shape[3:5])
+    return bool(_library().df3d_msda_warp_path(
+        value.data_ptr(), sampling_locations.data_ptr(), None,
+        len(spatial_shapes), b, len_v, q, nh, d, npnt))
 
 
 def msda_cuda(value: torch.Tensor, spatial_shapes, sampling_locations:
@@ -108,7 +144,7 @@ def msda_cuda(value: torch.Tensor, spatial_shapes, sampling_locations:
     out = torch.empty(b, q, nh * d, device=value.device, dtype=torch.float32)
     if out.numel() == 0:
         return out
-    launch = _launcher()
+    launch = _library().df3d_msda_f32
     flat_shapes = (ctypes.c_int * (2 * nl))(*[v for hw in shapes for v in hw])
     with torch.cuda.device(value.device):
         stream = torch.cuda.current_stream().cuda_stream

@@ -26,7 +26,6 @@ be timed. Exits non-zero without a CUDA device.
 
 import ctypes
 import os
-import subprocess
 import sys
 from pathlib import Path
 
@@ -61,27 +60,10 @@ def build_variants():
     """One shared library per variant, nvcc started for all at once."""
     from df3d_torch.ops import build
 
-    src = (build.CSRC / "sparse_conv.cu").read_text()
-    OUT.mkdir(parents=True, exist_ok=True)
-    jobs = {}
-    for name, edits in VARIANTS.items():
-        text = src
-        for old, new in edits:
-            if text.count(old) != 1:
-                raise RuntimeError(f"{name}: the edit no longer applies")
-            text = text.replace(old, new)
-        cu = OUT / f"{name}.cu"
-        cu.write_text(text)
-        jobs[name] = subprocess.Popen(
-            [build._nvcc(), *build.NVCC_FLAGS, "-o", str(OUT / f"{name}.so"),
-             str(cu)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-            text=True)
     fns = {}
-    for name, proc in jobs.items():
-        _, err = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed for {name}:\n{err}")
-        fn = ctypes.CDLL(str(OUT / f"{name}.so")).df3d_sparse_conv_f32
+    for name, (lib, _) in build.build_variants(
+            "sparse_conv.cu", VARIANTS, OUT).items():
+        fn = lib.df3d_sparse_conv_f32
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
             ctypes.c_void_p]
@@ -93,31 +75,14 @@ def capture_launches():
     """The (features, gather_idx, weights) of every K1 launch of one
     full-width LiDAR frame."""
     import chip_smoke
-    from df3d_torch.entry import build_centerpoint, infer
+    from df3d_torch.entry import build_centerpoint
     from df3d_torch.models.detectors.centerpoint import CenterPointConfig
-    from df3d_torch.ops import sparse_conv_kernel as K
 
     caps = chip_smoke.REALISTIC_STAGE_CAPS
     cfg = CenterPointConfig(max_voxels=caps[0], stage_caps=caps)
     model = build_centerpoint(cfg, "cuda", seed=0)
     frame = chip_smoke.full_width_frames(1)[0]
-    captured = []
-    launch = K.sparse_conv_cuda
-
-    def recording(features, gather_idx, weights):
-        captured.append((features.clone(), gather_idx.clone(),
-                         weights.clone()))
-        return launch(features, gather_idx, weights)
-
-    pts = torch.from_numpy(frame[None]).cuda()
-    K.sparse_conv_cuda = recording
-    try:
-        infer(model, cfg, pts, torch.ones(pts.shape[:2], dtype=torch.bool,
-                                          device="cuda"))
-    finally:
-        K.sparse_conv_cuda = launch
-    torch.cuda.synchronize()
-    return captured
+    return chip_smoke.capture_k1(model, cfg, frame, "cuda")
 
 
 def main():

@@ -5,7 +5,10 @@ weights carried across by df3d_torch.weights.
 Tolerances: the sampling core matches the XLA formulation and the Pallas
 kernel (interpret mode) to atol 2e-5, the bound tests/test_msda_pallas.py
 holds those two to (f32, other summation order); the module, whose
-projections add two f32 matmuls, to atol 1e-4."""
+projections add two f32 matmuls, to atol 1e-4. The K2 kernel's warp-path
+schedule, emulated in torch (tests/torch_port_helpers.py), matches the
+plain version to atol 1e-6 (the same f32 products, another summation
+order)."""
 
 import jax
 import jax.numpy as jnp
@@ -24,9 +27,14 @@ from df3d_torch.models.fusion.msda_module import (
     MSDeformAttnModule, offset_bias_grid,
 )
 from df3d_torch.ops import msda as tmsda
-from torch_port_helpers import load_flax, seeded_variables
+from torch_port_helpers import (
+    k2_emulate, k2_schedule, load_flax, seeded_variables,
+)
 
 SHAPES = ((6, 9), (3, 5))
+# the preset's head, level and point counts (8, 3, 4; D 16) on small maps
+PRESET = dict(nh=8, d=16, p=4, shapes=((6, 9), (3, 5), (4, 7)))
+OFF_MAP_QUERY = 9
 
 
 def _inputs(seed, q=10):
@@ -41,6 +49,71 @@ def _inputs(seed, q=10):
     w = rng.rand(b, q, nh, len(SHAPES), p).astype(np.float32)
     w /= w.reshape(b, q, nh, -1).sum(-1).reshape(b, q, nh, 1, 1)
     return value, locs, w
+
+
+def _preset_inputs(seed, b=2, q=11):
+    """Seeded inputs at the preset's counts: locations in [-0.2, 1.2],
+    weights normalised per (query, head); at every level point 0 of query
+    0 on the last pixel centre, of query 1 at -0.5 px and of query 2 far
+    off the map; query 9 wholly off the map (the warp path's early
+    exit)."""
+    rng = np.random.RandomState(seed)
+    nh, d, p, shapes = PRESET["nh"], PRESET["d"], PRESET["p"], PRESET["shapes"]
+    lv = sum(h * w for h, w in shapes)
+    value = rng.randn(b, lv, nh, d).astype(np.float32)
+    locs = rng.uniform(-0.2, 1.2, (b, q, nh, len(shapes), p, 2)).astype(
+        np.float32)
+    for lid, (h, w) in enumerate(shapes):
+        locs[:, 0, :, lid, 0] = [(w - 0.5) / w, (h - 0.5) / h]
+    locs[:, 1, :, :, 0] = 0.0
+    locs[:, 2, :, :, 0] = [-1e6, 1e7]
+    locs[:, OFF_MAP_QUERY] = [-1e6, 1e7]
+    w = rng.rand(b, q, nh, len(shapes), p).astype(np.float32)
+    w /= w.reshape(b, q, nh, -1).sum(-1).reshape(b, q, nh, 1, 1)
+    return value, shapes, locs, w
+
+
+@pytest.mark.parametrize("seed", [3, 4])
+def test_plain_matches_xla_and_pallas_preset_counts(seed):
+    """At the counts the kernel's warp path takes, on the inputs on which
+    chip_smoke.py holds the kernel against the plain version."""
+    value, shapes, locs, w = _preset_inputs(seed)
+    got = tmsda.ms_deform_attn(torch.from_numpy(value), shapes,
+                               torch.from_numpy(locs), torch.from_numpy(w))
+    jargs = (jnp.asarray(value), shapes, jnp.asarray(locs), jnp.asarray(w))
+    want = np.asarray(jms_deform_attn(*jargs))
+    pallas = np.asarray(ms_deform_attn_pallas(*jargs, q_tile=8,
+                                              interpret=True))
+    assert got.shape == want.shape == (2, 11, 128)
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-5)
+    np.testing.assert_allclose(got.numpy(), pallas, atol=2e-5)
+    assert not got[:, OFF_MAP_QUERY].any()
+
+
+def test_k2_warp_schedule_covers_each_sample_once():
+    """Every (head, level, point) of a query is computed by one lane, and
+    every lane takes each sample of its own head once, in (level, point)
+    order, from the lane that computed it at that slot."""
+    nl, p = len(PRESET["shapes"]), PRESET["p"]
+    computes, reads = k2_schedule(nl, p)
+    flat = [s for lane in computes for s in lane]
+    assert sorted(flat) == [(h, lvl, pt) for h in range(PRESET["nh"])
+                            for lvl in range(nl) for pt in range(p)]
+    for lane, order in enumerate(reads):
+        got = [computes[src][slot] for src, slot in order]
+        assert got == [(lane // p, lvl, pt) for lvl in range(nl)
+                       for pt in range(p)]
+
+
+@pytest.mark.parametrize("seed,b", [(5, 2), (6, 6)])
+def test_k2_warp_emulation_matches_plain(seed, b):
+    value, shapes, locs, w = (torch.from_numpy(a) if not isinstance(a, tuple)
+                              else a for a in _preset_inputs(seed, b=b, q=19))
+    got = k2_emulate(value, shapes, locs, w)
+    want = tmsda.ms_deform_attn(value, shapes, locs, w)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-6)
+    assert not got[:, OFF_MAP_QUERY].any()
+    assert got[:, 0].abs().max() > 0
 
 
 @pytest.mark.parametrize("seed", [0, 1])

@@ -1,9 +1,11 @@
-"""Rules of the PyTorch port: df3d_torch, chip_smoke.py, k1_ablate.py and
-lidar_wall.py import nothing of JAX or of the JAX package; with no CUDA
-device the entry points raise rather than fall back, and the K1 and K2
-launchers never answer with their plain versions."""
+"""Rules of the PyTorch port: df3d_torch, chip_smoke.py, k1_ablate.py,
+k2_ablate.py and lidar_wall.py import nothing of JAX or of the JAX
+package; with no CUDA device the entry points raise rather than fall back,
+and the K1 and K2 launchers never answer with their plain versions. The
+ablation scripts' source edits still apply to the kernels they copy."""
 
 import ast
+import runpy
 from pathlib import Path
 
 import numpy as np
@@ -23,7 +25,7 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "df3d")
 def _port_files():
     return sorted((ROOT / "df3d_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "k1_ablate.py",
-        ROOT / "lidar_wall.py"]
+        ROOT / "k2_ablate.py", ROOT / "lidar_wall.py"]
 
 
 def _imported_roots(path):
@@ -45,6 +47,21 @@ def _imported_roots(path):
 def test_no_jax_or_jax_package_imports(path):
     bad = sorted({m for m in _imported_roots(path) if m in FORBIDDEN})
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+@pytest.mark.parametrize("script, source",
+                         [("k1_ablate.py", "sparse_conv.cu"),
+                          ("k2_ablate.py", "msda.cu")])
+def test_ablation_edits_apply(script, source):
+    """Each variant's (old, new) edits find their text exactly once in the
+    kernel source, as `build.build_variants` requires on the card."""
+    text = (ROOT / "df3d_torch" / "csrc" / source).read_text()
+    variants = runpy.run_path(str(ROOT / script))["VARIANTS"]
+    assert "kernel" in variants and not variants["kernel"]
+    for name, edits in variants.items():
+        for old, new in edits:
+            assert text.count(old) == 1, f"{script} {name}: {old!r}"
+            assert old != new
 
 
 def test_entry_without_cuda_raises():

@@ -108,3 +108,73 @@ def k1_emulate(features, gather_idx, weights, tile_rows):
             out[b, r[keep]] += prod[keep]
             executed[b, t, r[keep]] += 1
     return out, executed
+
+
+def k2_schedule(n_levels, n_points):
+    """The warp path of the K2 kernel (df3d_torch/csrc/msda.cu,
+    msda_warp_kernel), emulated for one query: P lanes per head, 32 / P
+    heads, each lane 4 channels. Returns (computes, reads): computes[lane]
+    lists the samples (head, level, point) the lane computes, slot by slot
+    (slot = level); reads[lane] lists, in summation order, the (source lane,
+    slot) each of its head's L x P samples is shuffled from."""
+    computes, reads = [], []
+    for lane in range(32):
+        head, point = divmod(lane, n_points)
+        computes.append([(head, lvl, point) for lvl in range(n_levels)])
+        reads.append([(head * n_points + p, lvl) for lvl in range(n_levels)
+                      for p in range(n_points)])
+    return computes, reads
+
+
+def k2_emulate(value, spatial_shapes, sampling_locations, attention_weights):
+    """The warp path's arithmetic in its order, vectorised over (B, Q): each
+    lane's samples as the kernel packs them (top-left pixel * 16 + the
+    corners' in-bounds mask, four corner weights with the attention weight
+    folded in, 0 off the map), then per lane its head's samples taken from
+    their source lanes and summed in (level, point, corner) order over its
+    4 channels. Takes the kernel's shapes (nH x D = 128, D = 4P)."""
+    b, len_v, nh, d = value.shape
+    q, nl, npnt = sampling_locations.shape[1], *sampling_locations.shape[3:5]
+    assert nh * d == 128 and d == 4 * npnt
+    starts, acc_start = [], 0
+    for h, w in spatial_shapes:
+        starts.append(acc_start)
+        acc_start += h * w
+    computes, reads = k2_schedule(nl, npnt)
+    packed = {}
+    for lane, samples in enumerate(computes):
+        for slot, (head, lvl, point) in enumerate(samples):
+            h, w = spatial_shapes[lvl]
+            xy = sampling_locations[:, :, head, lvl, point]
+            a = attention_weights[:, :, head, lvl, point]
+            px, py = xy[..., 0] * w - 0.5, xy[..., 1] * h - 0.5
+            x0, y0 = torch.floor(px), torch.floor(py)
+            near = (x0 >= -1) & (x0 < w) & (y0 >= -1) & (y0 < h)
+            dx, dy = px - x0, py - y0
+            xi = torch.where(near, x0, 0).long()
+            yi = torch.where(near, y0, 0).long()
+            x_lo, x_hi, y_lo, y_hi = xi >= 0, xi + 1 < w, yi >= 0, yi + 1 < h
+            inb = [x_lo & y_lo, x_hi & y_lo, x_lo & y_hi, x_hi & y_hi]
+            mask = sum(m.long() << k for k, m in enumerate(inb)) * near
+            corner = torch.where(near, (starts[lvl] + yi * w + xi) * 16 + mask,
+                                 0)
+            cw = [a * ((1 - dx) * (1 - dy)), a * (dx * (1 - dy)),
+                  a * ((1 - dx) * dy), a * (dx * dy)]
+            cw = [torch.where(near & m, c, 0.0) for c, m in zip(cw, inb)]
+            packed[lane, slot] = (corner, cw)
+    rows = value.view(b, len_v, 32, 4)   # (camera, pixel, lane, 4 channels)
+    cam = torch.arange(b).view(b, 1)
+    out = value.new_zeros(b, q, 32, 4)
+    for lane in range(32):
+        acc = value.new_zeros(b, q, 4)
+        for src, slot in reads[lane]:
+            corner, cw = packed[src, slot]
+            w = spatial_shapes[computes[src][slot][1]][1]
+            base = corner >> 4
+            for k, step in enumerate((0, 1, w, w + 1)):
+                hit = (corner >> k) & 1 == 1
+                pix = torch.where(hit, base + step, 0)
+                v = rows[cam, pix, lane] * hit[..., None]
+                acc = acc + v * cw[k][..., None]
+        out[:, :, lane] = acc
+    return out.view(b, q, nh * d)
