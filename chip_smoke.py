@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving paths on one CUDA card: CenterPoint
-(LiDAR only) and CenterPoint + 3D-DF (six cameras + LiDAR).
+(LiDAR only), CenterPoint + 3D-DF (six cameras + LiDAR), TransFusion-L
+(LiDAR only) and TransFusion + 3D-DF (six cameras + LiDAR).
 
     python3 chip_smoke.py
 
@@ -41,18 +42,39 @@ any failure raises and the process exits non-zero:
    launch must take the kernel's warp path on the tensors the path passes,
    and its output is held against the plain version with the tolerance of
    phase 4 and a repeat launch against the first, bit for bit; so are
-   small inputs at K2's edge cases, on both of the kernel's paths. Per launch: the stream time of
+   small inputs at K2's edge cases, on both of the kernel's paths (the
+   warp path at L = 3 and L = 1). Per launch: the stream time of
    back-to-back wrapper calls and the device time (as for K1), the plain
-   version's time, the bound (the locations, weights and output once and
-   the (camera, pixel, head) value rows that in-bounds corners touch) and,
-   beside it, the bound with the whole value table read. The frame must
-   launch K2 once and K1 16 times.
+   version's time, the general path's device time on the same inputs (the
+   value table copied to an address the warp path does not take), the
+   bound (the locations, weights and output once and the (camera, pixel,
+   head) value rows that in-bounds corners touch) and, beside it, the
+   bound with the whole value table read. The frame must launch K2 once
+   and K1 16 times.
 8. fused main path: `infer_fused` on full-width frames (260k ray-cast
    points, six random normalized images, the nuScenes-like rig of
    `utils.synth.camera_rig`), warm-up then timed frames, launch counts set
    to 0 around the loop. Prints ms/frame, peak memory, the share of the
    stage-4 voxels each camera sees, a host-clock stage split and a
    one-frame profile.
+9. small TransFusion-L input: `infer_transfusion` on the card against the
+   CPU on a small config: dense heatmap to atol = rtol = 1e-3, equal query
+   labels and query positions, every branch, boxes and scores to 1e-3,
+   equal voxel coords and cap overflows.
+10. TransFusion-L (the `transfusion_l_nusc` preset, the stage caps above):
+   every K1 launch of one full-width frame against the plain version, as
+   in phase 4 (no edge cases again), then `infer_transfusion` on
+   full-width frames as phase 5 does: K1 16 launches per frame, K2 none.
+11. small TransFusion + 3D-DF input: `infer_transfusion_fused` on the card
+   against the CPU, 2 cameras of 64x112 (FPN levels that do not halve
+   exactly), one-block ResNet stages, tolerances of phase 9.
+12. K2 at the `transfusion_3ddf_nusc` preset's shapes (six 448x800
+   cameras, ResNet-50 + FPN, ACTRv2 of two layers on FPN level P2, 112x200
+   at 256 channels): both launches of one full-width frame, each on the
+   warp path (L = 1) and held against the plain version as in phase 7.
+   The frame must launch K2 twice and K1 16 times.
+13. TransFusion + 3D-DF main path: `infer_transfusion_fused` on full-width
+   frames as phase 8 does: K1 16 and K2 2 launches per frame.
 
 TF32 is off for matmuls and cuDNN convs: the port serves in f32 (the JAX
 package's "exact" profile) and the comparisons need full f32. cuDNN picks
@@ -61,8 +83,10 @@ its conv algorithms by timing them (cudnn.benchmark).
 Each timed path prints a host-clock stage split (`df3d_torch.utils.stages`)
 and a one-frame profile. The last two lines of stdout are one JSON object
 on the kernels (times from this run, bounds from this run's inputs,
-launches from the timed runs of both paths, also given by path; both give
-their device time, K1 its f32 CUDA-core bound, K2 its whole-table bound)
+launches from the timed runs of all four paths, also given by path; both
+give their device time, K1 its f32 CUDA-core bound, K2 its whole-table
+bound and general-path time; the top-level numbers are those of the
+CenterPoint paths, and under "transfusion" those of the TransFusion ones)
 and the result line
 {"ok": true, "device": {...}}. With no CUDA device, or outside a checkout,
 the script exits non-zero without them.
@@ -89,6 +113,7 @@ FUSED_TIMED_FRAMES = 5
 K1_PER_FRAME = 16
 K1_TILE_ROWS = 64
 K2_PER_FUSED_FRAME = 1
+K2_PER_TRANSFUSION_FUSED_FRAME = 2  # one per ACTR layer
 # a K2 output element costs ~14 FLOP of corner arithmetic per sample and
 # head (shared by its D channels) plus a multiply-add per in-bounds corner
 K2_FLOP_PER_SAMPLE = 14
@@ -142,12 +167,22 @@ def card_line():
         check=True, capture_output=True, text=True).stdout.strip()
 
 
-def card_vs_cpu(label, build, cfg, inputs, infer_fn, dev):
-    """The path with its kernels on the card against the same path with the
+def to_cpu(tree):
+    """The tensors of nested dicts and lists, on the CPU."""
+    if isinstance(tree, dict):
+        return {k: to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [to_cpu(v) for v in tree]
+    return tree.cpu()
+
+
+def run_card_and_cpu(label, build, cfg, inputs, infer_fn, dev):
+    """The path with its kernels on the card and the same path with the
     plain versions on the CPU: same weights (`build(device)`) and inputs
     (CPU tensors: points, valid, then the fused path's images and proj).
-    Voxel coords, cap overflows and kept boxes equal; head maps to atol =
-    rtol = 1e-3."""
+    Checks that voxel coords and cap overflows are equal; returns (CPU
+    run, card run), each (head predictions, detections, overflows) on the
+    CPU."""
     from df3d_torch.ops.voxelize import voxelize_batch
 
     out = []
@@ -160,14 +195,20 @@ def card_vs_cpu(label, build, cfg, inputs, infer_fn, dev):
                                  cfg.max_points_per_voxel)
             preds, _, _ = model(res.features, res.coords, *args[2:])
             det, overflow = infer_fn(model, cfg, *args)
-        out.append((res.coords.cpu(),
-                    [{k: t.cpu() for k, t in p.items()} for p in preds],
-                    {k: t.cpu() for k, t in det.items()},
-                    {k: t.cpu() for k, t in overflow.items()}))
-    (c_coords, c_preds, c_det, c_ov), (g_coords, g_preds, g_det, g_ov) = out
+        out.append(to_cpu((res.coords, preds, det, overflow)))
+    (c_coords, *cpu), (g_coords, *card) = out
     check(torch.equal(c_coords, g_coords), f"{label}: voxel coords differ")
-    for k in c_ov:
-        check(torch.equal(c_ov[k], g_ov[k]), f"{label}: {k} differs")
+    for k in cpu[2]:
+        check(torch.equal(cpu[2][k], card[2][k]), f"{label}: {k} differs")
+    return cpu, card
+
+
+def card_vs_cpu(label, build, cfg, inputs, infer_fn, dev):
+    """CenterPoint's paths, card against CPU (`run_card_and_cpu`): voxel
+    coords, cap overflows and kept boxes equal; head maps to atol = rtol =
+    1e-3."""
+    (c_preds, c_det, c_ov), (g_preds, g_det, _) = run_card_and_cpu(
+        label, build, cfg, inputs, infer_fn, dev)
     worst = 0.0
     for cp, gp in zip(c_preds, g_preds):
         for k in cp:
@@ -183,6 +224,31 @@ def card_vs_cpu(label, build, cfg, inputs, infer_fn, dev):
                                atol=1e-3, rtol=1e-3)
     log(f"{label}: card vs CPU plain path agree: max head-map diff "
         f"{worst:.3g}, {int(m.sum())} kept boxes equal, cap overflow "
+        + ", ".join(f"{k}={int(v.sum())}" for k, v in c_ov.items()))
+
+
+def transfusion_card_vs_cpu(label, build, cfg, inputs, infer_fn, dev):
+    """TransFusion's paths, card against CPU (`run_card_and_cpu`): voxel
+    coords, cap overflows, query labels, query positions and decoded labels
+    equal; the dense heatmap, every branch, boxes and scores to atol = rtol
+    = 1e-3."""
+    (c_preds, c_det, c_ov), (g_preds, g_det, _) = run_card_and_cpu(
+        label, build, cfg, inputs, infer_fn, dev)
+    for k in ("query_labels", "query_pos_xy"):
+        check(torch.equal(c_preds[k], g_preds[k]), f"{label}: {k} differ")
+    check(torch.equal(c_det["labels"], g_det["labels"]),
+          f"{label}: decoded labels differ")
+    worst = 0.0
+    for tree_c, tree_g in ((c_preds, g_preds), (c_det, g_det)):
+        for k, t in tree_c.items():
+            if not t.is_floating_point():
+                continue
+            check(torch.isfinite(tree_g[k]).all(), f"{label}: non-finite {k}")
+            torch.testing.assert_close(tree_g[k], t, atol=1e-3, rtol=1e-3)
+            worst = max(worst, (tree_g[k] - t).abs().max().item())
+    log(f"{label}: card vs CPU plain path agree: {c_preds['query_labels'].numel()}"
+        f" query labels and positions equal, max diff of the heatmap, "
+        f"branches, boxes and scores {worst:.3g}, cap overflow "
         + ", ".join(f"{k}={int(v.sum())}" for k, v in c_ov.items()))
 
 
@@ -281,11 +347,14 @@ def k1_edge_cases(launch, plain):
         "version, and repeat launches give the same bits")
 
 
-def capture_k1(model, cfg, frame, dev):
+def capture_k1(model, cfg, frame, dev, infer_fn=None):
     """The (features, gather_idx, weights) of every K1 launch of one
-    `infer` of `frame`, cloned as the wrapper was given them."""
+    `infer_fn` (default `entry.infer`) of `frame`, cloned as the wrapper was
+    given them."""
     from df3d_torch.entry import infer
     from df3d_torch.ops import sparse_conv_kernel as K
+
+    infer_fn = infer_fn or infer
 
     captured = []
     launch = K.sparse_conv_cuda
@@ -299,25 +368,27 @@ def capture_k1(model, cfg, frame, dev):
     valid = torch.ones(pts.shape[:2], dtype=torch.bool, device=dev)
     K.sparse_conv_cuda = recording
     try:
-        infer(model, cfg, pts, valid)
+        infer_fn(model, cfg, pts, valid)
     finally:
         K.sparse_conv_cuda = launch
     torch.cuda.synchronize()
     return captured
 
 
-def phase_k1(model, cfg, frame, dev):
-    """Capture every K1 launch of one forward; hold each against the plain
-    version (and a repeat launch against the first, bit for bit) and time
-    both."""
+def phase_k1(model, cfg, frame, dev, infer_fn=None, edge_cases=True):
+    """Capture every K1 launch of one forward (`infer_fn`, default
+    `entry.infer`); hold each against the plain version (and a repeat
+    launch against the first, bit for bit) and time both. With
+    `edge_cases`, K1's edge cases first."""
     from df3d_torch.ops import sparse_conv_kernel as K
 
-    captured = capture_k1(model, cfg, frame, dev)
+    captured = capture_k1(model, cfg, frame, dev, infer_fn)
     launch = K.sparse_conv_cuda
     check(len(captured) == K1_PER_FRAME,
           f"expected {K1_PER_FRAME} K1 launches per frame, saw {len(captured)}")
 
-    k1_edge_cases(launch, K.sparse_conv_plain)
+    if edge_cases:
+        k1_edge_cases(launch, K.sparse_conv_plain)
     rows, max_err = [], 0.0
     log("K1 per launch (tolerance: max|kernel - plain| <= 1e-4*max|plain| "
         "+ 1e-5; a repeat launch equals the first bit for bit). Rows run: "
@@ -400,13 +471,15 @@ def profile_frame(run_frame):
             f"{e.key[:100]}")
 
 
-def timed_path(label, run, cfg, inputs, n_frames, per_frame):
+def timed_path(label, run, n_boxes, inputs, n_frames, per_frame):
     """`run(*inputs[i])` on full-width frames: one warm-up pass over the
     inputs, then `n_frames` timed frames with every kernel's launch count
     set to 0 just before and read just after; `per_frame` maps each kernel
-    module to the launches a frame must make. Prints ms/frame, launches,
-    peak memory, overflows and kept boxes, then a host-clock stage split
-    and a one-frame profile of inputs[0]. Returns the launch counts."""
+    module to the launches a frame must make, and each frame's detections
+    must hold `n_boxes` finite boxes. Prints ms/frame, launches, peak
+    memory, overflows and kept boxes (those marked valid where the decode
+    marks them), then a host-clock stage split and a one-frame profile of
+    inputs[0]. Returns the launch counts."""
     from df3d_torch.utils import stages
 
     for args in inputs:
@@ -434,7 +507,7 @@ def timed_path(label, run, cfg, inputs, n_frames, per_frame):
         for key, t in det.items():
             if t.is_floating_point():
                 check(torch.isfinite(t).all(), f"{label}: non-finite {key}")
-        shape = (1, len(cfg.tasks) * cfg.nms_post_max_size, 9)
+        shape = (1, n_boxes, 9)
         check(tuple(det["boxes"].shape) == shape,
               f"{label}: boxes {tuple(det['boxes'].shape)}, expected {shape}")
     log(f"{label}: {n_frames} frames, ms/frame mean "
@@ -446,7 +519,8 @@ def timed_path(label, run, cfg, inputs, n_frames, per_frame):
                     for k, v in launches.items())
         + f"; peak memory {peak / 2**30:.3f} GiB")
     for i, (det, overflow) in enumerate(dets[:len(inputs)]):
-        log(f"{label} frame {i}: kept boxes {int(det['valid'].sum())}; cap "
+        kept = int(det["valid"].sum()) if "valid" in det else n_boxes
+        log(f"{label} frame {i}: kept boxes {kept}; cap "
             "overflow " + ", ".join(f"{k}={int(v.sum())}"
                                     for k, v in overflow.items()))
     with torch.no_grad(), stages.recording() as split:
@@ -457,15 +531,16 @@ def timed_path(label, run, cfg, inputs, n_frames, per_frame):
     return launches
 
 
-def phase_main_path(model, cfg, frames, dev):
-    from df3d_torch.entry import infer
+def phase_main_path(label, model, cfg, frames, dev, infer_fn, n_boxes):
+    """`timed_path` of a LiDAR-only path (`infer_fn`): K1 16 launches per
+    frame, K2 none."""
     from df3d_torch.ops import msda_kernel as K2
     from df3d_torch.ops import sparse_conv_kernel as K1
 
     inputs = [(torch.from_numpy(f[None]).to(dev),
                torch.ones(1, len(f), dtype=torch.bool, device=dev))
               for f in frames]
-    return timed_path("main path", lambda *a: infer(model, cfg, *a), cfg,
+    return timed_path(label, lambda *a: infer_fn(model, cfg, *a), n_boxes,
                       inputs, TIMED_FRAMES, {K1: K1_PER_FRAME, K2: 0})
 
 
@@ -562,19 +637,22 @@ def k2_check(label, launch, plain, value, shapes, locs, attn):
 
 def k2_edge_cases(launch, plain, warp_path):
     """K2 against its plain version on both of the kernel's paths. Warp
-    path (nH 8, D 16, L 3, P 4): a small map, Q not a multiple of the 8
-    queries a block holds, Q = 1, B = 6, and a wholly off-map query between
-    two visible ones in one block (its output must be exactly 0). General
-    path: the same shapes with an unaligned value table; D 5 and 8, nH 2
-    and 3, L 1, 2 and 8, P 1 and 2. Every case also puts samples on the
-    last pixel centre, at -0.5 px and far off the map. Each repeat launch
-    must give the same bits."""
+    path (nH 8, D 16, P 4; L 3 and L 1): a small map, Q not a multiple of
+    the 8 queries a block holds, Q = 1, B = 6, and a wholly off-map query
+    between two visible ones in one block (its output must be exactly 0).
+    General path: the same shapes with an unaligned value table; D 5 and 8,
+    nH 2 and 3, L 1, 2 and 8, P 1 and 2. Every case also puts samples on
+    the last pixel centre, at -0.5 px and far off the map. Each repeat
+    launch must give the same bits."""
     g = torch.Generator(device="cuda").manual_seed(3)
     # (B, Q, nH, D, levels, P, off-map queries, value offset, warp path)
     cases = [(2, 37, 8, 16, K2_LEVELS, 4, (9,), 0, True),
              (1, 1, 8, 16, K2_LEVELS, 4, (), 0, True),
              (6, 20, 8, 16, K2_LEVELS, 4, (11,), 0, True),
+             (2, 37, 8, 16, K2_LEVELS[:1], 4, (9,), 0, True),
+             (6, 20, 8, 16, K2_LEVELS[2:], 4, (11,), 0, True),
              (2, 37, 8, 16, K2_LEVELS, 4, (9,), 1, False),
+             (2, 37, 8, 16, K2_LEVELS[:1], 4, (9,), 1, False),
              (2, 10, 2, 8, K2_LEVELS[:2], 4, (), 0, False),
              (1, 1000, 8, 16, K2_LEVELS[:2], 4, (), 0, False),
              (3, 77, 3, 5, K2_LEVELS[:2], 2, (), 0, False),
@@ -591,11 +669,22 @@ def k2_edge_cases(launch, plain, warp_path):
                                 attn)
         for i in off_map:
             check(not out[:, i].any(), f"{label}: off-map query {i} is not 0")
-    log("K2 edge cases (warp path: a small map, Q = 37 and 1, B = 6, an "
-        "off-map query inside a block; general path: an unaligned table, D "
-        "5 and 8, nH 2 and 3, L 1, 2 and 8, P 1 and 2; samples on the last "
-        "pixel centre, at -0.5 px and far off the map): agree with the "
-        "plain version, and repeat launches give the same bits")
+    log("K2 edge cases (warp path at L = 3 and L = 1: a small map, Q = 37 "
+        "and 1, B = 6, an off-map query inside a block; general path: "
+        "unaligned tables at L = 3 and 1, D 5 and 8, nH 2 and 3, L 1, 2 and "
+        "8, P 1 and 2; samples on the last pixel centre, at -0.5 px and far "
+        "off the map): agree with the plain version, and repeat launches "
+        "give the same bits")
+
+
+def unaligned_copy(value):
+    """`value`'s numbers in storage that starts 4 bytes past a 16-byte
+    boundary: the same function on the kernel's general path."""
+    storage = torch.empty(value.numel() + 1, device=value.device,
+                          dtype=value.dtype)
+    out = storage[1:].view(value.shape)
+    out.copy_(value)
+    return out
 
 
 def k2_touched_rows(value, shapes, locs):
@@ -619,14 +708,15 @@ def k2_touched_rows(value, shapes, locs):
     return keys.numel(), int(torch.unique(keys).numel())
 
 
-def capture_k2(model, cfg, inputs):
-    """Every K2 launch of one `infer_fused` of `inputs`: the wrapper's
-    (value, shapes, locations, weights), cloned, and whether the kernel
-    takes its warp path on the tensors the path passed (asked before the
-    clone, which is always aligned)."""
+def capture_k2(model, cfg, inputs, infer_fn=None):
+    """Every K2 launch of one `infer_fn` (default `entry.infer_fused`) of
+    `inputs`: the wrapper's (value, shapes, locations, weights), cloned,
+    and whether the kernel takes its warp path on the tensors the path
+    passed (asked before the clone, which is always aligned)."""
     from df3d_torch.entry import infer_fused
     from df3d_torch.ops import msda_kernel as K2
 
+    infer_fn = infer_fn or infer_fused
     captured = []
     launch = K2.msda_cuda
 
@@ -637,24 +727,26 @@ def capture_k2(model, cfg, inputs):
 
     K2.msda_cuda = recording
     try:
-        infer_fused(model, cfg, *inputs)
+        infer_fn(model, cfg, *inputs)
     finally:
         K2.msda_cuda = launch
     torch.cuda.synchronize()
     return captured
 
 
-def phase_k2(model, cfg, inputs):
-    """Capture every K2 launch of one fused frame (and count K1's); hold
-    each K2 output against the plain version and time both."""
+def phase_k2(model, cfg, inputs, infer_fn, per_frame, edge_cases=True):
+    """Capture every K2 launch of one fused frame (`infer_fn`; `per_frame`
+    of them, and K1's 16 counted); with `edge_cases`, K2's edge cases;
+    hold each K2 output against the plain version and time it, the plain
+    version and the general path on the same inputs."""
     from df3d_torch.ops import msda_kernel as K2
     from df3d_torch.ops import sparse_conv_kernel as K1
 
     K1.launches = 0
-    captured = capture_k2(model, cfg, inputs)
+    captured = capture_k2(model, cfg, inputs, infer_fn)
     launch = K2.msda_cuda
-    check(len(captured) == K2_PER_FUSED_FRAME,
-          f"expected {K2_PER_FUSED_FRAME} K2 launch per fused frame, saw "
+    check(len(captured) == per_frame,
+          f"expected {per_frame} K2 launches per fused frame, saw "
           f"{len(captured)}")
     check(K1.launches == K1_PER_FRAME,
           f"expected {K1_PER_FRAME} K1 launches per fused frame, saw "
@@ -663,12 +755,14 @@ def phase_k2(model, cfg, inputs):
         check(warp, f"K2 launch {i}: the main path's tensors missed the "
               "warp path")
 
-    k2_edge_cases(launch, K2.msda_plain, K2.warp_path)
+    if edge_cases:
+        k2_edge_cases(launch, K2.msda_plain, K2.warp_path)
     rows, max_err = [], 0.0
     log("K2 per launch (tolerance: max|kernel - plain| <= 1e-4*max|plain| "
         "+ 1e-5; a repeat launch equals the first bit for bit). kernel = "
         "stream time of back-to-back wrapper calls, device = the same calls "
-        "queued behind a spin (CUDA events); bound = locations and weights "
+        "queued behind a spin (CUDA events), general = device time of the "
+        "same launch on the general path; bound = locations and weights "
         "read and the output written once, and the value rows that in-bounds "
         "corners touch read once; table bound = the same with the whole "
         "value table:")
@@ -682,6 +776,14 @@ def phase_k2(model, cfg, inputs):
         dev_ms = device_ms(lambda: launch(value, shapes, locs, attn), 20)
         plain_ms = cuda_ms(lambda: K2.msda_plain(value, shapes, locs, attn),
                            5)
+        general = unaligned_copy(value)
+        check(not K2.warp_path(general, shapes, locs),
+              f"K2 launch {i}: the unaligned copy took the warp path")
+        k2_check(f"K2 launch {i} on the general path", launch, K2.msda_plain,
+                 general, shapes, locs, attn)
+        general_ms = device_ms(lambda: launch(general, shapes, locs, attn),
+                               20)
+        del general
         # the in-bounds corners this frame's locations need, and the rows
         corners, touched = k2_touched_rows(value, shapes, locs)
         samples = b * q * nh * nl * npnt
@@ -694,8 +796,9 @@ def phase_k2(model, cfg, inputs):
         table_ms = 1e3 * max(t_ops, table_bytes / HBM_BYTES_PER_S)
         bound_by = "operations" if t_ops >= t_bytes else "bytes"
         rows.append(dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
-                         bound_ms=bound_ms, table_bound_ms=table_ms,
-                         touched_rows=touched, t_ops=t_ops, t_bytes=t_bytes))
+                         general_ms=general_ms, bound_ms=bound_ms,
+                         table_bound_ms=table_ms, touched_rows=touched,
+                         t_ops=t_ops, t_bytes=t_bytes))
         log(f"  #{i}: value {tuple(value.shape)}, locations "
             f"{tuple(locs.shape)}, levels {list(shapes)}; in-bounds corners "
             f"{corners} of {4 * samples} ({corners / (4 * samples):.3f}); "
@@ -703,9 +806,9 @@ def phase_k2(model, cfg, inputs):
             f"({touched / (b * len_v * nh):.3f}); {nbytes / 1e6:.1f} MB "
             f"({table_bytes / 1e6:.1f} MB with the whole table), "
             f"{flops / 1e9:.3f} GFLOP; kernel {ms:.4f} ms, device "
-            f"{dev_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-            f"{bound_ms:.5f} ms ({bound_by}), table bound {table_ms:.5f} "
-            f"ms; max abs err {err:.3g} "
+            f"{dev_ms:.4f} ms, general {general_ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}), "
+            f"table bound {table_ms:.5f} ms; max abs err {err:.3g} "
             f"(tol {tol:.3g})")
     total = {key: sum(r[key] for r in rows) for key in rows[0]}
     return dict(
@@ -717,33 +820,101 @@ def phase_k2(model, cfg, inputs):
                   else "bytes"),
         library_ms=None, device_ms=total["device_ms"],
         table_bound_ms=total["table_bound_ms"],
+        general_ms=total["general_ms"],
         touched_rows=total["touched_rows"])
 
 
-def phase_fused_main_path(model, cfg, fcfg, frames, dev):
-    from df3d_torch.entry import infer_fused
+def phase_fused_main_path(label, model, cfg, fcfg, frames, dev, infer_fn,
+                          n_boxes, k2_per_frame):
+    """`timed_path` of a camera+LiDAR path (`infer_fn`), then the share of
+    the stride-8 voxels each camera sees."""
+    from df3d_torch.models.fusion.hooks import MultiCamACTRFusionHook
     from df3d_torch.ops import msda_kernel as K2
     from df3d_torch.ops import sparse_conv_kernel as K1
 
     inputs = [fused_inputs(f, fcfg.num_cams, fcfg.image_shape, dev, 10 + i)
               for i, f in enumerate(frames)]
     launches = timed_path(
-        "fused main path", lambda *a: infer_fused(model, cfg, *a), cfg,
-        inputs, FUSED_TIMED_FRAMES, {K1: K1_PER_FRAME,
-                                     K2: K2_PER_FUSED_FRAME})
+        label, lambda *a: infer_fn(model, cfg, *a), n_boxes, inputs,
+        FUSED_TIMED_FRAMES, {K1: K1_PER_FRAME, K2: k2_per_frame})
 
     # which stage-4 voxels each camera sees (ACTR's query mask)
     seen = []
-    handle = model.detector.backbone.fusion_hook.actr.register_forward_hook(
+    hook = next(m for m in model.modules()
+                if isinstance(m, MultiCamACTRFusionHook))
+    handle = hook.actr.register_forward_hook(
         lambda mod, inp, out: seen.append(inp[4]))
-    infer_fused(model, cfg, *inputs[0])
+    infer_fn(model, cfg, *inputs[0])
     handle.remove()
     mask = seen[0].view(fcfg.num_cams, -1)
-    log(f"queries: {mask.shape[1]} stage-4 rows per camera, "
+    log(f"{label} queries: {mask.shape[1]} stage-4 rows per camera, "
         f"{fcfg.num_cams * mask.shape[1]} in all; share each camera sees "
         f"(of the rows): {[round(v, 4) for v in mask.float().mean(1).tolist()]}"
         f"; rows seen by any camera {int(mask.any(0).sum())}")
     return launches
+
+
+def small_transfusion_config():
+    """TransFusion-L on `entry.small_cfg()`'s grid, at the preset's head
+    widths (10 classes, 200 proposals, hidden 128, 8 heads) on its 16x16
+    BEV map."""
+    from df3d_torch.entry import small_cfg, transfusion_l_nusc
+
+    c = small_cfg()
+    base = transfusion_l_nusc()
+    head = dataclasses.replace(
+        base.head, bev_size=(c.grid_size[1] // 8, c.grid_size[2] // 8),
+        voxel_size=c.voxel_size[:2], pc_range=c.pc_range[:2])
+    return dataclasses.replace(
+        base, pc_range=c.pc_range, voxel_size=c.voxel_size,
+        grid_size=c.grid_size, max_voxels=c.max_voxels,
+        stage_caps=c.stage_caps, head=head)
+
+
+def phase_small_transfusion(dev):
+    from df3d_torch.entry import (
+        build_transfusion, infer_transfusion, random_points,
+    )
+
+    cfg = small_transfusion_config()
+    pts = torch.from_numpy(random_points(np.random.RandomState(2), 1, 2000))
+    valid = torch.ones(pts.shape[:2], dtype=torch.bool)
+    transfusion_card_vs_cpu(
+        "small TransFusion-L input",
+        lambda d: build_transfusion(cfg, d, seed=0), cfg, [pts, valid],
+        infer_transfusion, dev)
+
+
+def phase_small_transfusion_fused(dev):
+    from df3d_torch.entry import (
+        build_transfusion3ddf, fused_config, infer_transfusion_fused,
+        random_points, transfusion_3ddf_nusc,
+    )
+
+    cfg = small_transfusion_config()
+    preset = transfusion_3ddf_nusc()
+    fcfg = fused_config(preset, image_shape=(64, 112),
+                        image_layers=(1, 1, 1, 1), num_cams=2,
+                        actr=dataclasses.replace(preset["actr"],
+                                                 lt_npoint=64))
+    frame = random_points(np.random.RandomState(3), 1, 2000)[0]
+    transfusion_card_vs_cpu(
+        "small TransFusion + 3D-DF input",
+        lambda d: build_transfusion3ddf(cfg, fcfg, d, seed=0), cfg,
+        list(fused_inputs(frame, fcfg.num_cams, fcfg.image_shape, "cpu", 0)),
+        infer_transfusion_fused, dev)
+
+
+def full_transfusion_configs():
+    """(TransFusion-L, its FusedConfig) of the `transfusion_3ddf_nusc`
+    preset at the stage caps above (bench.py's for this model)."""
+    from df3d_torch.entry import fused_config, transfusion_3ddf_nusc
+
+    preset = transfusion_3ddf_nusc()
+    cfg = dataclasses.replace(preset["lidar"],
+                              max_voxels=REALISTIC_STAGE_CAPS[0],
+                              stage_caps=REALISTIC_STAGE_CAPS)
+    return cfg, fused_config(preset)
 
 
 def main():
@@ -751,7 +922,11 @@ def main():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
     from df3d_torch.models.detectors.centerpoint import CenterPointConfig
-    from df3d_torch.entry import build_centerpoint, build_centerpoint3ddf
+    from df3d_torch.entry import (
+        build_centerpoint, build_centerpoint3ddf, build_transfusion,
+        build_transfusion3ddf, infer, infer_fused, infer_transfusion,
+        infer_transfusion_fused,
+    )
     from df3d_torch.ops import build
     from df3d_torch.ops import msda_kernel as K2
     from df3d_torch.ops import sparse_conv_kernel as K1
@@ -788,21 +963,56 @@ def main():
     model = build_centerpoint(cfg, dev, seed=0)
     frames = full_width_frames(3)
     k1 = phase_k1(model, cfg, frames[0], dev)
-    lidar = phase_main_path(model, cfg, frames, dev)
+    lidar = phase_main_path("main path", model, cfg, frames, dev, infer,
+                            len(cfg.tasks) * cfg.nms_post_max_size)
     del model
 
     phase_small_fused(dev)
     fcfg_l, fcfg = full_fused_configs()
     fmodel = build_centerpoint3ddf(fcfg_l, fcfg, dev, seed=0)
     k2 = phase_k2(fmodel, fcfg_l, fused_inputs(frames[0], fcfg.num_cams,
-                                               fcfg.image_shape, dev, 10))
-    fused = phase_fused_main_path(fmodel, fcfg_l, fcfg, frames, dev)
+                                               fcfg.image_shape, dev, 10),
+                  infer_fused, K2_PER_FUSED_FRAME)
+    fused = phase_fused_main_path(
+        "fused main path", fmodel, fcfg_l, fcfg, frames, dev, infer_fused,
+        len(fcfg_l.tasks) * fcfg_l.nms_post_max_size, K2_PER_FUSED_FRAME)
+    del fmodel
+
+    phase_small_transfusion(dev)
+    tcfg, tfcfg = full_transfusion_configs()
+    tmodel = build_transfusion(tcfg, dev, seed=0)
+    tk1 = phase_k1(tmodel, tcfg, frames[0], dev, infer_transfusion,
+                   edge_cases=False)
+    tlidar = phase_main_path("TransFusion-L path", tmodel, tcfg, frames, dev,
+                             infer_transfusion, tcfg.head.num_proposals)
+    del tmodel
+
+    phase_small_transfusion_fused(dev)
+    tfmodel = build_transfusion3ddf(tcfg, tfcfg, dev, seed=0)
+    tk2 = phase_k2(tfmodel, tcfg, fused_inputs(frames[0], tfcfg.num_cams,
+                                               tfcfg.image_shape, dev, 10),
+                   infer_transfusion_fused, K2_PER_TRANSFUSION_FUSED_FRAME,
+                   edge_cases=False)
+    tfused = phase_fused_main_path(
+        "TransFusion + 3D-DF path", tfmodel, tcfg, tfcfg, frames, dev,
+        infer_transfusion_fused, tcfg.head.num_proposals,
+        K2_PER_TRANSFUSION_FUSED_FRAME)
+
     # each path's timed run, counts set to 0 just before it and read just
-    # after; "launches" sums the paths
-    for entry, kernel in ((k1, K1), (k2, K2)):
-        entry["launches_by_path"] = {"lidar": lidar[kernel],
-                                     "fused": fused[kernel]}
-        entry["launches"] = lidar[kernel] + fused[kernel]
+    # after; "launches" sums the paths. The top-level numbers are the
+    # CenterPoint paths' (phases 4 and 7), "transfusion" holds phases 10's
+    # and 12's.
+    paths = {"lidar": lidar, "fused": fused, "transfusion_lidar": tlidar,
+             "transfusion_fused": tfused}
+    for entry, kernel, extra in ((k1, K1, tk1), (k2, K2, tk2)):
+        entry["launches_by_path"] = {name: launches[kernel]
+                                     for name, launches in paths.items()}
+        entry["launches"] = sum(entry["launches_by_path"].values())
+        entry["transfusion"] = {k: v for k, v in extra.items()
+                                if k not in ("name", "route", "source",
+                                             "replaces", "library_ms")}
+        entry["max_abs_err"] = max(entry["max_abs_err"],
+                                   extra["max_abs_err"])
 
     log(f"card: {card}")
     print(json.dumps({"kernels": [k1, k2]}))

@@ -52,10 +52,14 @@
 //  * deterministic: no atomics, each output channel summed by one lane in a
 //    fixed (level, point, corner) order, so a repeat launch gives the same
 //    bits.
-// Other shapes (D not 4P, nH x D != 128, L != 3 or P != 4, unaligned
-// pointers, larger tables) take the general path, msda_thread_kernel: one
-// thread per output element as in the first design, with the level loop
-// unrolled to constant indices (no stack frame).
+// The warp path is instantiated for the presets' (L, P): (3, 4) for
+// CenterPoint + 3D-DF and (1, 4) for TransFusion + 3D-DF (six 448x800
+// cameras, one FPN level of 112x200, value (6, 22400, 8, 16), 10240 queries
+// a camera, two launches a frame). Other shapes (D not 4P, nH x D != 128,
+// L not 1 or 3, P != 4, unaligned pointers, larger tables) take the general
+// path, msda_thread_kernel: one thread per output element as in the first
+// design, with the level loop unrolled to constant indices (no stack
+// frame).
 //
 // Measured at the preset's full width (k2_ablate.py; NVIDIA H100 80GB
 // HBM3, 700 W; device time of one launch, over three runs): the warp path
@@ -68,7 +72,10 @@
 // path); no early exit, 0.092-0.093 ms; rows read through L2 only
 // (ld.global.cg), 0.108-0.118 ms: neighbouring queries hit each other's
 // rows in L1; cameras interleaved in block order instead of camera-major,
-// 0.093 ms.
+// 0.093 ms. At TransFusion + 3D-DF's one level (chip_smoke.py, same card):
+// the warp path 0.038 ms a launch against a bound of 0.025 ms (the 44% of
+// the table's rows the corners touch; 0.037 ms with the whole table), the
+// general path 0.119 ms on the same launch.
 
 #include <climits>
 #include <cstdint>
@@ -81,8 +88,7 @@ constexpr int kMaxLevels = 8;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;  // queries per block on the warp path
 constexpr unsigned kFull = 0xffffffffu;
-// the (L, P) the warp path is instantiated for: the preset's
-constexpr int kWarpLevels = 3;
+// the (L, P) the warp path is instantiated for: the presets'
 constexpr int kWarpPoints = 4;
 
 struct Levels {
@@ -267,7 +273,7 @@ extern "C" int df3d_msda_warp_path(const float* value, const float* loc,
                                    const float* out, int n_levels, int batch,
                                    int len_v, int q_len, int n_heads,
                                    int head_dim, int n_points) {
-  return n_levels == kWarpLevels && n_points == kWarpPoints &&
+  return (n_levels == 1 || n_levels == 3) && n_points == kWarpPoints &&
          head_dim == 4 * n_points && n_heads * head_dim == 128 &&
          static_cast<long long>(len_v) * 128 < INT_MAX &&
          static_cast<long long>(batch) * q_len < INT_MAX &&
@@ -299,9 +305,13 @@ extern "C" int df3d_msda_f32(const float* value, const float* loc,
   if (df3d_msda_warp_path(value, loc, out, n_levels, batch, len_v, q_len,
                           n_heads, head_dim, n_points)) {
     const int n_queries = batch * q_len;
-    msda_warp_kernel<kWarpLevels, kWarpPoints>
-        <<<(n_queries + kWarps - 1) / kWarps, kThreads, 0, s>>>(
-            value, loc, attn, out, lv, len_v, q_len, n_queries);
+    const int blocks = (n_queries + kWarps - 1) / kWarps;
+    if (n_levels == 1)
+      msda_warp_kernel<1, kWarpPoints><<<blocks, kThreads, 0, s>>>(
+          value, loc, attn, out, lv, len_v, q_len, n_queries);
+    else
+      msda_warp_kernel<3, kWarpPoints><<<blocks, kThreads, 0, s>>>(
+          value, loc, attn, out, lv, len_v, q_len, n_queries);
     return static_cast<int>(cudaGetLastError());
   }
   const long long total =

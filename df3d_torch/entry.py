@@ -1,4 +1,4 @@
-"""Entry points of the port: build a CenterPoint, run the serving path.
+"""Entry points of the port: build a detector, run a serving path.
 
 * `build_centerpoint(cfg, device, seed)`: the model on `device`, with
   random flax-like weights drawn from a seeded `torch.Generator`, in eval
@@ -8,8 +8,16 @@
   `__graft_entry__.entry()`: `(fn, args)` for a small CenterPoint forward.
 * `build_centerpoint3ddf(cfg, fcfg, device, seed)` and `infer_fused(model,
   cfg, points, valid, images, proj)`: the same for the camera+LiDAR
-  CenterPoint + 3D-DF detector; `centerpoint_3ddf_nusc()` is the port's
-  copy of the JAX package's preset of that name.
+  CenterPoint + 3D-DF detector.
+* `build_transfusion(cfg, device, seed)` and `infer_transfusion(model,
+  cfg, points, valid)`: TransFusion-L (voxelize -> model -> decode of every
+  query, no NMS); `build_transfusion3ddf(cfg, fcfg, device, seed)` and
+  `infer_transfusion_fused(model, cfg, points, valid, images, proj)`:
+  TransFusion + 3D-DF.
+* `centerpoint_3ddf_nusc()`, `transfusion_l_nusc()` and
+  `transfusion_3ddf_nusc()` are the port's copies of the JAX package's
+  presets of those names; `fused_config(preset)` the `FusedConfig` the JAX
+  package builds for a fused preset.
 
 Everything runs on the card unless the caller passes `device="cpu"`; with
 no card, the default raises.
@@ -23,7 +31,12 @@ import torch
 from df3d_torch.models.detectors.centerpoint import (
     CenterPoint, CenterPointConfig, centerpoint_predict,
 )
-from df3d_torch.models.detectors.fused import CenterPoint3DDF, FusedConfig
+from df3d_torch.models.detectors.fused import (
+    CenterPoint3DDF, FusedConfig, TransFusion3DDF,
+)
+from df3d_torch.models.detectors.transfusion import (
+    TransFusionConfig, TransFusionL, transfusion_predict,
+)
 from df3d_torch.models.fusion.actr import ACTRConfig
 from df3d_torch.ops.voxelize import voxelize_batch
 from df3d_torch.utils import stages
@@ -47,15 +60,16 @@ def build_centerpoint(cfg: CenterPointConfig, device=None,
     return model.to(device).eval()
 
 
-def _serve(model, cfg: CenterPointConfig, points, valid, *model_inputs):
-    """voxelize -> model(features, coords, *model_inputs) -> decode + NMS."""
+def _serve(model, cfg, predict, stage: str, points, valid, *model_inputs):
+    """voxelize -> model(features, coords, *model_inputs) -> predict(cfg,
+    preds), the last step's time marked as `stage`."""
     res = voxelize_batch(points, valid, cfg.voxel_size, cfg.pc_range,
                          cfg.grid_size, cfg.max_voxels,
                          cfg.max_points_per_voxel)
     stages.mark("voxelize")
     preds, _, overflow = model(res.features, res.coords, *model_inputs)
-    det = centerpoint_predict(cfg, preds)
-    stages.mark("decode_nms")
+    det = predict(cfg, preds)
+    stages.mark(stage)
     return det, overflow
 
 
@@ -64,7 +78,8 @@ def infer(model: CenterPoint, cfg: CenterPointConfig, points: torch.Tensor,
           valid: torch.Tensor):
     """points (B, P, F) xyz first, valid (B, P) -> (detections, cap
     overflows). Detections: boxes (B, K, 9), scores, labels, valid (B, K)."""
-    return _serve(model, cfg, points, valid)
+    return _serve(model, cfg, centerpoint_predict, "decode_nms", points,
+                  valid)
 
 
 def build_centerpoint3ddf(cfg: CenterPointConfig, fcfg: FusedConfig,
@@ -82,7 +97,43 @@ def infer_fused(model: CenterPoint3DDF, cfg: CenterPointConfig,
     """points (B, P, F), valid (B, P), images (B, n_cam, H, W, 3)
     normalized, proj (B, n_cam, 3, 4) lidar -> image -> (detections, cap
     overflows), as `infer`."""
-    return _serve(model, cfg, points, valid, images, proj)
+    return _serve(model, cfg, centerpoint_predict, "decode_nms", points,
+                  valid, images, proj)
+
+
+def build_transfusion(cfg: TransFusionConfig, device=None,
+                      seed: int = 0) -> TransFusionL:
+    device = resolve_device(device)
+    model = TransFusionL(cfg).init_weights(
+        torch.Generator().manual_seed(seed))
+    return model.to(device).eval()
+
+
+@torch.no_grad()
+def infer_transfusion(model: TransFusionL, cfg: TransFusionConfig,
+                      points: torch.Tensor, valid: torch.Tensor):
+    """points (B, P, F) xyz first, valid (B, P) -> (detections, cap
+    overflows). Detections: boxes (B, num_proposals, 9), scores, labels;
+    every query is a detection (no NMS, as the reference's test config)."""
+    return _serve(model, cfg, transfusion_predict, "decode", points, valid)
+
+
+def build_transfusion3ddf(cfg: TransFusionConfig, fcfg: FusedConfig,
+                          device=None, seed: int = 0) -> TransFusion3DDF:
+    device = resolve_device(device)
+    model = TransFusion3DDF(cfg, fcfg).init_weights(
+        torch.Generator().manual_seed(seed))
+    return model.to(device).eval()
+
+
+@torch.no_grad()
+def infer_transfusion_fused(model: TransFusion3DDF, cfg: TransFusionConfig,
+                            points: torch.Tensor, valid: torch.Tensor,
+                            images: torch.Tensor, proj: torch.Tensor):
+    """As `infer_fused`, for TransFusion + 3D-DF; detections as
+    `infer_transfusion`."""
+    return _serve(model, cfg, transfusion_predict, "decode", points, valid,
+                  images, proj)
 
 
 def centerpoint_3ddf_nusc() -> dict:
@@ -103,10 +154,37 @@ def centerpoint_3ddf_nusc() -> dict:
     }
 
 
+def transfusion_l_nusc() -> TransFusionConfig:
+    """The JAX package's `transfusion_l_nusc` preset (TransFusion's
+    configs/transfusion_nusc_voxel_L.py)."""
+    return TransFusionConfig()
+
+
+def transfusion_3ddf_nusc() -> dict:
+    """The JAX package's `transfusion_3ddf_nusc` preset (TransFusion's
+    configs/transfusion_nusc_voxel_F.py with the 3D-DF fusion): the LiDAR
+    model of `transfusion_l_nusc` with six 448x800 cameras and an ACTRv2
+    hybrid of two layers on one image level."""
+    return {
+        "lidar": TransFusionConfig(),
+        "actr": ACTRConfig(
+            d_model=128, n_levels=1, num_layers=2, q_method="sum",
+            attn_layer="BiGateSum1D_2", model_name="ACTRv2", hybrid=True,
+        ),
+        "max_ne_voxel": 26000,
+        "num_cams": 6,
+        "image_shape": (448, 800),
+    }
+
+
 def fused_config(preset: dict, **overrides) -> FusedConfig:
-    """A `FusedConfig` for a fused preset: the DeepLabV3 ResNet-50 branch
-    at stride 8, IFAT on, fusion at the stage-4 stride."""
-    fields = dict(image_shape=preset["image_shape"], image_branch="deeplabv3",
+    """A `FusedConfig` for a fused preset, as the JAX package's
+    `build_detector` makes it: the ResNet-50 image branch (ResNet + FPN for
+    a TransFusion preset, DeepLabV3 taps at stride 8 otherwise), IFAT on,
+    fusion at the stage-4 stride."""
+    branch = ("resnet_fpn" if isinstance(preset["lidar"], TransFusionConfig)
+              else "deeplabv3")
+    fields = dict(image_shape=preset["image_shape"], image_branch=branch,
                   image_layers=(3, 4, 6, 3), n_levels=preset["actr"].n_levels,
                   num_cams=preset["num_cams"], actr=preset["actr"],
                   use_ifat=True, fusion_downsample=8)

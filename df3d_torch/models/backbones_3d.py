@@ -1,14 +1,15 @@
-"""Sparse 3D voxel backbone (port of df3d/models/backbones_3d.py).
+"""Sparse 3D voxel backbones (port of df3d/models/backbones_3d.py).
 
-`SpMiddleResNetFHD` on the JAX package's default path: sparse through
-`down4` (hybrid tail, `dense_tail=True`, `dense_from=4`), then `densify` and
-the dense stage-4 blocks. Conv plans are built once per coord set and shared
-by every submanifold layer of a stage (spconv's indice_key pattern).
+`SpMiddleResNetFHD` (CenterPoint) and `SparseEncoder` (TransFusion) on the
+JAX package's hybrid tail (`dense_tail=True`): sparse through the last
+downsample, then `densify` and the dense last-stage blocks. Conv plans are
+built once per coord set and shared by every submanifold layer of a stage
+(spconv's indice_key pattern).
 
-With a `fusion_hook` (the 3D-DF camera fusion) the stage-4 grid goes back
+With a `fusion_hook` (the 3D-DF camera fusion) the stride-8 grid goes back
 to rows (`sparsify`, capped at the stage-4 cap), through the hook, and is
-densified again before `extra_conv`. The hook is a child module, so its
-parameters sit under the backbone as flax puts them.
+densified again before the last (3, 1, 1) conv. The hook is a child module,
+so its parameters sit under the backbone as flax puts them.
 """
 
 from __future__ import annotations
@@ -29,6 +30,19 @@ from df3d_torch.utils import stages
 def _overflow(plan) -> torch.Tensor:
     """Output sites the static cap dropped: true occupancy minus the cap."""
     return (plan.true_occ - plan.num_out_rows).clamp_min(0)
+
+
+def _fuse_dense_tail(x, n4: int, hook, fusion_kwargs, overflow: dict):
+    """The stride-8 dense grid through the fusion hook: its overflow count
+    (summed over the batch, as the JAX package sows it), `sparsify` to the
+    stage-4 cap, the hook (only when it has inputs), `densify`."""
+    overflow["cap_overflow_dense_tail"] = (
+        x.mask.sum(dtype=torch.int32) - n4).clamp_min(0)
+    x_sp = sparsify(x, n4)
+    stages.mark("backbone_3d")
+    if fusion_kwargs:
+        x_sp = hook(x_sp, **fusion_kwargs)
+    return densify(x_sp)
 
 
 class SpMiddleResNetFHD(nn.Module):
@@ -103,14 +117,8 @@ class SpMiddleResNetFHD(nn.Module):
         x_conv4 = self.res4b(x, spec_s)
 
         if self.fusion_hook is not None:
-            # the JAX package sows this count summed over the batch
-            overflow["cap_overflow_dense_tail"] = (
-                x_conv4.mask.sum(dtype=torch.int32) - n4).clamp_min(0)
-            x_conv4_sp = sparsify(x_conv4, n4)
-            stages.mark("backbone_3d")
-            if fusion_kwargs:
-                x_conv4_sp = self.fusion_hook(x_conv4_sp, **fusion_kwargs)
-            x_conv4 = densify(x_conv4_sp)
+            x_conv4 = _fuse_dense_tail(x_conv4, n4, self.fusion_hook,
+                                       fusion_kwargs, overflow)
 
         spec_x = DenseConvSpec((3, 1, 1), (2, 1, 1), (0, 0, 0))
         out = self.extra_conv(x_conv4, spec_x)
@@ -118,4 +126,75 @@ class SpMiddleResNetFHD(nn.Module):
                     else "backbone_3d_tail")
         ms = {"conv1": x_conv1, "conv2": x_conv2, "conv3": x_conv3,
               "conv4": x_conv4}
+        return bev_from_dense(out), ms, overflow
+
+
+class SparseEncoder(nn.Module):
+    """mmdet3d's middle encoder as TransFusion uses it (basic blocks):
+    `conv_input` (subm, in -> 16), then per stage its blocks and, but for
+    the last stage, a strided downsample (pads 1, 1, then (0, 1, 1));
+    `conv_out` (3, 1, 1) / (2, 1, 1) to 128. The last downsample runs
+    sparse and the last stage and `conv_out` run on the dense grid (the
+    hybrid tail, the JAX package's `dense_tail=True`)."""
+
+    # per stage: the basic blocks' widths, then (but for the last stage)
+    # the downsample's output width
+    ENCODER_CHANNELS = ((16, 16, 32), (32, 32, 64), (64, 64, 128), (128, 128))
+
+    def __init__(self, num_input_features: int,
+                 fusion_hook: nn.Module | None = None):
+        super().__init__()
+        self.conv_input = SparseConvBNReLU(num_input_features, 16)
+        c = 16
+        last_stage = len(self.ENCODER_CHANNELS) - 1
+        for i, blocks in enumerate(self.ENCODER_CHANNELS):
+            for j, ch in enumerate(blocks):
+                if j == len(blocks) - 1 and i != last_stage:
+                    self.add_module(f"stage{i}_down",
+                                    SparseConvBNReLU(c, ch, subm=False))
+                else:
+                    self.add_module(f"stage{i}_block{j}",
+                                    SparseBasicBlock(ch))
+                c = ch
+        self.conv_out = SparseConvBNReLU(c, 128, subm=False,
+                                         kernel_size=(3, 1, 1))
+        self.fusion_hook = fusion_hook
+
+    def forward(self, st: SparseTensor, stage_caps: Sequence[int],
+                fusion_kwargs: dict | None = None):
+        """stage_caps: static max voxel counts at strides 1, 2, 4, 8;
+        fusion_kwargs as for `SpMiddleResNetFHD`.
+
+        -> (BEV map (B, Y, X, Z*C), per-stage tensors, cap overflows)."""
+        _, n2, n3, n4 = stage_caps
+        caps = (n2, n3, n4)
+        last_stage = len(self.ENCODER_CHANNELS) - 1
+        overflow = {}
+
+        plan = build_subm_plan(st, 3)
+        x = self.conv_input(st, plan)
+        stage_outs = []
+        for i, blocks in enumerate(self.ENCODER_CHANNELS):
+            for j in range(len(blocks)):
+                if j == len(blocks) - 1 and i != last_stage:
+                    pad = (0, 1, 1) if i == 2 else 1
+                    down = build_conv_plan(x, 3, 2, pad, max_out=caps[i])
+                    overflow[f"cap_overflow_down{i + 2}"] = _overflow(down)
+                    x = getattr(self, f"stage{i}_down")(x, down)
+                    if i == last_stage - 1:  # hybrid tail
+                        x = densify(x)
+                        plan = DenseConvSpec((3, 3, 3), (1, 1, 1), (1, 1, 1))
+                    else:
+                        plan = build_subm_plan(x, 3)
+                else:
+                    x = getattr(self, f"stage{i}_block{j}")(x, plan)
+            stage_outs.append(x)
+
+        if self.fusion_hook is not None:
+            x = _fuse_dense_tail(x, n4, self.fusion_hook, fusion_kwargs,
+                                 overflow)
+        out = self.conv_out(x, DenseConvSpec((3, 1, 1), (2, 1, 1), (0, 0, 0)))
+        stages.mark("backbone_3d" if self.fusion_hook is None
+                    else "backbone_3d_tail")
+        ms = {f"conv{i + 1}": s for i, s in enumerate(stage_outs)}
         return bev_from_dense(out), ms, overflow

@@ -16,7 +16,9 @@ from torch import nn
 
 from df3d_torch.models.backbones_3d import SpMiddleResNetFHD
 from df3d_torch.models.heads.center_head import CenterHead, center_head_predict
-from df3d_torch.models.layers import SparseConv3d, SubMConv3d
+from df3d_torch.models.layers import (
+    SparseConv3d, SubMConv3d, flax_trunc_normal_,
+)
 from df3d_torch.models.necks import BEVBackbone
 from df3d_torch.ops.sparse import SparseTensor
 from df3d_torch.utils import stages
@@ -111,32 +113,35 @@ class CenterPoint(nn.Module):
         package: He-normal taps over K*Cin for the sparse convs, He
         truncated-normal for the neck, LeCun truncated-normal for the head,
         zero biases but the heatmap prior (-2.19), identity BatchNorms."""
-        def trunc_normal(w, fan_in, scale):
-            # flax variance_scaling(truncated_normal): the std of a unit
-            # normal truncated to [-2, 2] is 0.87962566
-            std = math.sqrt(scale / fan_in) / 0.87962566103423978
-            draw = torch.empty(w.shape, dtype=w.dtype)
-            nn.init.trunc_normal_(draw, 0.0, std, -2 * std, 2 * std,
-                                  generator=generator)
-            w.copy_(draw)
-
-        for name, m in self.named_modules():
-            if isinstance(m, (SubMConv3d, SparseConv3d)):
-                k, cin, _ = m.weight.shape
-                draw = torch.randn(m.weight.shape, generator=generator)
-                m.weight.copy_(draw * math.sqrt(2.0 / (k * cin)))
-            elif isinstance(m, nn.ConvTranspose2d):
-                cin, _, kh, kw = m.weight.shape
-                trunc_normal(m.weight, kh * kw * cin, 2.0)
-            elif isinstance(m, nn.Conv2d):
-                cout, cin, kh, kw = m.weight.shape
-                head = name.startswith("head.")
-                trunc_normal(m.weight, kh * kw * cin, 1.0 if head else 2.0)
-                if m.bias is not None:
-                    m.bias.zero_()
+        init_detector_weights(self, "head.", generator)
         for task in self.head.tasks:
             task["hm"].out.bias.fill_(-2.19)
         return self
+
+
+@torch.no_grad()
+def init_detector_weights(model: nn.Module, head_prefix: str,
+                          generator: torch.Generator) -> None:
+    """The LiDAR detectors' random weights, drawn like the flax
+    initializers of the JAX package: He-normal taps over K*Cin for the
+    sparse convs, He truncated-normal for the neck, LeCun truncated-normal
+    for the convs under `head_prefix`, zero conv biases. Dense layers are
+    left to the caller."""
+    for name, m in model.named_modules():
+        if isinstance(m, (SubMConv3d, SparseConv3d)):
+            k, cin, _ = m.weight.shape
+            draw = torch.randn(m.weight.shape, generator=generator)
+            m.weight.copy_(draw * math.sqrt(2.0 / (k * cin)))
+        elif isinstance(m, nn.ConvTranspose2d):
+            cin, _, kh, kw = m.weight.shape
+            flax_trunc_normal_(m.weight, kh * kw * cin, 2.0, generator)
+        elif isinstance(m, nn.Conv2d):
+            cout, cin, kh, kw = m.weight.shape
+            head = name.startswith(head_prefix)
+            flax_trunc_normal_(m.weight, kh * kw * cin,
+                               1.0 if head else 2.0, generator)
+            if m.bias is not None:
+                m.bias.zero_()
 
 
 def centerpoint_predict(cfg: CenterPointConfig, preds):

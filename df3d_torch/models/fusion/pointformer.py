@@ -10,8 +10,9 @@ contributions).
 
 Two places where a literal translation would differ from flax, both kept
 here: LayerNorm eps is flax's 1e-6, and masked attention logits are filled
-with finfo(f32).min as flax does, so a neighborhood whose mask is all False
-gets uniform weights instead of the NaN that -inf would give.
+with finfo(f32).min as flax does (`models.attention`), so a neighborhood
+whose mask is all False gets uniform weights instead of the NaN that -inf
+would give.
 """
 
 from __future__ import annotations
@@ -21,9 +22,8 @@ import math
 import torch
 from torch import nn
 
+from df3d_torch.models.attention import LN_EPS, FlaxMultiHeadAttention
 from df3d_torch.ops.pointops import ball_query, furthest_point_sample
-
-LN_EPS = 1e-6  # flax LayerNorm default
 
 
 def scatter_rows_last(base: torch.Tensor, index: torch.Tensor,
@@ -42,36 +42,6 @@ def scatter_rows_last(base: torch.Tensor, index: torch.Tensor,
     return torch.where((winner >= 0)[..., None], rows, base)
 
 
-class FlaxMultiHeadAttention(nn.Module):
-    """flax `MultiHeadDotProductAttention` (self-attention, no dropout):
-    query/key/value/out projections with bias, logits over sqrt(head_dim),
-    masked logits set to finfo(f32).min."""
-
-    def __init__(self, d_model: int, num_heads: int):
-        super().__init__()
-        self.num_heads = num_heads
-        self.query = nn.Linear(d_model, d_model)
-        self.key = nn.Linear(d_model, d_model)
-        self.value = nn.Linear(d_model, d_model)
-        self.out = nn.Linear(d_model, d_model)
-
-    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        """x (..., T, C); mask (..., T) True = valid key."""
-        *lead, t, c = x.shape
-        h = self.num_heads
-        hd = c // h
-        q = self.query(x).view(*lead, t, h, hd)
-        k = self.key(x).view(*lead, t, h, hd)
-        v = self.value(x).view(*lead, t, h, hd)
-        q = q / math.sqrt(hd)
-        logits = torch.einsum("...qhd,...khd->...hqk", q, k)
-        logits = logits.masked_fill(~mask[..., None, None, :],
-                                    torch.finfo(logits.dtype).min)
-        weights = torch.softmax(logits, -1)
-        out = torch.einsum("...hqk,...khd->...qhd", weights, v)
-        return self.out(out.reshape(*lead, t, c))
-
-
 class PreNormEncoderLayer(nn.Module):
     """LN -> MHA -> residual, LN -> FF -> residual."""
 
@@ -86,7 +56,7 @@ class PreNormEncoderLayer(nn.Module):
         self.ff2 = nn.Linear(dff, d_model)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        x = x + self.mha(self.norm1(x), mask)
+        x = x + self.mha(self.norm1(x), mask=mask)
         return x + self.ff2(torch.relu(self.ff1(self.norm2(x))))
 
 

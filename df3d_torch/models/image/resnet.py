@@ -1,17 +1,21 @@
-"""ResNet image backbone and the DeepLabV3 semantic branch (port of
-df3d/models/image/resnet.py).
+"""ResNet image backbone, the DeepLabV3 semantic branch and ResNet + FPN
+(port of df3d/models/image/resnet.py).
 
-NCHW inside, as PyTorch's convolutions want; `SemDeepLabV3` takes and
-returns channel-last maps like the JAX package. Every flax conv here pads
-symmetrically by an explicit amount, which `nn.Conv2d(padding=...)`
-reproduces; the BatchNorms are flax defaults (eps 1e-5, running
-statistics in eval mode).
+NCHW inside, as PyTorch's convolutions want; `SemDeepLabV3` and
+`ResNetFPN` take and return channel-last maps like the JAX package. Every
+flax conv here pads symmetrically by an explicit amount, which
+`nn.Conv2d(padding=...)` reproduces; the BatchNorms are flax defaults (eps
+1e-5, running statistics in eval mode).
 
-Only layer1..3 feed the fusion. Under `jit` XLA drops layer4, ASPP and the
-classifier, whose results nobody reads; here they are computed only when
-the caller asks for the logits. The parameters are there either way, so
-every flax leaf has a home. The FPN branch (`ResNetFPN`) is not on the
-CenterPoint + 3D-DF path and is not ported.
+Under `jit` XLA drops what nobody reads; here it is not computed: DeepLabV3's
+layer4, ASPP and classifier unless the caller asks for the logits, and the
+FPN outputs past the levels the caller asks for. The parameters are there
+either way, so every flax leaf has a home.
+
+FPN's top-down upsampling is `jax.image.resize(..., "nearest")`, which
+samples at half-pixel centres: torch's `mode="nearest-exact"`, not
+`"nearest"` (4 -> 7 gives [0 0 1 2 2 3 3] against [0 0 1 1 2 2 3]). The
+two agree where every ratio is 2, as at 448x800.
 """
 
 from __future__ import annotations
@@ -23,6 +27,8 @@ import torch.nn.functional as F
 from torch import nn
 
 BN_EPS = 1e-5  # flax BatchNorm default
+FPN_CHANNELS = 256
+FPN_OUTS = 5  # P2..P6
 
 
 def _bn(c: int) -> nn.BatchNorm2d:
@@ -87,6 +93,52 @@ class ResNet(nn.Module):
                 h = getattr(self, f"layer{i + 1}_{j}")(h)
             outs[f"layer{i + 1}"] = h
         return outs
+
+
+class FPN(nn.Module):
+    """mmdet-style FPN over C2..C5 -> P2..P6 (P6 the stride-2 subsample of
+    P5), FPN_CHANNELS wide, NCHW."""
+
+    def __init__(self, in_channels: Sequence[int]):
+        super().__init__()
+        self.num_ins = len(in_channels)
+        for i, c in enumerate(in_channels):
+            self.add_module(f"lateral{i}", nn.Conv2d(c, FPN_CHANNELS, 1))
+            self.add_module(f"fpn{i}", nn.Conv2d(FPN_CHANNELS, FPN_CHANNELS,
+                                                 3, padding=1))
+
+    def forward(self, feats: Sequence[torch.Tensor],
+                levels: int = FPN_OUTS) -> list[torch.Tensor]:
+        """The first `levels` outputs."""
+        laterals = [getattr(self, f"lateral{i}")(f)
+                    for i, f in enumerate(feats)]
+        for i in range(len(laterals) - 1, 0, -1):
+            laterals[i - 1] = laterals[i - 1] + F.interpolate(
+                laterals[i], size=laterals[i - 1].shape[-2:],
+                mode="nearest-exact")
+        outs = [getattr(self, f"fpn{i}")(laterals[i])
+                for i in range(min(levels, self.num_ins))]
+        while len(outs) < levels:  # extra levels: max-pool 1x1, stride 2
+            outs.append(outs[-1][:, :, ::2, ::2])
+        return outs
+
+
+class ResNetFPN(nn.Module):
+    """mmdet ResNet-50 (output stride 32) + FPN: TransFusion's image
+    branch."""
+
+    def __init__(self, layers: Sequence[int] = (3, 4, 6, 3)):
+        super().__init__()
+        self.backbone = ResNet(layers)
+        self.neck = FPN([256 * 2 ** i for i in range(4)])
+
+    def forward(self, images: torch.Tensor,
+                levels: int = FPN_OUTS) -> list[torch.Tensor]:
+        """images (B, H, W, 3), already normalized -> the first `levels`
+        FPN outputs, channel-last."""
+        feats = self.backbone(images.permute(0, 3, 1, 2))
+        outs = self.neck([feats[f"layer{i + 1}"] for i in range(4)], levels)
+        return [o.permute(0, 2, 3, 1) for o in outs]
 
 
 class ASPP(nn.Module):

@@ -13,6 +13,8 @@ package's channel-last one.
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -111,6 +113,19 @@ class SparseBasicBlock(nn.Module):
         out = self.conv2(st.with_features(h), plan)
         h = self.bn2(out.features, st.valid)
         return st.with_features(torch.relu(h + identity))
+
+
+@torch.no_grad()
+def flax_trunc_normal_(w: torch.Tensor, fan_in: int, scale: float,
+                       generator: torch.Generator) -> None:
+    """Fill w as flax's variance_scaling(scale, "fan_in",
+    "truncated_normal") draws (He for scale 2, LeCun for 1): the std of a
+    unit normal truncated to [-2, 2] is 0.87962566."""
+    std = math.sqrt(scale / fan_in) / 0.87962566103423978
+    draw = torch.empty(w.shape, dtype=w.dtype)
+    nn.init.trunc_normal_(draw, 0.0, std, -2 * std, 2 * std,
+                          generator=generator)
+    w.copy_(draw)
 
 
 def same_pads(size: int, kernel: int, stride: int) -> tuple[int, int]:

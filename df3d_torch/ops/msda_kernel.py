@@ -9,8 +9,10 @@ version. Both take the reference layout:
     attention_weights (B, Q, nH, L, P)  ->  (B, Q, nH * D)
 
 * `msda_cuda` launches the kernel on CUDA tensors and raises on anything
-  else. It never falls back. The kernel has a warp path for the preset's
-  shapes and a general path for the rest (`warp_path` says which).
+  else. It never falls back. The kernel has a warp path for the presets'
+  shapes (nH 8, D 16, P 4, and L 3 for CenterPoint + 3D-DF or L 1 for
+  TransFusion + 3D-DF) and a general path for the rest (`warp_path` says
+  which).
 * `msda_plain` computes the same function with an explicit four-corner
   gather. `ops.msda.ms_deform_attn` uses it for CPU tensors; the tests and
   `chip_smoke.py` hold the kernel against it.
@@ -98,7 +100,7 @@ def _library() -> ctypes.CDLL:
 def warp_path(value: torch.Tensor, spatial_shapes,
               sampling_locations: torch.Tensor) -> bool:
     """Whether `msda_cuda` runs these CUDA inputs on the kernel's warp path
-    (the preset's shapes) rather than its general path; the kernel decides
+    (the presets' shapes) rather than its general path; the kernel decides
     (`df3d_msda_warp_path`). The output `msda_cuda` allocates is always
     aligned, so it is not asked about."""
     b, len_v, nh, d = value.shape

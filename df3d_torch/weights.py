@@ -9,7 +9,8 @@ into a `state_dict` for `model`:
 * flax conv kernels HWIO -> OIHW;
 * flax `ConvTranspose` kernels `(kh, kw, in, out)` -> torch `(in, out, kh,
   kw)` with both spatial axes flipped;
-* BatchNorm scale/bias -> weight/bias, batch_stats mean/var ->
+* BatchNorm (over NHWC maps, masked voxel rows, or the last axis of
+  (B, P, C)) scale/bias -> weight/bias, batch_stats mean/var ->
   running_mean/running_var; LayerNorm and GroupNorm scale/bias ->
   weight/bias;
 * Dense kernels `(in, out)` -> Linear `(out, in)`; the attention's
@@ -17,8 +18,9 @@ into a `state_dict` for `model`:
   `(heads, head_dim, out)` (out), and a 1x1 Conv kernel `(1, 1, in, out)`
   that the port runs as a Linear, flatten to `(in, out)` first;
 * the multi-camera fusion hook's children (`ifat`, `actr`,
-  `actr_out_proj`), which flax puts under the backbone, live under the
-  backbone's `fusion_hook` module.
+  `actr_out_proj`), which flax puts under the backbone (CenterPoint's
+  `backbone`, TransFusion's `middle_encoder`), live under the backbone's
+  `fusion_hook` module.
 
 Flax names a module's children `<Class>_<i>` by creation order; the tables
 below give each torch module's attribute for them. A leaf that maps to no
@@ -32,18 +34,23 @@ import numpy as np
 import torch
 from torch import nn
 
-from df3d_torch.models.backbones_3d import SpMiddleResNetFHD
+from df3d_torch.models.backbones_3d import SparseEncoder, SpMiddleResNetFHD
 from df3d_torch.models.fusion.actr import (
     ACTR, EncoderLayer, FusionEncoderLayer,
 )
 from df3d_torch.models.fusion.pointformer import PreNormEncoderLayer
 from df3d_torch.models.heads.center_head import CenterHead, SepHeadBranch
+from df3d_torch.models.heads.transfusion_head import (
+    DecoderLayer, LastAxisBatchNorm, PositionEmbeddingLearned,
+)
 from df3d_torch.models.layers import (
     ConvBNReLU2d, DeconvBNReLU2d, MaskedBatchNorm, SparseBasicBlock,
     SparseConv3d, SparseConvBNReLU, SubMConv3d,
 )
 from df3d_torch.models.necks import BEVBackbone
 
+_HOOK_CHILDREN = {name: f"fusion_hook.{name}"
+                  for name in ("ifat", "actr", "actr_out_proj")}
 _CHILD_NAMES = {
     SparseConvBNReLU: {"SubMConv3d_0": "conv", "SparseConv3d_0": "conv",
                        "MaskedBatchNorm_0": "bn"},
@@ -52,9 +59,11 @@ _CHILD_NAMES = {
     ConvBNReLU2d: {"Conv_0": "conv", "BatchNorm_0": "bn"},
     DeconvBNReLU2d: {"ConvTranspose_0": "deconv", "BatchNorm_0": "bn"},
     CenterHead: {"Conv_0": "shared_conv", "BatchNorm_0": "shared_bn"},
-    SpMiddleResNetFHD: {"ifat": "fusion_hook.ifat",
-                        "actr": "fusion_hook.actr",
-                        "actr_out_proj": "fusion_hook.actr_out_proj"},
+    SpMiddleResNetFHD: _HOOK_CHILDREN,
+    SparseEncoder: _HOOK_CHILDREN,
+    PositionEmbeddingLearned: {"Dense_0": "fc0", "Dense_1": "fc1"},
+    DecoderLayer: {"LayerNorm_0": "norm1", "LayerNorm_1": "norm2",
+                   "LayerNorm_2": "norm3", "Dense_0": "ff1", "Dense_1": "ff2"},
     PreNormEncoderLayer: {"LayerNorm_0": "norm1", "LayerNorm_1": "norm2",
                           "Dense_0": "ff1", "Dense_1": "ff2"},
     EncoderLayer: {"LayerNorm_0": "norm1", "Dense_0": "ff1",
@@ -90,7 +99,8 @@ def _leaf(module: nn.Module, collection: str, name: str,
     """(torch entry name, value in the torch layout) for one flax leaf."""
     if isinstance(module, (SubMConv3d, SparseConv3d)) and name == "kernel":
         return "weight", value
-    if isinstance(module, (MaskedBatchNorm, nn.BatchNorm2d)):
+    if isinstance(module, (MaskedBatchNorm, nn.BatchNorm2d,
+                           LastAxisBatchNorm)):
         table = {("params", "scale"): "weight", ("params", "bias"): "bias",
                  ("batch_stats", "mean"): "running_mean",
                  ("batch_stats", "var"): "running_var"}

@@ -51,14 +51,14 @@ def _inputs(seed, q=10):
     return value, locs, w
 
 
-def _preset_inputs(seed, b=2, q=11):
+def _preset_inputs(seed, b=2, q=11, shapes=PRESET["shapes"]):
     """Seeded inputs at the preset's counts: locations in [-0.2, 1.2],
     weights normalised per (query, head); at every level point 0 of query
     0 on the last pixel centre, of query 1 at -0.5 px and of query 2 far
     off the map; query 9 wholly off the map (the warp path's early
     exit)."""
     rng = np.random.RandomState(seed)
-    nh, d, p, shapes = PRESET["nh"], PRESET["d"], PRESET["p"], PRESET["shapes"]
+    nh, d, p = PRESET["nh"], PRESET["d"], PRESET["p"]
     lv = sum(h * w for h, w in shapes)
     value = rng.randn(b, lv, nh, d).astype(np.float32)
     locs = rng.uniform(-0.2, 1.2, (b, q, nh, len(shapes), p, 2)).astype(
@@ -109,6 +109,27 @@ def test_k2_warp_schedule_covers_each_sample_once():
 def test_k2_warp_emulation_matches_plain(seed, b):
     value, shapes, locs, w = (torch.from_numpy(a) if not isinstance(a, tuple)
                               else a for a in _preset_inputs(seed, b=b, q=19))
+    got = k2_emulate(value, shapes, locs, w)
+    want = tmsda.ms_deform_attn(value, shapes, locs, w)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-6)
+    assert not got[:, OFF_MAP_QUERY].any()
+    assert got[:, 0].abs().max() > 0
+
+
+@pytest.mark.parametrize("seed,b", [(7, 2), (8, 6)])
+def test_k2_warp_emulation_one_level(seed, b):
+    """The warp path's L = 1 instantiation (TransFusion + 3D-DF: one FPN
+    level): every sample computed once, and the emulation against the
+    plain version at 1e-6."""
+    shapes = ((6, 9),)
+    computes, reads = k2_schedule(1, PRESET["p"])
+    assert sorted(s for lane in computes for s in lane) == [
+        (h, 0, pt) for h in range(PRESET["nh"]) for pt in range(PRESET["p"])]
+    for lane, order in enumerate(reads):
+        assert [computes[src][slot] for src, slot in order] == [
+            (lane // PRESET["p"], 0, pt) for pt in range(PRESET["p"])]
+    value, _, locs, w = (torch.from_numpy(a) if not isinstance(a, tuple)
+                         else a for a in _preset_inputs(seed, b, 19, shapes))
     got = k2_emulate(value, shapes, locs, w)
     want = tmsda.ms_deform_attn(value, shapes, locs, w)
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-6)

@@ -79,6 +79,18 @@ def test_entry_without_cuda_raises():
                                         entry_mod.fused_config(preset))
 
 
+def test_transfusion_entries_without_cuda_raise():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        entry_mod.build_transfusion(entry_mod.transfusion_l_nusc())
+    preset = entry_mod.transfusion_3ddf_nusc()
+    fcfg = entry_mod.fused_config(preset)
+    assert fcfg.image_branch == "resnet_fpn" and fcfg.n_levels == 1
+    with pytest.raises(RuntimeError, match="CUDA"):
+        entry_mod.build_transfusion3ddf(preset["lidar"], fcfg)
+
+
 def test_k1_launcher_raises_on_cpu_tensors():
     """The launcher never computes the plain version: that is reached only
     through the CPU-tensor branch of apply_sparse_conv."""
