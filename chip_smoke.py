@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving paths on one CUDA card: CenterPoint
 (LiDAR only), CenterPoint + 3D-DF (six cameras + LiDAR), TransFusion-L
-(LiDAR only) and TransFusion + 3D-DF (six cameras + LiDAR).
+(LiDAR only) and TransFusion + 3D-DF (six cameras + LiDAR); then its
+CenterPoint training step.
 
     python3 chip_smoke.py
 
@@ -75,6 +76,27 @@ any failure raises and the process exits non-zero:
    The frame must launch K2 twice and K1 16 times.
 13. TransFusion + 3D-DF main path: `infer_transfusion_fused` on full-width
    frames as phase 8 does: K1 16 and K2 2 launches per frame.
+14. small train step: one step of `entry.build_centerpoint_trainer` on the
+   card against the same step on the CPU (the JAX package's multichip
+   dry-run config at batch 2, its gt layout, the same weights and points):
+   loss, every gradient leaf, the parameters and batch statistics after the
+   step and the cap overflow (tolerances in `phase_small_train`: K1 runs
+   3xTF32 on the card, the plain version f32 on the CPU).
+15. K1 in the backward, at full width (`CenterPointConfig()`, batch 4, four
+   260k-point ray-cast frames with their scenes' 79 object boxes): every K1
+   launch of one step's backward (the sparse convs' input gradients: the
+   same plan with flipped, transposed taps, or the transposed plan) against
+   the plain version with phase 4's tolerance and a repeat launch bit for
+   bit; each conv's input gradient on the card against torch autograd of
+   the plain version; per launch Cin, Cout, hit pairs, times and bound;
+   each conv's dW time.
+16. train path: the trainer at full width, batch 4, on that fixed batch:
+   warm-up steps, then timed steps with K1's counts set to 0 just before and
+   read just after (16 forward and 15 backward launches a step, K2 none);
+   every loss finite and falling below the first step's within 5 steps, no
+   cap overflow; ms/step, a host-clock split, peak memory, a one-step
+   profile. It starts from phase 15's state, whose running statistics that
+   phase's forward moved once.
 
 TF32 is off for matmuls and cuDNN convs: the port serves in f32 (the JAX
 package's "exact" profile) and the comparisons need full f32. cuDNN picks
@@ -86,7 +108,8 @@ on the kernels (times from this run, bounds from this run's inputs,
 launches from the timed runs of all four paths, also given by path; both
 give their device time, K1 its f32 CUDA-core bound, K2 its whole-table
 bound and general-path time; the top-level numbers are those of the
-CenterPoint paths, and under "transfusion" those of the TransFusion ones)
+CenterPoint paths, under "transfusion" those of the TransFusion ones, and
+under K1's "train" its training launches, backward times and dW's time)
 and the result line
 {"ok": true, "device": {...}}. With no CUDA device, or outside a checkout,
 the script exits non-zero without them.
@@ -114,6 +137,13 @@ K1_PER_FRAME = 16
 K1_TILE_ROWS = 64
 K2_PER_FUSED_FRAME = 1
 K2_PER_TRANSFUSION_FUSED_FRAME = 2  # one per ACTR layer
+# training: batch, steps, and K1's input-gradient launches a step (every
+# sparse conv but conv_input, whose input, the voxel features, needs none)
+TRAIN_BATCH = 4
+TRAIN_WARMUP_STEPS = 2
+TRAIN_TIMED_STEPS = 5
+K1_BWD_PER_STEP = 15
+SCENE_CLASSES = (0,) * 52 + (1,) * 9 + (8,) * 18
 # a K2 output element costs ~14 FLOP of corner arithmetic per sample and
 # head (shared by its D channels) plus a multiply-add per in-bounds corner
 K2_FLOP_PER_SAMPLE = 14
@@ -917,6 +947,353 @@ def full_transfusion_configs():
     return cfg, fused_config(preset)
 
 
+def mesh_cfg():
+    """The JAX package's `__graft_entry__._mesh_cfg()` (its multichip
+    dry-run's training config)."""
+    from df3d_torch.models.detectors.centerpoint import CenterPointConfig
+
+    return CenterPointConfig(
+        pc_range=(-16.0, -16.0, -2.4, 16.0, 16.0, 2.4),
+        voxel_size=(0.5, 0.5, 0.2), grid_size=(24, 64, 64),
+        max_voxels=256, num_point_features=5, stage_caps=(256, 128, 96, 64),
+        tasks=(1, 2), max_objs=8, nms_pre_max_size=32, nms_post_max_size=4,
+        post_center_range=(-20.0, -20.0, -4.0, 20.0, 20.0, 4.0))
+
+
+def scene_boxes(seed):
+    """The object boxes (x, y, z, dx, dy, dz, yaw, vx, vy) of the scene that
+    `make_raycast_frame(RandomState(seed))` casts (it draws its scene
+    first): 52 cars, 9 trucks, 18 pedestrians, as nuScenes classes 0, 1
+    and 8."""
+    from df3d_torch.utils.synth import _scene
+
+    c, dims, yaw, vel = _scene(np.random.RandomState(seed))
+    n = len(SCENE_CLASSES)
+    return np.concatenate([c[:n], dims[:n], yaw[:n, None], vel[:n]],
+                          -1).astype(np.float32)
+
+
+def train_batch(points, boxes, classes, dev):
+    """The training step's batch on `dev` from numpy points (B, P, F),
+    boxes (B, M, 9) and global classes (B, M), every box valid."""
+    b, m = classes.shape
+    return {"points": torch.from_numpy(points).to(dev),
+            "points_valid": torch.ones(points.shape[:2], dtype=torch.bool,
+                                       device=dev),
+            "gt_boxes": torch.from_numpy(boxes).to(dev),
+            "gt_classes": torch.from_numpy(classes).to(dev),
+            "gt_valid": torch.ones(b, m, dtype=torch.bool, device=dev)}
+
+
+def phase_small_train(dev):
+    """One training step on the card against the same step on the CPU: the
+    multichip dry-run's config at batch 2, its gt layout (four equal boxes
+    of class 0 per sample), 4096 points per sample over the grid, the same
+    seeded weights. Twice on the card: first with cuDNN off and the sparse
+    convs' plain version, which round as the CPU does, so the rest of the
+    step on the card is held tight; then as the path runs, with K1 and
+    cuDNN.
+
+    Tolerances, both runs: loss and per-task losses rtol 1e-4, cap
+    overflow equal, batch statistics after the step 1e-4 * max|cpu| + 1e-6.
+    First run: every gradient leaf 1e-4 * max|cpu| + 1e-5; updated
+    parameters 1e-4 * max|cpu| + 1e-6 plus lr * |u(g + t) - u(g - t)|,
+    where Adam's first step u(g) = g / (|g| + eps) jumps by 2 at g = 0 (t
+    the gradient's tolerance, clipped as g is). Second run: every gradient
+    leaf ||card - cpu|| <= 5e-2 ||cpu|| + 1e-5 sqrt(n) (L2 over the leaf)
+    and updated parameters as in the first run, with t the measured L2 gap
+    between the leaf's clipped gradients on the card and on the CPU (it
+    bounds every element's gap). At random weights the step's gradients
+    jump with the last bits of the forward pass (in
+    tests/test_torch_train_step.py's `test_dry_run_spread`, one ulp more on
+    every point's intensity moves the JAX step's own gradient leaves by up
+    to 2.9e-2 of their max), and K1's 3xTF32 (operands split into two TF32
+    halves, ~22 bits) and cuDNN's f32 algorithms each round apart from the
+    CPU's f32. Phase 15 holds every K1 launch of the backward at phase 4's
+    tolerance."""
+    from df3d_torch.entry import build_centerpoint_trainer
+    from df3d_torch.ops import sparse as S
+    from df3d_torch.ops import sparse_conv_kernel as K
+
+    cfg = mesh_cfg()
+    rng = np.random.RandomState(0)
+    points = np.concatenate([rng.uniform(-15, 15, (2, 4096, 2)),
+                             rng.uniform(-1.8, 1.8, (2, 4096, 1)),
+                             rng.uniform(0, 1, (2, 4096, 2))], -1)
+    box = np.array([1.0, 2.0, 0.0, 4.0, 2.0, 1.5, 0.3, 0.0, 0.0], np.float32)
+    batch = (points.astype(np.float32), np.tile(box, (2, 4, 1)),
+             np.zeros((2, 4), np.int64))
+
+    def run(d):
+        state, step = build_centerpoint_trainer(cfg, d, seed=0)
+        logs, grads = step.grads(state, train_batch(*batch, d))
+        grads = [g.cpu() for g in grads]
+        state = step.apply(state, [g.to(d) for g in grads])
+        names = [n for n, _ in state.model.named_parameters()]
+        return (to_cpu(logs), dict(zip(names, grads)),
+                to_cpu(state.model.state_dict()), float(state.tx.lr(0)))
+
+    cpu = run("cpu")
+    body = S._conv_body
+    S._conv_body = lambda f, idx, w, dx=False: K.sparse_conv_plain(f, idx, w)
+    torch.backends.cudnn.enabled = False
+    try:
+        card_plain = run(dev)
+    finally:
+        S._conv_body = body
+        torch.backends.cudnn.enabled = True
+    compare_train_step("small train step, plain sparse convs, no cuDNN",
+                       cpu, card_plain, strict=True)
+    compare_train_step("small train step, K1 and cuDNN", cpu, run(dev),
+                       strict=False)
+
+
+def compare_train_step(label, ref, got, strict):
+    """Hold one step's (logs, gradients, state dict) against the
+    reference's, with `phase_small_train`'s tolerances for its first run
+    (`strict`) or its second, and print how far the gradient leaves are
+    from it."""
+    from df3d_torch.train.schedules import global_norm
+
+    (c_logs, c_grads, c_sd, lr0), (g_logs, g_grads, g_sd, _) = ref, got
+    check(int(c_logs["cap_overflow"]) == int(g_logs["cap_overflow"]),
+          f"{label}: cap overflow differs")
+    for k, v in c_logs.items():
+        check(bool(torch.isfinite(g_logs[k]).all()), f"{label}: {k}")
+        torch.testing.assert_close(g_logs[k].double(), v.double(), rtol=1e-4,
+                                   atol=0)
+    clip = min(1.0, 10.0 / float(global_norm(list(c_grads.values()))))
+    g_clip = min(1.0, 10.0 / float(global_norm(list(g_grads.values()))))
+
+    def adam_first(x):  # Adam's first update direction for a gradient x
+        return x / (x.abs() + 1e-8)
+
+    rel, l2, over = [], [], []
+    for name, c in c_grads.items():
+        g, scale = g_grads[name], c.abs().max().item()
+        err = (g - c).abs().max().item()
+        rel.append((err / max(scale, 1e-30), name))
+        l2_err, l2_ref = (g - c).norm().item(), c.norm().item()
+        l2.append(l2_err / max(l2_ref, 1e-30))
+        ref_p, cg = c_sd[name], c * clip
+        if strict:
+            tol = 1e-4 * scale + 1e-5
+            bad = err > tol
+            t = tol * clip
+        else:
+            tol = 5e-2 * l2_ref + 1e-5 * c.numel() ** 0.5
+            bad = l2_err > tol
+            t = (g * g_clip - cg).norm().item()
+        atol = (1e-4 * ref_p.abs().max() + 1e-6
+                + lr0 * (adam_first(cg + t) - adam_first(cg - t)).abs())
+        if bad:
+            over.append(f"gradient {name} off by {err} (L2 {l2_err}), "
+                        f"tolerance {tol}")
+        if not bool(((g_sd[name] - ref_p).abs() <= atol).all()):
+            over.append(f"updated {name}")
+    for k, r in c_sd.items():
+        if k.endswith(("running_mean", "running_var")):
+            tol = 1e-4 * r.abs().max().item() + 1e-6
+            err = (g_sd[k] - r).abs().max().item()
+            if err > tol:
+                over.append(f"{k} off by {err} > {tol}")
+    rel.sort(reverse=True)
+    log(f"{label}: over the gradient leaves, max|card - CPU| / max|CPU| "
+        f"median {np.median([r for r, _ in rel]):.3g}, largest "
+        + ", ".join(f"{n} {r:.3g}" for r, n in rel[:3])
+        + f" (a bias ahead of a BatchNorm has a gradient of rounding noise);"
+        f" L2 relative median {np.median(l2):.3g}, largest {max(l2):.3g}")
+    check(not over, f"{label}: " + "; ".join(over[:10]))
+    log(f"{label}: agree with the CPU: loss {g_logs['loss'].item():.6f} (CPU "
+        f"{c_logs['loss'].item():.6f}), cap overflow "
+        f"{int(c_logs['cap_overflow'])}, {len(c_grads)} gradient leaves, "
+        "updated parameters and batch statistics")
+
+
+def full_train_setup(dev):
+    """CenterPoint at the `centerpoint_nusc` preset's full width and caps,
+    its trainer from seed 0, and a batch of four ray-cast frames (seeds 0-3,
+    260k points) with each scene's 79 object boxes."""
+    from df3d_torch.entry import build_centerpoint_trainer
+    from df3d_torch.models.detectors.centerpoint import CenterPointConfig
+    from df3d_torch.utils.synth import make_raycast_frame
+
+    cfg = CenterPointConfig()
+    state, step = build_centerpoint_trainer(cfg, dev, seed=0)
+    seeds = range(TRAIN_BATCH)
+    points = np.stack([make_raycast_frame(np.random.RandomState(s),
+                                          NUM_POINTS) for s in seeds])
+    boxes = np.stack([scene_boxes(s) for s in seeds])
+    classes = np.tile(np.asarray(SCENE_CLASSES, np.int64), (TRAIN_BATCH, 1))
+    return cfg, state, step, train_batch(points, boxes, classes, dev)
+
+
+def phase_train_k1(state, step, batch):
+    """Every K1 launch of one full-width batch-4 backward (the input
+    gradients) against the plain version and a repeat launch (phase 4's
+    tolerance, bit for bit); each sparse conv's input gradient on the card
+    against torch autograd of `sparse_conv_plain` (a scatter through
+    index_select's backward: it checks the flipped weights and the
+    transposed plans), and each conv's dW time. Returns K1's backward
+    numbers for the kernels line."""
+    from df3d_torch.ops import sparse as S
+    from df3d_torch.ops import sparse_conv_kernel as K
+
+    records, captured = [], []
+    backward, launch = S._SparseConv.backward, K.sparse_conv_cuda_dx
+
+    def recording_backward(ctx, dy):
+        features, weights = ctx.saved_tensors
+        records.append((features, weights, ctx.plan, dy.clone(),
+                        ctx.needs_input_grad[0]))
+        return backward(ctx, dy)
+
+    def recording_launch(features, gather_idx, weights):
+        captured.append((features.clone(), gather_idx.clone(),
+                         weights.clone()))
+        return launch(features, gather_idx, weights)
+
+    S._SparseConv.backward = staticmethod(recording_backward)
+    K.sparse_conv_cuda_dx = recording_launch
+    try:
+        step.grads(state, batch)
+    finally:
+        S._SparseConv.backward = backward
+        K.sparse_conv_cuda_dx = launch
+    torch.cuda.synchronize()
+    records.reverse()  # forward order: conv_input first
+    check(len(records) == K1_PER_FRAME,
+          f"expected {K1_PER_FRAME} sparse conv backwards, saw {len(records)}")
+    check(len(captured) == K1_BWD_PER_STEP,
+          f"expected {K1_BWD_PER_STEP} K1 launches in the backward, saw "
+          f"{len(captured)}")
+
+    log("K1 in the backward (input gradients of one full-width batch-4 "
+        "step; tolerance of phase 4, repeat launches bit for bit; bound as "
+        "in phase 4):")
+    log("  #  Cin  Cout N_in     N_out    hit_pairs  kernel_ms  device_ms "
+        "plain_ms  bound_ms  bound_by   max_abs_err")
+    rows, max_err = [], 0.0
+    for i, (f, idx, w) in enumerate(captured):
+        b, n_in, cin = f.shape
+        k, _, cout = w.shape
+        n_out = idx.shape[1] // k
+        _, _, err = k1_check(f"backward launch {i}", launch,
+                             K.sparse_conv_plain, f, idx, w)
+        max_err = max(max_err, err)
+        ms = cuda_ms(lambda: launch(f, idx, w), 10)
+        dev_ms = device_ms(lambda: launch(f, idx, w), 10)
+        plain_ms = cuda_ms(lambda: K.sparse_conv_plain(f, idx, w), 3)
+        pairs = k1_work(idx, n_in, k)["pairs"]
+        flops = 2.0 * pairs * cin * cout
+        nbytes = 4.0 * (idx.numel() + f.numel() + w.numel() + b * n_out * cout)
+        t_ops, t_bytes = 3 * flops / TF32_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
+        bound_ms = 1e3 * max(t_ops, t_bytes)
+        bound_by = "operations" if t_ops >= t_bytes else "bytes"
+        rows.append(dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                         bound_ms=bound_ms, t_ops=t_ops, t_bytes=t_bytes))
+        log(f"  {i:<2d} {cin:<4d} {cout:<4d} {n_in:<8d} {n_out:<8d} "
+            f"{pairs:<10d} {ms:<10.4f} {dev_ms:<9.4f} {plain_ms:<9.4f} "
+            f"{bound_ms:<9.5f} {bound_by:<10} {err:.3g}")
+    total = {key: sum(r[key] for r in rows) for key in rows[0]}
+
+    log("sparse conv input gradient, card (K1) vs autograd of the plain "
+        "version, and dW (re-gather + one product over all rows) per conv:")
+    dw_total, dx_worst = 0.0, 0.0
+    for i, (f, w, plan, dy, needs_dx) in enumerate(records):
+        n_in, cin, cout = f.shape[1], w.shape[1], w.shape[2]
+        kind = "subm" if plan.symmetric else "strided"
+        dw_ms = cuda_ms(lambda: S.weight_grad(f, plan.gather_idx, dy), 5)
+        dw_total += dw_ms
+        line = (f"  conv {i:<2d} {kind:<7} {cin:>3d}->{cout:<3d} N_in {n_in}:"
+                f" dW {dw_ms:.4f} ms")
+        if needs_dx:
+            x = f.detach().clone().requires_grad_(True)
+            S.apply_sparse_conv(x, plan, w.detach()).backward(dy)
+            ref = f.detach().clone().requires_grad_(True)
+            K.sparse_conv_plain(ref, plan.gather_idx, w.detach()).backward(dy)
+            err = (x.grad - ref.grad).abs().max().item()
+            tol = 1e-4 * ref.grad.abs().max().item() + 1e-5
+            check(err <= tol, f"conv {i}: dx off by {err} > {tol}")
+            dx_worst = max(dx_worst, err)
+            line += f"; dx max abs err {err:.3g} (tol {tol:.3g})"
+        log(line)
+    log(f"K1 backward per step: {len(rows)} launches, kernel "
+        f"{total['ms']:.4f} ms (device {total['device_ms']:.4f} ms), plain "
+        f"{total['plain_ms']:.4f} ms, bound {total['bound_ms']:.5f} ms; dW "
+        f"{dw_total:.4f} ms over {len(records)} convs; worst dx error "
+        f"{dx_worst:.3g}")
+    return dict(bwd_ms=total["ms"], bwd_device_ms=total["device_ms"],
+                bwd_plain_ms=total["plain_ms"], bwd_bound_ms=total["bound_ms"],
+                bwd_bound_by=("operations" if total["t_ops"] >= total["t_bytes"]
+                              else "bytes"),
+                bwd_max_abs_err=max_err, dw_ms=dw_total)
+
+
+def phase_train_path(state, step, batch):
+    """The trainer entry point at full width, batch 4: warm-up steps, then
+    timed steps with K1's counts set to 0 just before and read just after
+    (16 forward and 15 backward launches a step); every loss finite, the
+    loss falling below the first step's within 5 steps on this fixed batch,
+    no cap overflow. Prints ms/step, a host-clock split of one step, peak
+    memory and a one-step profile."""
+    from df3d_torch.ops import msda_kernel as K2
+    from df3d_torch.ops import sparse_conv_kernel as K1
+    from df3d_torch.utils import stages
+
+    losses = []
+
+    def one_step():
+        nonlocal state
+        state, logs = step(state, batch)
+        losses.append(logs["loss"].item())
+        check(int(logs["cap_overflow"]) == 0,
+              f"train step {len(losses)}: cap overflow "
+              f"{int(logs['cap_overflow'])}")
+        return logs
+
+    for _ in range(TRAIN_WARMUP_STEPS):
+        one_step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K1.launches = K1.bwd_launches = K2.launches = 0
+    per_step = []
+    for _ in range(TRAIN_TIMED_STEPS):
+        t0 = time.perf_counter()
+        one_step()
+        torch.cuda.synchronize()
+        per_step.append(1e3 * (time.perf_counter() - t0))
+    fwd, bwd, k2 = K1.launches, K1.bwd_launches, K2.launches
+    peak = torch.cuda.max_memory_allocated()
+    check(fwd == K1_PER_FRAME * TRAIN_TIMED_STEPS,
+          f"train path: K1 forward launched {fwd} times in "
+          f"{TRAIN_TIMED_STEPS} steps, expected {K1_PER_FRAME} a step")
+    check(bwd == K1_BWD_PER_STEP * TRAIN_TIMED_STEPS,
+          f"train path: K1 backward launched {bwd} times in "
+          f"{TRAIN_TIMED_STEPS} steps, expected {K1_BWD_PER_STEP} a step")
+    check(k2 == 0, f"train path: K2 launched {k2} times")
+    with stages.recording() as split:
+        logs = one_step()
+    profile_frame(one_step)
+    check(all(np.isfinite(losses)), f"train path: losses {losses}")
+    check(min(losses[1:5]) < losses[0],
+          f"train path: the loss did not fall below {losses[0]} in 5 steps")
+    forward = sum(split.get(k, 0.0) for k in ("backbone_3d", "neck", "head"))
+    log(f"train path: batch {TRAIN_BATCH}, {TRAIN_TIMED_STEPS} timed steps "
+        f"after {TRAIN_WARMUP_STEPS}, ms/step mean {np.mean(per_step):.3f} "
+        f"median {np.median(per_step):.3f} min {np.min(per_step):.3f}; per "
+        f"step {[round(x, 3) for x in per_step]}")
+    log(f"train path: K1 launches per step {fwd // TRAIN_TIMED_STEPS} forward"
+        f", {bwd // TRAIN_TIMED_STEPS} backward; peak memory "
+        f"{peak / 2**30:.3f} GiB")
+    log("train path step split (ms, host clock, synchronised): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+        + f"; forward (backbone_3d + neck + head) {forward:.3f}")
+    log(f"train path losses by step: {[round(x, 5) for x in losses]}; last "
+        "step: " + ", ".join(f"{k} {float(v):.4f}" for k, v in logs.items()))
+    return {"train_fwd": fwd, "train_bwd": bwd}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -998,21 +1375,36 @@ def main():
         infer_transfusion_fused, tcfg.head.num_proposals,
         K2_PER_TRANSFUSION_FUSED_FRAME)
 
+    del tfmodel
+    torch.cuda.empty_cache()
+
+    phase_small_train(dev)
+    _, state, step, batch = full_train_setup(dev)
+    k1_train = phase_train_k1(state, step, batch)
+    train = phase_train_path(state, step, batch)
+
     # each path's timed run, counts set to 0 just before it and read just
     # after; "launches" sums the paths. The top-level numbers are the
     # CenterPoint paths' (phases 4 and 7), "transfusion" holds phases 10's
-    # and 12's.
+    # and 12's, "train" the training path's (phases 15 and 16: K1's forward
+    # and backward launches, its backward times and dW's).
     paths = {"lidar": lidar, "fused": fused, "transfusion_lidar": tlidar,
              "transfusion_fused": tfused}
     for entry, kernel, extra in ((k1, K1, tk1), (k2, K2, tk2)):
         entry["launches_by_path"] = {name: launches[kernel]
                                      for name, launches in paths.items()}
-        entry["launches"] = sum(entry["launches_by_path"].values())
         entry["transfusion"] = {k: v for k, v in extra.items()
                                 if k not in ("name", "route", "source",
                                              "replaces", "library_ms")}
         entry["max_abs_err"] = max(entry["max_abs_err"],
                                    extra["max_abs_err"])
+    k1["launches_by_path"]["train"] = train["train_fwd"] + train["train_bwd"]
+    k2["launches_by_path"]["train"] = 0
+    k1["train"] = dict(fwd_launches=train["train_fwd"],
+                       bwd_launches=train["train_bwd"], **k1_train)
+    k1["max_abs_err"] = max(k1["max_abs_err"], k1_train["bwd_max_abs_err"])
+    for entry in (k1, k2):
+        entry["launches"] = sum(entry["launches_by_path"].values())
 
     log(f"card: {card}")
     print(json.dumps({"kernels": [k1, k2]}))

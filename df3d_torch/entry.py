@@ -14,6 +14,11 @@
   query, no NMS); `build_transfusion3ddf(cfg, fcfg, device, seed)` and
   `infer_transfusion_fused(model, cfg, points, valid, images, proj)`:
   TransFusion + 3D-DF.
+* `build_centerpoint_trainer(cfg, device, seed)`: the CenterPoint model
+  with random weights in training mode, its `TrainState` (AdamW with
+  OneCycle, the JAX package's `adam_onecycle`) and the training step
+  (`train.trainer.CenterPointTrainStep`): `step(state, batch) -> (state,
+  logs)`.
 * `centerpoint_3ddf_nusc()`, `transfusion_l_nusc()` and
   `transfusion_3ddf_nusc()` are the port's copies of the JAX package's
   presets of those names; `fused_config(preset)` the `FusedConfig` the JAX
@@ -39,6 +44,11 @@ from df3d_torch.models.detectors.transfusion import (
 )
 from df3d_torch.models.fusion.actr import ACTRConfig
 from df3d_torch.ops.voxelize import voxelize_batch
+from df3d_torch.train.schedules import adam_onecycle
+from df3d_torch.train.trainer import (
+    TrainState, CenterPointTrainStep, create_centerpoint_state,
+    make_centerpoint_train_step,
+)
 from df3d_torch.utils import stages
 
 
@@ -58,6 +68,20 @@ def build_centerpoint(cfg: CenterPointConfig, device=None,
     device = resolve_device(device)
     model = CenterPoint(cfg).init_weights(torch.Generator().manual_seed(seed))
     return model.to(device).eval()
+
+
+def build_centerpoint_trainer(cfg: CenterPointConfig, device=None,
+                              seed: int = 0
+                              ) -> tuple[TrainState, CenterPointTrainStep]:
+    """(state, step) for training CenterPoint on `device` from random
+    weights drawn from `seed`: AdamW with OneCycle at the JAX package's
+    `tools/train.py` defaults (lr 1e-3, 20 epochs of 100 steps). Other
+    schedules: `create_centerpoint_state(model, adam_onecycle(...))`."""
+    device = resolve_device(device)
+    model = CenterPoint(cfg).init_weights(torch.Generator().manual_seed(seed))
+    state = create_centerpoint_state(model.to(device).train(),
+                                     adam_onecycle(1e-3, 2000))
+    return state, make_centerpoint_train_step(cfg)
 
 
 def _serve(model, cfg, predict, stage: str, points, valid, *model_inputs):

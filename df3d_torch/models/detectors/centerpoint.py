@@ -1,9 +1,9 @@
 """CenterPoint detector (port of df3d/models/detectors/centerpoint.py).
 
 voxel features + coords -> `SpMiddleResNetFHD` -> `BEVBackbone` ->
-`CenterHead`, and `centerpoint_predict` for decode + NMS. The mean VFE is
-fused into the voxelizer (`df3d_torch.ops.voxelize`). Inference only: the
-training path (targets, losses) is ported in a later slice.
+`CenterHead`, `centerpoint_predict` for decode + NMS and
+`centerpoint_loss` for training. The mean VFE is fused into the voxelizer
+(`df3d_torch.ops.voxelize`).
 """
 
 from __future__ import annotations
@@ -15,7 +15,9 @@ import torch
 from torch import nn
 
 from df3d_torch.models.backbones_3d import SpMiddleResNetFHD
-from df3d_torch.models.heads.center_head import CenterHead, center_head_predict
+from df3d_torch.models.heads.center_head import (
+    CenterHead, center_head_loss, center_head_predict, center_head_targets,
+)
 from df3d_torch.models.layers import (
     SparseConv3d, SubMConv3d, flax_trunc_normal_,
 )
@@ -69,7 +71,8 @@ class CenterPointConfig:
 
 class CenterPoint(nn.Module):
     """Build on the target device, call `init_weights` (or load a state
-    dict), then `.eval()`: only the inference path is ported."""
+    dict); `.eval()` serves on the running statistics, `.train()` trains
+    on the batch statistics and moves the running ones."""
 
     def __init__(self, cfg: CenterPointConfig,
                  fusion_hook: nn.Module | None = None):
@@ -96,7 +99,8 @@ class CenterPoint(nn.Module):
 
         Returns (preds, ms, overflow): per-task dicts of (B, H, W, c) maps,
         the per-stage backbone tensors, and the strided stages' cap
-        overflows (the values the JAX package sows)."""
+        overflows (the values the JAX package sows; `cap_overflow_total`
+        sums them as the training step logs them)."""
         st = SparseTensor(voxel_features, voxel_coords, self.cfg.sparse_shape)
         v = voxel_features.shape[1]
         caps = tuple(min(c, v) for c in self.cfg.stage_caps)
@@ -150,3 +154,23 @@ def centerpoint_predict(cfg: CenterPointConfig, preds):
         cfg.post_center_range, cfg.score_threshold, cfg.nms_iou_threshold,
         cfg.nms_pre_max_size, cfg.nms_post_max_size,
     )
+
+
+def centerpoint_loss(cfg: CenterPointConfig, preds, gt_boxes, gt_classes,
+                     gt_valid):
+    """gt_boxes (B, M, 9), gt_classes (B, M) global ids, gt_valid (B, M)
+    -> (total loss, logs)."""
+    targets = center_head_targets(
+        gt_boxes, gt_classes, gt_valid, cfg.tasks, cfg.bev_size,
+        cfg.voxel_size[:2], cfg.pc_range[:2], cfg.out_size_factor,
+        cfg.gaussian_overlap, cfg.min_radius, cfg.max_objs)
+    return center_head_loss(preds, targets, cfg.code_weights, cfg.loc_weight)
+
+
+def cap_overflow_total(overflow: dict) -> torch.Tensor:
+    """Every cap overflow of a forward, summed over stages and samples
+    (int32), as the JAX package's training step logs `cap_overflow`."""
+    sums = [v.sum(dtype=torch.int32) for v in overflow.values()]
+    if not sums:
+        return torch.zeros((), dtype=torch.int32)
+    return torch.stack(sums).sum(dtype=torch.int32)

@@ -1,10 +1,11 @@
 """CenterPoint detection head (port of df3d/models/heads/center_head.py).
 
-`SepHeadBranch`, `CenterHead` (without the DCN adaption) and
-`center_head_predict`: top-k decode plus rotated BEV NMS, all on the device
-with static shapes. Maps are channel-last (B, H, W, C) at the public
+`SepHeadBranch`, `CenterHead` (without the DCN adaption),
+`center_head_targets` / `center_head_loss` (the training targets and loss)
+and `center_head_predict`: top-k decode plus rotated BEV NMS, all on the
+device with static shapes. Maps are channel-last (B, H, W, C) at the public
 functions, as in the JAX package. The head's BatchNorms are flax defaults
-(eps=1e-5) and its convs carry a bias.
+(eps 1e-5, momentum 0.99) and its convs carry a bias.
 
 Box outputs are 9-dof (x, y, z, dx, dy, dz, heading, vx, vy).
 """
@@ -17,8 +18,11 @@ import torch
 from torch import nn
 
 from df3d_torch.core.nms import nms_bev, top_k_stable
-from df3d_torch.models.layers import conv2d_same
-from df3d_torch.models.losses import clamped_sigmoid
+from df3d_torch.core.target_utils import assign_center_targets
+from df3d_torch.models.layers import FlaxBatchNorm2d, conv2d_same
+from df3d_torch.models.losses import (
+    clamped_sigmoid, fast_focal_loss, reg_l1_loss,
+)
 
 # (name, out_channels, num_convs): det3d common_heads for nuScenes
 DEFAULT_BRANCHES = (
@@ -39,7 +43,7 @@ class SepHeadBranch(nn.Module):
         c = in_channels
         for _ in range(num_convs - 1):
             self.convs.append(nn.Conv2d(c, head_conv, k))
-            self.bns.append(nn.BatchNorm2d(head_conv, eps=1e-5))
+            self.bns.append(FlaxBatchNorm2d(head_conv, eps=1e-5))
             c = head_conv
         self.out = nn.Conv2d(c, out_channels, k)
 
@@ -57,7 +61,7 @@ class CenterHead(nn.Module):
         self.task_num_classes = tuple(task_num_classes)
         self.branch_names = tuple(name for name, _, _ in branches) + ("hm",)
         self.shared_conv = nn.Conv2d(in_channels, share_conv_channel, 3)
-        self.shared_bn = nn.BatchNorm2d(share_conv_channel, eps=1e-5)
+        self.shared_bn = FlaxBatchNorm2d(share_conv_channel, eps=1e-5)
         self.tasks = nn.ModuleList()
         for ncls in self.task_num_classes:
             task = nn.ModuleDict({
@@ -73,6 +77,51 @@ class CenterHead(nn.Module):
         x = torch.relu(self.shared_bn(conv2d_same(self.shared_conv, x)))
         return [{name: task[name](x).permute(0, 2, 3, 1)
                  for name in self.branch_names} for task in self.tasks]
+
+
+def center_head_targets(gt_boxes, gt_classes, gt_valid, task_num_classes,
+                        feature_size, voxel_size, pc_range, out_size_factor,
+                        gaussian_overlap=0.1, min_radius=2, max_objs=500):
+    """Per task, the batched targets of `assign_center_targets`. gt_classes
+    are global ids; each task takes its contiguous slice of them (det3d's
+    AssignLabel task split)."""
+    targets, offset = [], 0
+    for ncls in task_num_classes:
+        in_task = ((gt_classes >= offset) & (gt_classes < offset + ncls)
+                   & gt_valid)
+        local = (gt_classes - offset).clamp(0, ncls - 1)
+        targets.append(assign_center_targets(
+            gt_boxes, local, in_task, ncls, feature_size, voxel_size,
+            pc_range, out_size_factor, gaussian_overlap, min_radius,
+            max_objs))
+        offset += ncls
+    return targets
+
+
+def center_head_loss(preds, targets, code_weights, loc_weight=0.25):
+    """Sum over tasks of the focal heatmap loss and loc_weight x the
+    code-weighted L1 box loss -> (total, logs with per-task hm and loc
+    losses and the total under "loss")."""
+    total, logs = 0.0, {}
+    cw = torch.tensor(code_weights, dtype=preds[0]["reg"].dtype,
+                      device=preds[0]["reg"].device)
+    for t, (pred, tgt) in enumerate(zip(preds, targets)):
+        b, h, w, ncls = pred["hm"].shape
+        hm = clamped_sigmoid(pred["hm"]).reshape(b, h * w, ncls)
+        tgt_hm = tgt["heatmap"].permute(0, 2, 3, 1).reshape(b, h * w, ncls)
+        hm_loss = fast_focal_loss(hm, tgt_hm, tgt["inds"], tgt["mask"],
+                                  tgt["cats"])
+        reg_map = torch.cat([pred["reg"], pred["height"], pred["dim"],
+                             pred["vel"], pred["rot"]], -1).reshape(
+                                 b, h * w, -1)
+        box_loss = reg_l1_loss(reg_map, tgt["inds"], tgt["mask"],
+                               tgt["anno_box"])
+        loc_loss = (box_loss * cw).sum()
+        total = total + hm_loss + loc_weight * loc_loss
+        logs[f"task{t}_hm_loss"] = hm_loss
+        logs[f"task{t}_loc_loss"] = loc_loss
+    logs["loss"] = total
+    return total, logs
 
 
 def center_head_predict(

@@ -4,7 +4,8 @@ The sparse 3D modules keep the JAX package's polymorphism: a SparseTensor +
 ConvPlan runs the gather-GEMM body (the CUDA kernel on the card), a
 DenseTensor + DenseConvSpec runs a dense conv masked to the active set. The
 (K, Cin, Cout) tap weights are the same either way. BatchNorms on voxel
-features and BEV maps use eps=1e-3 (det3d/pcdet norm_cfg).
+features and BEV maps use eps=1e-3 (det3d/pcdet norm_cfg) and flax's
+momentum 0.99 in training.
 
 The 2D blocks take NCHW tensors (PyTorch's layout); `BEVBackbone` and
 `CenterHead` convert at their boundary, where the layout is the JAX
@@ -24,9 +25,11 @@ from df3d_torch.ops.sparse import SparseTensor, apply_sparse_conv, _triple
 
 
 class MaskedBatchNorm(nn.Module):
-    """BatchNorm over the valid rows of padded (..., C) features, eval
-    path (running statistics); rows outside the mask come out zero.
-    Training statistics wait for the training slice."""
+    """BatchNorm over the valid rows of padded (..., C) features; rows
+    outside the mask come out zero. In training the statistics are the mean
+    and the biased variance over the valid rows, pooled over batch and rows,
+    and the running statistics move as flax's do: old * MOMENTUM + batch *
+    (1 - MOMENTUM)."""
 
     def __init__(self, channels: int, eps: float = 1e-3):
         super().__init__()
@@ -38,11 +41,59 @@ class MaskedBatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         if self.training:
-            raise NotImplementedError(
-                "MaskedBatchNorm: only the eval path is ported; call .eval()")
-        inv = torch.rsqrt(self.running_var + self.eps) * self.weight
-        y = (x - self.running_mean) * inv + self.bias
+            m = mask[..., None].to(x.dtype)
+            red = tuple(range(x.dim() - 1))
+            cnt = m.sum().clamp_min(1.0)
+            mean = (x * m).sum(red) / cnt
+            var = ((x - mean).square() * m).sum(red) / cnt
+            _update_running(self, mean, var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        inv = torch.rsqrt(var + self.eps) * self.weight
+        y = (x - mean) * inv + self.bias
         return torch.where(mask[..., None], y, torch.zeros_like(y))
+
+
+# flax's momentum of the running statistics (torch's 0.01) on every norm of
+# the CenterPoint path
+MOMENTUM = 0.99
+
+
+@torch.no_grad()
+def _update_running(bn: nn.Module, mean: torch.Tensor,
+                    var: torch.Tensor) -> None:
+    """flax's update of the running statistics, in place."""
+    bn.running_mean.copy_(MOMENTUM * bn.running_mean + (1 - MOMENTUM) * mean)
+    bn.running_var.copy_(MOMENTUM * bn.running_var + (1 - MOMENTUM) * var)
+
+
+class FlaxBatchNorm2d(nn.Module):
+    """flax's `nn.BatchNorm` over NCHW maps. In training it normalises
+    with the batch mean and the biased variance max(0, E[x^2] - E[x]^2)
+    (flax's fast variance) and moves the running statistics by
+    old * MOMENTUM + batch * (1 - MOMENTUM); `nn.BatchNorm2d` would put the
+    unbiased variance there, with torch's reversed momentum. In eval it is
+    `F.batch_norm` on the running statistics."""
+
+    def __init__(self, channels: int, eps: float):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("running_mean", torch.zeros(channels))
+        self.register_buffer("running_var", torch.ones(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0, self.eps)
+        red = (0, 2, 3)
+        mean = x.mean(red)
+        var = (x.square().mean(red) - mean.square()).clamp_min(0.0)
+        _update_running(self, mean, var)
+        inv = torch.rsqrt(var + self.eps) * self.weight
+        return ((x - mean[:, None, None]) * inv[:, None, None]
+                + self.bias[:, None, None])
 
 
 class SubMConv3d(nn.Module):
@@ -154,7 +205,7 @@ class ConvBNReLU2d(nn.Module):
         super().__init__()
         self.conv = nn.Conv2d(in_channels, out_channels, kernel_size,
                               stride=stride, bias=use_bias)
-        self.bn = nn.BatchNorm2d(out_channels, eps=1e-3, momentum=0.01)
+        self.bn = FlaxBatchNorm2d(out_channels, eps=1e-3)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return torch.relu(self.bn(conv2d_same(self.conv, x)))
@@ -167,7 +218,7 @@ class DeconvBNReLU2d(nn.Module):
         super().__init__()
         self.deconv = nn.ConvTranspose2d(in_channels, out_channels, stride,
                                          stride=stride, bias=False)
-        self.bn = nn.BatchNorm2d(out_channels, eps=1e-3, momentum=0.01)
+        self.bn = FlaxBatchNorm2d(out_channels, eps=1e-3)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return torch.relu(self.bn(self.deconv(x)))

@@ -1,4 +1,6 @@
-"""Detection losses (port of df3d/models/losses.py): only what decode needs."""
+"""Detection losses (port of df3d/models/losses.py): the CenterPoint head's
+(det3d centernet_loss.py: CornerNet focal loss with gaussian-weighted
+negatives, masked L1 at the peak indices)."""
 
 from __future__ import annotations
 
@@ -7,3 +9,30 @@ import torch
 
 def clamped_sigmoid(x: torch.Tensor, eps: float = 1e-4) -> torch.Tensor:
     return torch.clamp(torch.sigmoid(x), eps, 1 - eps)
+
+
+def fast_focal_loss(pred: torch.Tensor, target: torch.Tensor,
+                    ind: torch.Tensor, mask: torch.Tensor,
+                    cat: torch.Tensor) -> torch.Tensor:
+    """pred (B, H*W, C) probabilities, target (B, H*W, C) gaussian heatmap,
+    ind (B, M) flat peak indices, mask (B, M) bool, cat (B, M) class ids.
+    -> scalar: -(pos + neg) / num_pos, or -neg with no positive."""
+    neg_loss = (torch.log(1 - pred) * pred ** 2 * (1 - target) ** 4).sum()
+    at_peaks = torch.gather(pred, 1, ind[..., None].expand(
+        -1, -1, pred.shape[2]))
+    pos_pred = torch.gather(at_peaks, 2, cat[..., None])[..., 0]
+    num_pos = mask.sum().to(pred.dtype)
+    pos_loss = (torch.log(pos_pred) * (1 - pos_pred) ** 2 * mask).sum()
+    return torch.where(num_pos == 0, -neg_loss,
+                       -(pos_loss + neg_loss) / num_pos.clamp_min(1.0))
+
+
+def reg_l1_loss(pred_map: torch.Tensor, ind: torch.Tensor, mask: torch.Tensor,
+                target: torch.Tensor) -> torch.Tensor:
+    """Masked L1 at the peaks. pred_map (B, H*W, C), ind and mask (B, M),
+    target (B, M, C) -> per-channel sum / num_pos, (C,)."""
+    pred = torch.gather(pred_map, 1, ind[..., None].expand(
+        -1, -1, pred_map.shape[2]))
+    m = mask.to(pred.dtype)[..., None]
+    loss = (pred * m - target * m).abs() / (m.sum() + 1e-4)
+    return loss.sum((0, 1))

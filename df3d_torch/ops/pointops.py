@@ -8,10 +8,11 @@ mark real results. Index outputs equal the JAX package's on the CPU.
 Distances are written as explicit per-coordinate products and sums, one
 elementwise op at a time, so the CPU and the card round them identically
 and every index decision (FPS argmax, in-radius test) is the same on both.
-FPS rounds its distances as XLA does once it fuses the sum of squares
-under `jit` (a fused multiply-add chain, x^2 then + y^2 then + z^2, one
-rounding each): on a voxel lattice many distances tie, and the argmax
-follows the last bit.
+FPS and the ball query round their distances as XLA does under `jit` (a
+fused multiply-add chain, x^2 then + y^2 then + z^2, one rounding each;
+the ball query's |a|^2 + |b|^2 - 2 a.b likewise for both norms and the dot
+product): on a voxel lattice many distances tie, or fall exactly on the
+radius, and the decision follows the last bit.
 """
 
 from __future__ import annotations
@@ -19,6 +20,9 @@ from __future__ import annotations
 import torch
 
 _BIG = 1e10
+# (centre, point) pairs whose f64 distance temporaries the ball query holds
+# at a time (128 MiB for each)
+_PAIRS_PER_CHUNK = 1 << 24
 
 
 def _sqdist(xyz: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -31,15 +35,25 @@ def _sqdist(xyz: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return (d[..., 2] * d[..., 2] + acc).float()
 
 
+def _fma_dot3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """sum_i a_i b_i over the last axis (3) of f32 a and b, as a fused
+    multiply-add chain: each product is exact in f64 and each partial sum
+    is rounded to f32 once."""
+    a, b = a.double(), b.double()
+    acc = (a[..., 0] * b[..., 0]).float().double()
+    acc = (a[..., 1] * b[..., 1] + acc).float().double()
+    return (a[..., 2] * b[..., 2] + acc).float()
+
+
 def pairwise_dist2(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Squared euclidean distances in the JAX package's form |a|^2 + |b|^2 -
-    2 a.b. a (..., S, 3), b (..., N, 3) -> (..., S, N)."""
-    a2 = a[..., 0] * a[..., 0] + a[..., 1] * a[..., 1] + a[..., 2] * a[..., 2]
-    b2 = b[..., 0] * b[..., 0] + b[..., 1] * b[..., 1] + b[..., 2] * b[..., 2]
-    ab = (a[..., :, None, 0] * b[..., None, :, 0]
-          + a[..., :, None, 1] * b[..., None, :, 1]
-          + a[..., :, None, 2] * b[..., None, :, 2])
-    return a2[..., :, None] + b2[..., None, :] - 2.0 * ab
+    2 a.b, rounded as XLA computes it under `jit`: both norms and the dot
+    product as fused multiply-add chains, then (|a|^2 + |b|^2) - 2 a.b.
+    a (..., S, 3), b (..., N, 3) -> (..., S, N)."""
+    a2 = _fma_dot3(a, a)
+    b2 = _fma_dot3(b, b)
+    ab = _fma_dot3(a[..., :, None, :], b[..., None, :, :])
+    return (a2[..., :, None] + b2[..., None, :]) - 2.0 * ab
 
 
 def _fps_exact(xyz: torch.Tensor, valid: torch.Tensor,
@@ -95,8 +109,12 @@ def ball_query(centers: torch.Tensor, xyz: torch.Tensor, valid: torch.Tensor,
     centers (B, S, 3), xyz (B, N, 3), valid (B, N) -> (idx (B, S, k)
     int64, mask (B, S, k)). Slots past the neighbor count repeat the first
     neighbor (index 0 when there is none) and are False in mask."""
+    b, s, _ = centers.shape
     n = xyz.shape[1]
-    within = (pairwise_dist2(centers, xyz) <= radius * radius) & valid[:, None]
+    rows = max(1, _PAIRS_PER_CHUNK // max(b * n, 1))
+    within = torch.cat([pairwise_dist2(centers[:, i:i + rows], xyz)
+                        <= radius * radius for i in range(0, s, rows)], 1)
+    within &= valid[:, None]
     rank = torch.where(within, torch.arange(n, device=xyz.device,
                                             dtype=torch.int32), n)
     # found ranks are distinct, so their order is unique; the order among

@@ -7,9 +7,13 @@
   Built with sort + `searchsorted`, which gives the JAX package's plans bit
   for bit (the JAX word-rank tables are a TPU layout choice with the same
   result).
-* `apply_sparse_conv` - the gather-GEMM conv body. A CUDA tensor goes to the
-  hand-written kernel (`sparse_conv_kernel.sparse_conv_cuda`), a CPU tensor
-  to its plain PyTorch version.
+* `apply_sparse_conv` - the gather-GEMM conv body, differentiable. A CUDA
+  tensor goes to the hand-written kernel (`sparse_conv_kernel`), a CPU
+  tensor to its plain PyTorch version, forward and backward alike. The
+  input gradient is the same gather-GEMM again: over the same plan with
+  flipped, transposed taps for a submanifold plan, over the transposed plan
+  for a strided one. The weight gradient re-gathers the inputs and takes
+  one matrix product over all rows.
 """
 
 from __future__ import annotations
@@ -71,6 +75,13 @@ class ConvPlan:
     kernel_size: tuple[int, int, int]
     # strided plans: true output occupancy per sample before the cap
     true_occ: torch.Tensor | None = None  # (B,) int32, or None (subm plans)
+    # submanifold plans: site i is site j's neighbour at tap t exactly when
+    # j is i's at tap K-1-t (padding rows have no neighbours)
+    symmetric: bool = False
+    # `transposed`'s result by input row count, built once for the layers
+    # that share this plan
+    _cache: dict = dataclasses.field(default_factory=dict, repr=False,
+                                     compare=False)
 
     @property
     def num_taps(self) -> int:
@@ -80,6 +91,30 @@ class ConvPlan:
     @property
     def num_out_rows(self) -> int:
         return self.gather_idx.shape[1] // self.num_taps
+
+    def transposed(self, n_in: int) -> torch.Tensor:
+        """The plan read backwards, (B, K*N_in) int32 tap-major: for each
+        input row and tap, the one output row that gathers it there (or
+        N_out). One output row at most: a strided tap maps an output site to
+        one input site and back. Output rows the cap dropped are in no
+        plan, so they gather nothing."""
+        if n_in not in self._cache:
+            b, k, n_out = (self.gather_idx.shape[0], self.num_taps,
+                           self.num_out_rows)
+            idx = self.gather_idx.view(b, k, n_out).long()
+            inv = torch.full((b, k, n_in + 1), n_out, dtype=torch.int32,
+                             device=idx.device)
+            hits = torch.zeros(b, k, n_in + 1, dtype=torch.int32,
+                               device=idx.device)
+            hits.scatter_add_(2, idx, torch.ones_like(idx, dtype=torch.int32))
+            if n_in and hits[:, :, :n_in].max() > 1:
+                raise ValueError("ConvPlan.transposed: an input row is "
+                                 "gathered twice at one tap")
+            rows = torch.arange(n_out, dtype=torch.int32, device=idx.device)
+            # misses all land in column n_in, which is cut off
+            inv.scatter_(2, idx, rows.expand(b, k, n_out))
+            self._cache[n_in] = inv[:, :, :n_in].reshape(b, k * n_in)
+        return self._cache[n_in]
 
 
 def _centered_offsets(ksize):
@@ -130,7 +165,8 @@ def build_subm_plan(st: SparseTensor, ksize) -> ConvPlan:
         query = torch.where(ok, q, torch.full_like(q, INT_MAX - 1))
         rows.append(_lookup(skeys, query, order, n))
     gather = torch.stack(rows).to(torch.int32)
-    return ConvPlan(gather, st.coords, st.spatial_shape, ksize)
+    return ConvPlan(gather, st.coords, st.spatial_shape, ksize,
+                    symmetric=True)
 
 
 def build_conv_plan(st: SparseTensor, ksize, stride, padding,
@@ -223,6 +259,66 @@ def build_conv_plan(st: SparseTensor, ksize, stride, padding,
     )
 
 
+def _conv_body(features, gather_idx, weights, dx: bool = False):
+    """K1 on a CUDA tensor (counted as a backward launch when `dx`), its
+    plain version on a CPU tensor."""
+    if features.is_cuda:
+        launch = _k.sparse_conv_cuda_dx if dx else _k.sparse_conv_cuda
+        return launch(features, gather_idx, weights)
+    if features.device.type == "cpu":
+        return _k.sparse_conv_plain(features, gather_idx, weights)
+    raise RuntimeError(f"apply_sparse_conv: no path for {features.device}")
+
+
+def weight_grad(features: torch.Tensor, gather_idx: torch.Tensor,
+                dy: torch.Tensor) -> torch.Tensor:
+    """dW[t] = sum over samples and output rows of x[idx[t, r]]^T dy[r]:
+    the inputs re-gathered with an output row's K taps side by side, then
+    one product over all rows, (K*Cin, rows) @ (rows, Cout). -> (K, Cin,
+    Cout). (One long product; per-tap batched products of the same rows ran
+    slower on the card.)"""
+    b, n_in, cin = features.shape
+    n_out, cout = dy.shape[1], dy.shape[2]
+    k = gather_idx.shape[1] // n_out
+    padded = torch.cat([features, features.new_zeros(b, 1, cin)], 1)
+    base = torch.arange(b, device=features.device)[:, None, None] * (n_in + 1)
+    rows = (gather_idx.view(b, k, n_out).long() + base).transpose(1, 2)
+    g = padded.reshape(b * (n_in + 1), cin).index_select(0, rows.reshape(-1))
+    dw = g.view(b * n_out, k * cin).t() @ dy.reshape(b * n_out, cout)
+    return dw.view(k, cin, cout)
+
+
+class _SparseConv(torch.autograd.Function):
+    """The gather-GEMM conv with its gradients (the counterpart of the JAX
+    package's `_subm_conv_sym` custom VJP for submanifold plans and of
+    autodiff of the XLA conv for strided ones)."""
+
+    @staticmethod
+    def forward(ctx, features, weights, plan):
+        ctx.plan = plan
+        ctx.save_for_backward(features, weights)
+        return _conv_body(features, plan.gather_idx, weights)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dy):
+        features, weights = ctx.saved_tensors
+        plan = ctx.plan
+        dy = dy.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            if plan.symmetric:  # W'_t = W[K-1-t]^T over the same plan
+                w_t = weights.flip(0).transpose(1, 2).contiguous()
+                idx = plan.gather_idx
+            else:  # W_t^T over the transposed plan
+                w_t = weights.transpose(1, 2).contiguous()
+                idx = plan.transposed(features.shape[1])
+            dx = _conv_body(dy, idx, w_t, dx=True)
+        if ctx.needs_input_grad[1]:
+            dw = weight_grad(features, plan.gather_idx, dy)
+        return dx, dw, None
+
+
 def apply_sparse_conv(features: torch.Tensor, plan: ConvPlan,
                       weights: torch.Tensor) -> torch.Tensor:
     """Gather-GEMM conv body (pull formulation, no scatter).
@@ -230,9 +326,5 @@ def apply_sparse_conv(features: torch.Tensor, plan: ConvPlan,
     features (B, N_in, Cin); weights (K, Cin, Cout) with K taps in the
     plan's row-major (z, y, x) order. Returns (B, N_out, Cout).
     A CUDA tensor runs the hand-written kernel; a CPU tensor runs its plain
-    PyTorch version."""
-    if features.is_cuda:
-        return _k.sparse_conv_cuda(features, plan.gather_idx, weights)
-    if features.device.type == "cpu":
-        return _k.sparse_conv_plain(features, plan.gather_idx, weights)
-    raise RuntimeError(f"apply_sparse_conv: no path for {features.device}")
+    PyTorch version. Differentiable in features and weights."""
+    return _SparseConv.apply(features, weights, plan)

@@ -7,10 +7,13 @@ bounds it: per 64-row tile and tap it compacts the hit rows into chunks of
 wrapper, its launch count and its plain PyTorch version:
 
 * `sparse_conv_cuda` launches the kernel on CUDA tensors and raises on
-  anything else. It never falls back.
+  anything else. It never falls back. `sparse_conv_cuda_dx` is the same
+  launch made for an input gradient (the backward of
+  `ops.sparse.apply_sparse_conv`: the same plan with flipped, transposed
+  taps, or a transposed plan), counted apart in `bwd_launches`.
 * `sparse_conv_plain` computes the same function with `index_select` +
-  `einsum`. `ops.sparse.apply_sparse_conv` uses it for CPU tensors; the
-  tests and `chip_smoke.py` hold the kernel against it.
+  `einsum`. `ops.sparse.apply_sparse_conv` and its backward use it for CPU
+  tensors; the tests and `chip_smoke.py` hold the kernel against it.
 """
 
 from __future__ import annotations
@@ -26,8 +29,10 @@ SOURCE = "sparse_conv.cu"
 # keeps a bit per tap
 MAX_CIN = 128
 MAX_TAPS = 128
-# kernel launches made by `sparse_conv_cuda` since the last reset
+# kernel launches made by `sparse_conv_cuda` (forward) and
+# `sparse_conv_cuda_dx` (input gradients) since the last reset
 launches = 0
+bwd_launches = 0
 
 
 def sparse_conv_plain(features: torch.Tensor, gather_idx: torch.Tensor,
@@ -60,6 +65,24 @@ def sparse_conv_cuda(features: torch.Tensor, gather_idx: torch.Tensor,
     `sparse_conv_plain`. Raises unless every input is a contiguous CUDA
     tensor of the expected type and shape."""
     global launches
+    out, launched = _launch(features, gather_idx, weights)
+    launches += launched
+    return out
+
+
+def sparse_conv_cuda_dx(features: torch.Tensor, gather_idx: torch.Tensor,
+                        weights: torch.Tensor) -> torch.Tensor:
+    """`sparse_conv_cuda` for an input gradient: the same launch, counted
+    in `bwd_launches`."""
+    global bwd_launches
+    out, launched = _launch(features, gather_idx, weights)
+    bwd_launches += launched
+    return out
+
+
+def _launch(features, gather_idx, weights) -> tuple[torch.Tensor, int]:
+    """Check the inputs and launch K1; -> (output, 1 if it launched, else
+    0 for an empty output)."""
     for name, t in (("features", features), ("gather_idx", gather_idx),
                     ("weights", weights)):
         if not t.is_cuda:
@@ -88,7 +111,7 @@ def sparse_conv_cuda(features: torch.Tensor, gather_idx: torch.Tensor,
     out = torch.empty(b, n_out, cout, device=features.device,
                       dtype=torch.float32)
     if b == 0 or n_out == 0 or cout == 0:
-        return out
+        return out, 0
     launch = _launcher()
     with torch.cuda.device(features.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -97,5 +120,4 @@ def sparse_conv_cuda(features: torch.Tensor, gather_idx: torch.Tensor,
             out.data_ptr(), b, n_in, n_out, k, cin, cout, stream)
     if err != 0:
         raise RuntimeError(f"sparse_conv_cuda: launch failed, cudaError {err}")
-    launches += 1
-    return out
+    return out, 1

@@ -44,10 +44,11 @@ from df3d_torch.models.heads.transfusion_head import (
     DecoderLayer, LastAxisBatchNorm, PositionEmbeddingLearned,
 )
 from df3d_torch.models.layers import (
-    ConvBNReLU2d, DeconvBNReLU2d, MaskedBatchNorm, SparseBasicBlock,
-    SparseConv3d, SparseConvBNReLU, SubMConv3d,
+    ConvBNReLU2d, DeconvBNReLU2d, FlaxBatchNorm2d, MaskedBatchNorm,
+    SparseBasicBlock, SparseConv3d, SparseConvBNReLU, SubMConv3d,
 )
 from df3d_torch.models.necks import BEVBackbone
+from df3d_torch.train.trainer import create_centerpoint_state
 
 _HOOK_CHILDREN = {name: f"fusion_hook.{name}"
                   for name in ("ifat", "actr", "actr_out_proj")}
@@ -99,7 +100,7 @@ def _leaf(module: nn.Module, collection: str, name: str,
     """(torch entry name, value in the torch layout) for one flax leaf."""
     if isinstance(module, (SubMConv3d, SparseConv3d)) and name == "kernel":
         return "weight", value
-    if isinstance(module, (MaskedBatchNorm, nn.BatchNorm2d,
+    if isinstance(module, (MaskedBatchNorm, FlaxBatchNorm2d, nn.BatchNorm2d,
                            LastAxisBatchNorm)):
         table = {("params", "scale"): "weight", ("params", "bias"): "bias",
                  ("batch_stats", "mean"): "running_mean",
@@ -133,10 +134,9 @@ def _flatten(tree, prefix=()):
             yield prefix + (k,), np.asarray(v)
 
 
-def state_dict_from_flax(model: nn.Module, variables) -> dict:
-    """flax variables -> `state_dict` of `model` (torch tensors on the CPU,
-    float32). Raises on an unmapped leaf, an unfilled entry or a shape
-    mismatch."""
+def _carry(model: nn.Module, variables) -> dict:
+    """{torch entry: tensor} for every leaf of `variables`' "params" and
+    "batch_stats" collections."""
     target = model.state_dict()
     out = {}
     for collection in ("params", "batch_stats"):
@@ -159,8 +159,16 @@ def state_dict_from_flax(model: nn.Module, variables) -> dict:
                 raise ValueError(
                     f"{key}: torch shape {tuple(target[key].shape)} vs "
                     f"carried {value.shape} from {'/'.join(path)}")
-            out[key] = torch.from_numpy(
-                np.ascontiguousarray(value, dtype=np.float32))
+            out[key] = torch.from_numpy(np.array(value, dtype=np.float32))
+    return out
+
+
+def state_dict_from_flax(model: nn.Module, variables) -> dict:
+    """flax variables -> `state_dict` of `model` (torch tensors on the CPU,
+    float32). Raises on an unmapped leaf, an unfilled entry or a shape
+    mismatch."""
+    target = model.state_dict()
+    out = _carry(model, variables)
     # BatchNorm2d's step counter has no flax counterpart and no effect in
     # eval mode
     missing = [k for k in target
@@ -171,3 +179,25 @@ def state_dict_from_flax(model: nn.Module, variables) -> dict:
         if k.endswith("num_batches_tracked"):
             out[k] = torch.zeros((), dtype=torch.long)
     return out
+
+
+def params_from_flax(model: nn.Module, tree) -> dict:
+    """A tree shaped like the flax params (the parameters, their gradients
+    or an update) -> {parameter name: tensor} for every parameter of
+    `model`, in the torch layout. Raises unless the tree fills each
+    parameter exactly once."""
+    out = _carry(model, {"params": tree})
+    names = [name for name, _ in model.named_parameters()]
+    if sorted(out) != sorted(names):
+        raise KeyError("flax tree and model parameters differ: "
+                       f"{sorted(set(out) ^ set(names))}")
+    return out
+
+
+def train_state_from_flax(model: nn.Module, params, batch_stats, tx):
+    """A flax `TrainState`'s params and batch_stats carried into `model`,
+    and a port `TrainState` around it with the optimizer moments at zero
+    (as `TrainState.create` leaves them)."""
+    model.load_state_dict(state_dict_from_flax(
+        model, {"params": params, "batch_stats": batch_stats}))
+    return create_centerpoint_state(model, tx)

@@ -133,6 +133,55 @@ def test_fps_and_ball_query(npoint, chunks):
     assert gm.any() and not gm.all()
 
 
+def test_ball_query_ties_at_the_radius():
+    """Neighbours at exactly lt_radius (2 m) on the preset's stride-8
+    lattice (0.6 m in x and y, 1.6 m in z: 1.2^2 + 1.6^2 = 4), centres from
+    voxel_centers_from_coords: the index sets equal the JAX ball query's
+    under jit, where XLA rounds |a|^2 + |b|^2 - 2 a.b as fused multiply-add
+    chains. Written as elementwise sums, 54 pairs on this lattice fell the
+    other way."""
+    voxel_size, pc_range = (0.075, 0.075, 0.2), (-54.0, -54.0, -5.0)
+    rng = np.random.RandomState(0)
+    base = np.stack([rng.randint(0, 5, 600), rng.randint(0, 180, 600),
+                     rng.randint(0, 180, 600)], -1)
+    offs = [(1, 0, 2), (1, 2, 0), (-1, 0, -2), (-1, -2, 0), (1, 0, -2),
+            (0, 0, 0)]
+    coords = np.concatenate([base] + [
+        np.clip(base[:100] + np.array(o), 0, (4, 179, 179)) for o in offs])
+    coords = coords.astype(np.int32)[None]
+    xyz = tcalib.voxel_centers_from_coords(torch.from_numpy(coords),
+                                           voxel_size, pc_range, 8)
+    want_xyz = np.asarray(jcalib.voxel_centers_from_coords(
+        jnp.asarray(coords), voxel_size, pc_range, 8))
+    np.testing.assert_array_equal(xyz.numpy(), want_xyz)
+    centers, valid = xyz[:, :100], torch.ones(xyz.shape[:2], dtype=torch.bool)
+    gi, gm = tpo.ball_query(centers, xyz, valid, 2.0, 32)
+    wi, wm = jax.jit(lambda c, x, v: jpo.ball_query(c, x, v, 2.0, 32))(
+        want_xyz[0, :100], want_xyz[0], np.ones(xyz.shape[1], bool))
+    d2 = tpo.pairwise_dist2(centers, xyz)[0].numpy()
+    assert (np.abs(d2 - 4.0) < 1e-3).sum() > 300  # pairs at the radius
+    np.testing.assert_array_equal(gm[0].numpy(), np.asarray(wm))
+    np.testing.assert_array_equal(gi[0].numpy(), np.asarray(wi))
+    np.testing.assert_array_equal(
+        d2, np.asarray(jax.jit(jpo.pairwise_dist2)(want_xyz[0, :100],
+                                                   want_xyz[0])))
+
+
+def test_ball_query_in_chunks_of_centres(monkeypatch):
+    """The ball query computes its distances over chunks of centres (a
+    ragged last one here): the same indices and masks as in one chunk."""
+    xyz, valid = _grid_points(np.random.RandomState(3), 2, 300,
+                              pitch=(0.5, 0.5, 0.5))
+    xyz, valid = torch.from_numpy(xyz), torch.from_numpy(valid)
+    centers = xyz[:, :50]
+    whole = tpo.ball_query(centers, xyz, valid, 1.3, 8)
+    monkeypatch.setattr(tpo, "_PAIRS_PER_CHUNK", 7 * 2 * 300)
+    chunked = tpo.ball_query(centers, xyz, valid, 1.3, 8)
+    for w, c in zip(whole, chunked):
+        np.testing.assert_array_equal(c.numpy(), w.numpy())
+    assert whole[1].any() and not whole[1].all()
+
+
 def _lt_inputs(rng, b=2, n=40, c=16):
     """Sample 0: points packed so tightly that every neighborhood overlaps
     (duplicate scatter writes); sample 1: no valid point at all, so every

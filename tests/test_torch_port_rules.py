@@ -1,8 +1,9 @@
-"""Rules of the PyTorch port: df3d_torch, chip_smoke.py, k1_ablate.py,
-k2_ablate.py and lidar_wall.py import nothing of JAX or of the JAX
-package; with no CUDA device the entry points raise rather than fall back,
-and the K1 and K2 launchers never answer with their plain versions. The
-ablation scripts' source edits still apply to the kernels they copy."""
+"""Rules of the PyTorch port: df3d_torch (its training package too),
+chip_smoke.py, k1_ablate.py, k2_ablate.py and lidar_wall.py import
+nothing of JAX, optax, scipy or the JAX package; with no CUDA device the entry
+points raise rather than fall back, and the K1 and K2 launchers (K1's input
+gradient launch too) never answer with their plain versions. The ablation
+scripts' source edits still apply to the kernels they copy."""
 
 import ast
 import runpy
@@ -19,11 +20,14 @@ from df3d_torch.ops import msda_kernel as k2
 from df3d_torch.ops import sparse_conv_kernel as k1
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "df3d")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "df3d", "scipy")
 
 
 def _port_files():
-    return sorted((ROOT / "df3d_torch").rglob("*.py")) + [
+    files = sorted((ROOT / "df3d_torch").rglob("*.py"))
+    assert {"schedules.py", "trainer.py"} <= {
+        f.name for f in files if f.parent.name == "train"}
+    return files + [
         ROOT / "chip_smoke.py", ROOT / "k1_ablate.py",
         ROOT / "k2_ablate.py", ROOT / "lidar_wall.py"]
 
@@ -79,6 +83,17 @@ def test_entry_without_cuda_raises():
                                         entry_mod.fused_config(preset))
 
 
+def test_trainer_entry_without_cuda_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        entry_mod.build_centerpoint_trainer(entry_mod.small_cfg())
+    state, step = entry_mod.build_centerpoint_trainer(entry_mod.small_cfg(),
+                                                      device="cpu")
+    assert state.model.training and state.step == 0
+    assert all(not m.any() for m in state.opt_state.mu)
+
+
 def test_transfusion_entries_without_cuda_raise():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid")
@@ -101,11 +116,17 @@ def test_k1_launcher_raises_on_cpu_tensors():
     with pytest.raises(RuntimeError, match="CUDA"):
         k1.sparse_conv_cuda(f, idx, w)
     assert k1.launches == before
+    bwd_before = k1.bwd_launches
+    with pytest.raises(RuntimeError, match="CUDA"):
+        k1.sparse_conv_cuda_dx(f, idx, w)
+    assert k1.bwd_launches == bwd_before
     plan = tsp.ConvPlan(idx, -torch.ones(1, 4, 3, dtype=torch.int32),
                         (1, 2, 2), (3, 3, 3))
+    f.requires_grad_(True)
     out = tsp.apply_sparse_conv(f, plan, w)
-    np.testing.assert_array_equal(out.numpy(), np.zeros((1, 4, 3)))
-    assert k1.launches == before
+    np.testing.assert_array_equal(out.detach().numpy(), np.zeros((1, 4, 3)))
+    out.sum().backward()
+    assert (k1.launches, k1.bwd_launches) == (before, bwd_before)
 
 
 def test_k2_launcher_raises_on_cpu_tensors(monkeypatch):

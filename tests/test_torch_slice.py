@@ -1,6 +1,6 @@
 """The whole serving slice, df3d_torch against df3d: voxelize -> CenterPoint
 -> centerpoint_predict on a small config, same seeded points, flax weights
-carried across by df3d_torch.weights. Heatmap logits match to atol = rtol =
+carried across by df3d_torch.weights; the JAX side under one `jit`. Heatmap logits match to atol = rtol =
 1e-3, boxes to atol 1e-3; voxel coords, cap overflows and kept (label,
 slot) sets match exactly."""
 
@@ -52,17 +52,31 @@ def slice_run():
     valid = np.ones((b, n), bool)
 
     jcfg = JConfig(**CFG)
-    res = jvoxelize_batch(jnp.asarray(points), jnp.asarray(valid),
-                          jcfg.voxel_size, jcfg.pc_range, jcfg.grid_size,
-                          jcfg.max_voxels, jcfg.max_points_per_voxel)
     jmodel = JCenterPoint(jcfg)
-    shapes = jax.eval_shape(lambda: jmodel.init(
-        jax.random.PRNGKey(0), res.features, res.coords, train=False))
+
+    def voxelize(p, v):
+        return jvoxelize_batch(p, v, jcfg.voxel_size, jcfg.pc_range,
+                               jcfg.grid_size, jcfg.max_voxels,
+                               jcfg.max_points_per_voxel)
+
+    def init(p, v):
+        res = voxelize(p, v)
+        return jmodel.init(jax.random.PRNGKey(0), res.features, res.coords,
+                           train=False)
+
+    @jax.jit
+    def run(variables, p, v):
+        res = voxelize(p, v)
+        (preds, _), inter = jmodel.apply(variables, res.features, res.coords,
+                                         train=False,
+                                         mutable=["intermediates"])
+        return res, preds, inter, jcenterpoint_predict(jcfg, preds)
+
+    jp, jv = jnp.asarray(points), jnp.asarray(valid)
+    shapes = jax.eval_shape(init, jp, jv)
     variables = seeded_variables(shapes, np.random.RandomState(1),
                                  _hm_logits_moderate)
-    (jpreds, _), inter = jmodel.apply(variables, res.features, res.coords,
-                                      train=False, mutable=["intermediates"])
-    jdet = jcenterpoint_predict(jcfg, jpreds)
+    res, jpreds, inter, jdet = run(variables, jp, jv)
 
     cfg = CenterPointConfig(**CFG)
     model = load_flax(CenterPoint(cfg), variables)
