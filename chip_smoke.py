@@ -2,7 +2,7 @@
 """Drive the PyTorch port's serving paths on one CUDA card: CenterPoint
 (LiDAR only), CenterPoint + 3D-DF (six cameras + LiDAR), TransFusion-L
 (LiDAR only) and TransFusion + 3D-DF (six cameras + LiDAR); then its
-CenterPoint training step.
+CenterPoint and CenterPoint + 3D-DF training steps.
 
     python3 chip_smoke.py
 
@@ -97,6 +97,36 @@ any failure raises and the process exits non-zero:
    cap overflow; ms/step, a host-clock split, peak memory, a one-step
    profile. It starts from phase 15's state, whose running statistics that
    phase's forward moved once.
+17. small fused train step: one step of `entry.build_centerpoint3ddf_trainer`
+   on the card against the same step on the CPU (tests/
+   test_torch_fused_slice.py's config at batch 2, phase 14's points and gt
+   layout, the same weights, images and rig), as phase 14: tight with
+   cuDNN off and the plain versions of K1 and K2, then by L2 with the
+   kernels; the card replays the CPU's ReLU decisions where its own
+   disagree (at most 4 such inputs, each within 1e-4 of 0;
+   `phase_small_fused_train`), and the frozen image branch stays
+   unchanged on both.
+18. K2's backward at full width (`centerpoint_3ddf_nusc` with
+   `CenterPointConfig()`'s training caps, batch 4 x six 448x800 cameras,
+   phase 15's frames and boxes, random normalized images, the rig): the
+   inputs and incoming gradient of one step's K2 backward launch are
+   captured; dvalue, dloc and dattn are held against autograd of the plain
+   version (max|err| <= 1e-4 * max|ref| + 1e-5 each), a repeat launch
+   gives the same dloc and dattn bits and dvalue (f32 atomics) within the
+   tolerance; so do small inputs at its edge cases on both paths (corners
+   off the map and on its last row and column, exact integer pixel
+   positions, L 1 and 3, D 8, zero weights, a zero cotangent). Prints the
+   launch's back-to-back and device time, the plain version's time and
+   the bound (bytes of g, dloc, dattn and dvalue once, and of the
+   locations and weights of the queries with g != 0 and the value rows
+   their in-bounds corners touch).
+19. fused train path: that trainer at full width, batch 4, on that fixed
+   batch: warm-up steps, then timed steps with every kernel's counts set
+   to 0 just before and read just after (K1 16 forward and 15 backward, K2
+   1 forward and 1 backward launches a step); every loss finite and
+   falling below the first step's within 5 steps, no row dropped by a cap,
+   the frozen image branch unchanged; ms/step, a host-clock split, peak
+   memory, a one-step profile. It starts from phase 18's state.
 
 TF32 is off for matmuls and cuDNN convs: the port serves in f32 (the JAX
 package's "exact" profile) and the comparisons need full f32. cuDNN picks
@@ -105,16 +135,19 @@ its conv algorithms by timing them (cudnn.benchmark).
 Each timed path prints a host-clock stage split (`df3d_torch.utils.stages`)
 and a one-frame profile. The last two lines of stdout are one JSON object
 on the kernels (times from this run, bounds from this run's inputs,
-launches from the timed runs of all four paths, also given by path; both
-give their device time, K1 its f32 CUDA-core bound, K2 its whole-table
-bound and general-path time; the top-level numbers are those of the
-CenterPoint paths, under "transfusion" those of the TransFusion ones, and
-under K1's "train" its training launches, backward times and dW's time)
+launches from the timed runs of the four serving and two training paths,
+also given by path; both give their device time, K1 its f32 CUDA-core
+bound, K2 its whole-table bound and general-path time; the top-level
+numbers are those of the CenterPoint paths, under "transfusion" those of
+the TransFusion ones, under K1's "train" its CenterPoint training
+launches, backward times and dW's time, and under K2's "train" its
+CenterPoint + 3D-DF training launches and its backward's times and bound)
 and the result line
 {"ok": true, "device": {...}}. With no CUDA device, or outside a checkout,
 the script exits non-zero without them.
 """
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -147,6 +180,10 @@ SCENE_CLASSES = (0,) * 52 + (1,) * 9 + (8,) * 18
 # a K2 output element costs ~14 FLOP of corner arithmetic per sample and
 # head (shared by its D channels) plus a multiply-add per in-bounds corner
 K2_FLOP_PER_SAMPLE = 14
+# K2's backward: ~30 FLOP per sample (corner weights, dattn, dloc) and per
+# in-bounds corner and channel a multiply-add for g . v and a multiply and
+# an add for dvalue
+K2_BWD_FLOP_PER_SAMPLE = 30
 
 
 def log(*args):
@@ -1256,7 +1293,7 @@ def phase_train_path(state, step, batch):
         one_step()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    K1.launches = K1.bwd_launches = K2.launches = 0
+    K1.launches = K1.bwd_launches = K2.launches = K2.bwd_launches = 0
     per_step = []
     for _ in range(TRAIN_TIMED_STEPS):
         t0 = time.perf_counter()
@@ -1271,7 +1308,8 @@ def phase_train_path(state, step, batch):
     check(bwd == K1_BWD_PER_STEP * TRAIN_TIMED_STEPS,
           f"train path: K1 backward launched {bwd} times in "
           f"{TRAIN_TIMED_STEPS} steps, expected {K1_BWD_PER_STEP} a step")
-    check(k2 == 0, f"train path: K2 launched {k2} times")
+    check(k2 == 0 and K2.bwd_launches == 0,
+          f"train path: K2 launched {k2} + {K2.bwd_launches} times")
     with stages.recording() as split:
         logs = one_step()
     profile_frame(one_step)
@@ -1292,6 +1330,408 @@ def phase_train_path(state, step, batch):
     log(f"train path losses by step: {[round(x, 5) for x in losses]}; last "
         "step: " + ", ".join(f"{k} {float(v):.4f}" for k, v in logs.items()))
     return {"train_fwd": fwd, "train_bwd": bwd}
+
+
+@contextlib.contextmanager
+def relu_decisions(masks, replay):
+    """Patch `torch.relu` (every ReLU of the port's models): record each
+    call's decisions (x > 0) in `masks`, in call order; or, with `replay`,
+    give each call the recorded decision where its own disagrees, the
+    value there taking the recorded sign at its own magnitude and the
+    gradient passed through unchanged. Yields the replayed disagreements,
+    (elements, largest |x|) per call that had any."""
+    relu, flips = torch.relu, []
+    recorded = iter(masks)
+
+    def patched(x):
+        z = x.detach()
+        if not replay:
+            masks.append((z > 0).cpu())
+            return relu(x)
+        want = next(recorded).to(x.device)
+        flip = (z > 0) != want
+        if not flip.any():
+            return relu(x)
+        flips.append((int(flip.sum()), float(z[flip].abs().max())))
+        signed = torch.where(want, z.abs(), -z.abs())
+        return relu(torch.where(flip, x - z + signed, x))
+
+    torch.relu = patched
+    try:
+        yield flips
+    finally:
+        torch.relu = relu
+
+
+def small_fused_train_configs():
+    """tests/test_torch_fused_slice.py's config: the multichip dry-run's
+    LiDAR config, 2 cameras of 32x48, DeepLabV3 taps on one-block ResNet
+    stages, a tiny ACTRv2 (d_model 16, 2 heads, 2 levels, 2 points, LT of 8
+    centres)."""
+    from df3d_torch.models.detectors.fused import FusedConfig
+    from df3d_torch.models.fusion.actr import ACTRConfig
+
+    actr = ACTRConfig(d_model=16, n_heads=2, n_points=2, n_levels=2,
+                      num_layers=1, dim_feedforward=32, lt_npoint=8,
+                      lt_nsample=4, model_name="ACTRv2", q_method="gating",
+                      attn_layer="BiGateSum1D_2")
+    return mesh_cfg(), FusedConfig(
+        image_shape=(32, 48), image_branch="deeplabv3",
+        image_layers=(1, 1, 1, 1), n_levels=2, num_cams=2, actr=actr,
+        use_ifat=True, fusion_downsample=8)
+
+
+def fused_train_batch(points, boxes, classes, images, proj, dev):
+    """`train_batch` plus the cameras: images (B, n_cam, H, W, 3) and proj
+    (B, n_cam, 3, 4), numpy, on `dev`."""
+    batch = train_batch(points, boxes, classes, dev)
+    batch["images"] = torch.from_numpy(images).to(dev)
+    batch["proj"] = torch.from_numpy(proj).to(dev)
+    return batch
+
+
+def phase_small_fused_train(dev):
+    """One CenterPoint + 3D-DF training step of
+    `entry.build_centerpoint3ddf_trainer` on the card against the same step
+    on the CPU: `small_fused_train_configs()` at batch 2, phase 14's points
+    and gt layout, seeded normalized images and the rig of
+    `utils.synth.camera_rig`, the same seeded weights. As phase 14: first
+    with cuDNN off and the plain versions of K1 and K2 (forward and
+    backward, still through their autograd Functions), held tight; then as
+    the path runs, with K1, K2 and cuDNN, held by L2; tolerances of
+    `phase_small_train`, and the frozen image branch unchanged on both.
+
+    ReLU decisions: the forwards on the card and on the CPU agree to ~1e-5
+    of the values, and a ReLU input that close to 0 passes the gradient on
+    one device and not on the other, moving every leaf upstream by up to a
+    few percent (tests/test_torch_fused_train_step.py met two such elements
+    in the neck against JAX, |x| <= 4.1e-6). So the CPU step records every
+    ReLU's decisions and each card step replays them where its own
+    disagree (`relu_decisions`); as in the CPU test's
+    `test_neck_relu_decisions`, there may be at most 4 such elements in a
+    step, each within 1e-4 of 0, so a replay absorbs rounding and nothing
+    larger; their count is printed."""
+    from df3d_torch.entry import build_centerpoint3ddf_trainer
+    from df3d_torch.ops import msda_kernel as K2
+    from df3d_torch.ops import sparse as S
+    from df3d_torch.ops import sparse_conv_kernel as K
+    from df3d_torch.utils.synth import camera_rig
+
+    cfg, fcfg = small_fused_train_configs()
+    rng = np.random.RandomState(0)
+    points = np.concatenate([rng.uniform(-15, 15, (2, 4096, 2)),
+                             rng.uniform(-1.8, 1.8, (2, 4096, 1)),
+                             rng.uniform(0, 1, (2, 4096, 2))], -1)
+    box = np.array([1.0, 2.0, 0.0, 4.0, 2.0, 1.5, 0.3, 0.0, 0.0], np.float32)
+    nc, hw = fcfg.num_cams, fcfg.image_shape
+    images = rng.randn(2, nc, *hw, 3).astype(np.float32)
+    proj = np.broadcast_to(camera_rig(nc, hw), (2, nc, 3, 4)).copy()
+    batch = (points.astype(np.float32), np.tile(box, (2, 4, 1)),
+             np.zeros((2, 4), np.int64), images, proj)
+    masks = []
+
+    def run(d, replay):
+        state, step = build_centerpoint3ddf_trainer(cfg, fcfg, d, seed=0)
+        branch = {k: v.clone() for k, v in
+                  state.model.image_branch.state_dict().items()}
+        with relu_decisions(masks, replay) as flips:
+            logs, grads = step.grads(state, fused_train_batch(*batch, d))
+        grads = [g.cpu() for g in grads]
+        state = step.apply(state, [g.to(d) for g in grads])
+        for k, v in state.model.image_branch.state_dict().items():
+            check(torch.equal(v, branch[k]),
+                  f"small fused train step on {d}: the frozen image branch "
+                  f"moved ({k})")
+        check(sum(n for n, _ in flips) <= 4
+              and all(z < 1e-4 for _, z in flips),
+              f"small fused train step on {d}: more than 4 ReLU inputs "
+              f"disagree with the CPU's, or one lies more than 1e-4 from "
+              f"0: {flips}")
+        log(f"small fused train step on {d}: {sum(n for n, _ in flips)} ReLU "
+            f"decisions taken from the CPU's (largest |x| "
+            f"{max([z for _, z in flips], default=0.0):.3g})")
+        return (to_cpu(logs), dict(zip(state.param_names, grads)),
+                to_cpu(state.model.state_dict()), float(state.tx.lr(0)))
+
+    cpu = run("cpu", replay=False)
+    body, fwd, bwd = S._conv_body, K2.msda_cuda, K2.msda_bwd_cuda
+    S._conv_body = lambda f, idx, w, dx=False: K.sparse_conv_plain(f, idx, w)
+    K2.msda_cuda, K2.msda_bwd_cuda = K2.msda_plain, K2.msda_bwd_plain
+    torch.backends.cudnn.enabled = False
+    try:
+        card_plain = run(dev, replay=True)
+    finally:
+        S._conv_body, K2.msda_cuda, K2.msda_bwd_cuda = body, fwd, bwd
+        torch.backends.cudnn.enabled = True
+    compare_train_step("small fused train step, plain K1 and K2, no cuDNN",
+                       cpu, card_plain, strict=True)
+    K2.launches = K2.bwd_launches = 0
+    card = run(dev, replay=True)
+    check(K2.launches == 1 and K2.bwd_launches == 1,
+          f"small fused train step: K2 launched {K2.launches} forward and "
+          f"{K2.bwd_launches} backward, expected 1 and 1")
+    compare_train_step("small fused train step, K1, K2 and cuDNN", cpu, card,
+                       strict=False)
+
+
+def full_fused_train_setup(dev):
+    """CenterPoint + 3D-DF at the `centerpoint_3ddf_nusc` preset's full
+    width with `CenterPointConfig()`'s training caps, its trainer from seed
+    0, and phase 15's batch (four ray-cast frames, seeds 0-3, with their
+    scenes' boxes) plus six random normalized 448x800 images per sample
+    and the rig of `utils.synth.camera_rig`."""
+    from df3d_torch.entry import (
+        build_centerpoint3ddf_trainer, centerpoint_3ddf_nusc, fused_config,
+    )
+    from df3d_torch.utils.synth import camera_rig, make_raycast_frame
+
+    preset = centerpoint_3ddf_nusc()
+    cfg, fcfg = preset["lidar"], fused_config(preset)
+    state, step = build_centerpoint3ddf_trainer(cfg, fcfg, dev, seed=0)
+    seeds = range(TRAIN_BATCH)
+    points = np.stack([make_raycast_frame(np.random.RandomState(s),
+                                          NUM_POINTS) for s in seeds])
+    boxes = np.stack([scene_boxes(s) for s in seeds])
+    classes = np.tile(np.asarray(SCENE_CLASSES, np.int64), (TRAIN_BATCH, 1))
+    nc, hw = fcfg.num_cams, fcfg.image_shape
+    batch = train_batch(points, boxes, classes, dev)
+    g = torch.Generator(device=dev).manual_seed(20)
+    batch["images"] = torch.randn(TRAIN_BATCH, nc, *hw, 3, generator=g,
+                                  device=dev)
+    batch["proj"] = torch.from_numpy(np.broadcast_to(
+        camera_rig(nc, hw), (TRAIN_BATCH, nc, 3, 4)).copy()).to(dev)
+    return cfg, fcfg, state, step, batch
+
+
+def k2_bwd_check(label, launch, plain, value, shapes, locs, attn, grad):
+    """One K2 backward launch against autograd of the plain version, and a
+    repeat launch: dloc and dattn must give the same bits, dvalue (f32
+    atomics) agree within the tolerance. Returns (max abs err, worst err /
+    tolerance) over the three gradients."""
+    got = launch(value, shapes, locs, attn, grad)
+    again = launch(value, shapes, locs, attn, grad)
+    want = plain(value, shapes, locs, attn, grad)
+    torch.cuda.synchronize()
+    max_err, worst = 0.0, 0.0
+    for name, g, a, w in zip(("dvalue", "dloc", "dattn"), got, again, want):
+        err = (g - w).abs().max().item()
+        tol = 1e-4 * w.abs().max().item() + 1e-5
+        check(bool(torch.isfinite(g).all()), f"{label}: non-finite {name}")
+        check(err <= tol, f"{label}: {name} max abs err {err} > {tol}")
+        rep = (a - g).abs().max().item()
+        check(rep <= tol, f"{label}: a repeat launch's {name} is off by "
+              f"{rep} > {tol}")
+        max_err, worst = max(max_err, err), max(worst, err / tol)
+    check(torch.equal(got[1], again[1]) and torch.equal(got[2], again[2]),
+          f"{label}: a repeat launch's dloc or dattn differs")
+    return max_err, worst
+
+
+def k2_bwd_edge_cases(launch, plain, warp_path):
+    """K2's backward against autograd of its plain version on small inputs,
+    on both paths: the warp path at L = 3 and L = 1 (nH 8, D 16, P 4), the
+    general path with an unaligned value table and at D = 8 (the KITTI
+    ACTR's head width), nH 2 and 3, L 2 and 8, P 1 and 2. Every case has
+    samples on the last pixel centre, at -0.5 px and far off the map
+    (`k2_inputs`), a query wholly off the map, every point of query 3 on
+    an exact integer pixel position, zero weights on query 4, and a zero
+    cotangent on query 5 (a masked query: its dloc and dattn must be 0)."""
+    g = torch.Generator(device="cuda").manual_seed(4)
+    # (B, Q, nH, D, levels, P, value offset, warp path)
+    cases = [(2, 37, 8, 16, K2_LEVELS, 4, 0, True),
+             (6, 20, 8, 16, K2_LEVELS, 4, 0, True),
+             (2, 37, 8, 16, K2_LEVELS[:1], 4, 0, True),
+             (2, 37, 8, 16, K2_LEVELS, 4, 1, False),
+             (2, 10, 8, 8, K2_LEVELS, 4, 0, False),
+             (2, 11, 2, 8, K2_LEVELS[:2], 4, 0, False),
+             (3, 17, 3, 5, K2_LEVELS[:2], 2, 0, False),
+             (2, 13, 2, 8, K2_LEVELS_8, 1, 0, False)]
+    for b, q, nh, d, shapes, p, offset, warp in cases:
+        value, locs, attn = k2_inputs(g, b, q, nh, d, shapes, p, (q - 1,),
+                                      offset)
+        for lid, (h, w) in enumerate(shapes):
+            kx = torch.randint(-1, w + 1, (b, nh, p), device="cuda",
+                               generator=g)
+            ky = torch.randint(-1, h + 1, (b, nh, p), device="cuda",
+                               generator=g)
+            locs[:, 3 % q, :, lid, :, 0] = (kx + 0.5) / w
+            locs[:, 3 % q, :, lid, :, 1] = (ky + 0.5) / h
+        attn[:, 4 % q] = 0.0
+        grad = torch.randn(b, q, nh * d, device="cuda", generator=g)
+        grad[:, 5 % q] = 0.0
+        label = (f"K2 backward edge case B={b} Q={q} nH={nh} D={d} "
+                 f"L={len(shapes)} P={p} value offset {offset}")
+        check(warp_path(value, shapes, locs) == warp,
+              f"{label}: expected the {'warp' if warp else 'general'} path")
+        k2_bwd_check(label, launch, plain, value, shapes, locs, attn, grad)
+        _, dloc, dattn = launch(value, shapes, locs, attn, grad)
+        for i in (q - 1, 5 % q):
+            check(not dloc[:, i].any() and not dattn[:, i].any(),
+                  f"{label}: query {i} (off the map or g = 0) has a gradient")
+    log("K2 backward edge cases (warp path at L = 3 and L = 1, B = 2 and 6; "
+        "general path: an unaligned table, D 8 and 5, nH 2, 3 and 8, L 2 and "
+        "8, P 1, 2 and 4; samples on the last pixel centre, at -0.5 px, on "
+        "exact integer pixel positions, far off the map, zero weights, a "
+        "zero cotangent): agree with autograd of the plain version, repeat "
+        "launches give the same dloc and dattn bits")
+
+
+def phase_fused_train_k2(state, step, batch):
+    """The K2 backward launch of one full-width CenterPoint + 3D-DF
+    training step (batch 4 x 6 cameras = 24 value tables): its inputs and
+    incoming gradient captured, dvalue, dloc and dattn held against
+    autograd of the plain version (max|err| <= 1e-4 * max|ref| + 1e-5 per
+    gradient; dloc and dattn bit for bit on a repeat launch), the edge
+    cases, and per launch the back-to-back and device time, the plain
+    version's time and the bound: g read and dvalue, dloc and dattn
+    written once, and for the queries with g != 0 (for the others every
+    gradient is 0, whatever their other inputs) their locations and
+    weights and the value rows their in-bounds corners touch read once.
+    Returns K2's backward numbers for the kernels line."""
+    from df3d_torch.ops import msda_kernel as K2
+
+    captured, launch = [], K2.msda_bwd_cuda
+
+    def recording(value, shapes, locs, attn, grad):
+        captured.append((value.clone(), tuple(shapes), locs.clone(),
+                         attn.clone(), grad.clone(),
+                         K2.warp_path(value, shapes, locs)))
+        return launch(value, shapes, locs, attn, grad)
+
+    K2.msda_bwd_cuda = recording
+    try:
+        logs, _ = step.grads(state, batch)
+    finally:
+        K2.msda_bwd_cuda = launch
+    torch.cuda.synchronize()
+    check(len(captured) == 1,
+          f"expected 1 K2 backward launch a fused step, saw {len(captured)}")
+    k2_bwd_edge_cases(launch, K2.msda_bwd_plain, K2.warp_path)
+    value, shapes, locs, attn, grad, warp = captured[0]
+    check(warp, "the K2 backward launch of the step missed the warp path")
+    label = "K2 backward launch of the full-width step"
+    max_err, worst = k2_bwd_check(label, launch, K2.msda_bwd_plain, value,
+                                  shapes, locs, attn, grad)
+    ms = cuda_ms(lambda: launch(value, shapes, locs, attn, grad), 10)
+    dev_ms = device_ms(lambda: launch(value, shapes, locs, attn, grad), 10)
+    plain_ms = cuda_ms(lambda: K2.msda_bwd_plain(value, shapes, locs, attn,
+                                                 grad), 2)
+    b, len_v, nh, d = value.shape
+    q, nl, npnt = locs.shape[1], locs.shape[3], locs.shape[4]
+    live = grad.abs().amax(-1) > 0                       # (B, Q)
+    live_locs = torch.where(live[:, :, None, None, None, None], locs,
+                            torch.full_like(locs, -1e6))
+    corners, touched = k2_touched_rows(value, shapes, live_locs)
+    samples = b * q * nh * nl * npnt
+    flops = float(K2_BWD_FLOP_PER_SAMPLE * samples + 4 * d * corners)
+    n_live = int(live.sum())
+    nbytes = 4.0 * (grad.numel() + value.numel() + locs.numel()
+                    + attn.numel() + (locs[live].numel() + attn[live].numel())
+                    + touched * d)
+    t_ops, t_bytes = flops / FP32_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
+    bound_ms = 1e3 * max(t_ops, t_bytes)
+    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    log(f"{label}: value {tuple(value.shape)}, locations "
+        f"{tuple(locs.shape)}, levels {list(shapes)}; queries with g != 0 "
+        f"{n_live} of {b * q}; their in-bounds corners {corners}, "
+        f"touched rows {touched} of {b * len_v * nh}; {nbytes / 1e6:.1f} MB, "
+        f"{flops / 1e9:.3f} GFLOP; kernel {ms:.4f} ms, device {dev_ms:.4f} "
+        f"ms, plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}); "
+        f"max abs err {max_err:.3g} (worst err / tolerance {worst:.3g}); "
+        f"step loss {logs['loss'].item():.4f}")
+    return dict(bwd_replaces="df3d/ops/pallas/msda_kernel.py:132",
+                bwd_ms=ms, bwd_device_ms=dev_ms, bwd_plain_ms=plain_ms,
+                bwd_bound_ms=bound_ms, bwd_bound_by=bound_by,
+                bwd_library_ms=None, bwd_max_abs_err=max_err)
+
+
+def phase_fused_train_path(state, step, batch, fcfg):
+    """`entry.build_centerpoint3ddf_trainer`'s step at full width, batch 4,
+    on that fixed batch: warm-up steps, then timed steps with every
+    kernel's counts set to 0 just before and read just after (K1 16
+    forward and 15 backward launches a step, K2 1 forward and 1 backward);
+    every loss finite and falling below the first step's within 5 steps;
+    no row dropped by a cap (the down2/3/4 overflows 0: the logged
+    `cap_overflow` also counts the dense tail's rows summed over the batch
+    against the per-sample cap, as the JAX package does); the frozen image
+    branch unchanged. Prints ms/step, the host-clock split of one step,
+    peak memory and a one-step profile."""
+    from df3d_torch.ops import msda_kernel as K2
+    from df3d_torch.ops import sparse_conv_kernel as K1
+    from df3d_torch.utils import stages
+
+    losses, overflows = [], []
+    branch = {k: v.clone()
+              for k, v in state.model.image_branch.state_dict().items()}
+    handle = state.model.detector.backbone.register_forward_hook(
+        lambda mod, inp, out: overflows.append(
+            {k: v.detach().cpu() for k, v in out[2].items()}))
+
+    def one_step():
+        nonlocal state
+        state, logs = step(state, batch)
+        losses.append(logs["loss"].item())
+        dropped = {k: int(v.sum()) for k, v in overflows[-1].items()
+                   if k != "cap_overflow_dense_tail"}
+        check(not any(dropped.values()),
+              f"fused train step {len(losses)}: a cap dropped rows "
+              f"{dropped}")
+        return logs
+
+    for _ in range(TRAIN_WARMUP_STEPS):
+        one_step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K1.launches = K1.bwd_launches = K2.launches = K2.bwd_launches = 0
+    per_step = []
+    for _ in range(TRAIN_TIMED_STEPS):
+        t0 = time.perf_counter()
+        logs = one_step()
+        torch.cuda.synchronize()
+        per_step.append(1e3 * (time.perf_counter() - t0))
+    counts = dict(k1_fwd=K1.launches, k1_bwd=K1.bwd_launches,
+                  k2_fwd=K2.launches, k2_bwd=K2.bwd_launches)
+    peak = torch.cuda.max_memory_allocated()
+    for name, want in (("k1_fwd", K1_PER_FRAME), ("k1_bwd", K1_BWD_PER_STEP),
+                       ("k2_fwd", 1), ("k2_bwd", 1)):
+        check(counts[name] == want * TRAIN_TIMED_STEPS,
+              f"fused train path: {name} launched {counts[name]} times in "
+              f"{TRAIN_TIMED_STEPS} steps, expected {want} a step")
+    with stages.recording() as split:
+        one_step()
+    profile_frame(one_step)
+    handle.remove()
+    check(all(np.isfinite(losses)), f"fused train path: losses {losses}")
+    check(min(losses[1:5]) < losses[0],
+          f"fused train path: the loss did not fall below {losses[0]} in 5 "
+          "steps")
+    for k, v in state.model.image_branch.state_dict().items():
+        check(torch.equal(v, branch[k]),
+              f"fused train path: the frozen image branch moved ({k})")
+    forward = sum(split.get(k, 0.0) for k in (
+        "image_branch", "backbone_3d", "ifat", "lt", "msda_actr",
+        "backbone_3d_tail", "neck", "head"))
+    tail = overflows[-1]["cap_overflow_dense_tail"]
+    log(f"fused train path: batch {TRAIN_BATCH} x {fcfg.num_cams} cameras, "
+        f"{TRAIN_TIMED_STEPS} timed steps after {TRAIN_WARMUP_STEPS}, ms/step "
+        f"mean {np.mean(per_step):.3f} median {np.median(per_step):.3f} min "
+        f"{np.min(per_step):.3f}; per step "
+        f"{[round(x, 3) for x in per_step]}")
+    log(f"fused train path: launches per step K1 "
+        f"{counts['k1_fwd'] // TRAIN_TIMED_STEPS} forward, "
+        f"{counts['k1_bwd'] // TRAIN_TIMED_STEPS} backward; K2 "
+        f"{counts['k2_fwd'] // TRAIN_TIMED_STEPS} forward, "
+        f"{counts['k2_bwd'] // TRAIN_TIMED_STEPS} backward; peak memory "
+        f"{peak / 2**30:.3f} GiB")
+    log("fused train path step split (ms, host clock, synchronised): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+        + f"; forward (image_branch .. head) {forward:.3f}")
+    log(f"fused train path losses by step: {[round(x, 5) for x in losses]}; "
+        "last step: " + ", ".join(f"{k} {float(v):.4f}"
+                                  for k, v in logs.items())
+        + f"; no cap dropped a row (the dense tail's batch-summed count "
+        f"over the per-sample cap: {int(tail)})")
+    return counts
 
 
 def main():
@@ -1382,12 +1822,22 @@ def main():
     _, state, step, batch = full_train_setup(dev)
     k1_train = phase_train_k1(state, step, batch)
     train = phase_train_path(state, step, batch)
+    del state, step, batch
+    torch.cuda.empty_cache()
+
+    phase_small_fused_train(dev)
+    _, fcfg, state, step, batch = full_fused_train_setup(dev)
+    k2_train = phase_fused_train_k2(state, step, batch)
+    fused_train = phase_fused_train_path(state, step, batch, fcfg)
 
     # each path's timed run, counts set to 0 just before it and read just
     # after; "launches" sums the paths. The top-level numbers are the
     # CenterPoint paths' (phases 4 and 7), "transfusion" holds phases 10's
-    # and 12's, "train" the training path's (phases 15 and 16: K1's forward
-    # and backward launches, its backward times and dW's).
+    # and 12's, K1's "train" the CenterPoint training path's (phases 15
+    # and 16: K1's forward and backward launches, its backward times and
+    # dW's), K2's "train" the CenterPoint + 3D-DF training path's (phases
+    # 18 and 19: K2's forward and backward launches and its backward
+    # times); "fused_train" counts phase 19's launches of each kernel.
     paths = {"lidar": lidar, "fused": fused, "transfusion_lidar": tlidar,
              "transfusion_fused": tfused}
     for entry, kernel, extra in ((k1, K1, tk1), (k2, K2, tk2)):
@@ -1400,9 +1850,16 @@ def main():
                                    extra["max_abs_err"])
     k1["launches_by_path"]["train"] = train["train_fwd"] + train["train_bwd"]
     k2["launches_by_path"]["train"] = 0
+    k1["launches_by_path"]["fused_train"] = (fused_train["k1_fwd"]
+                                             + fused_train["k1_bwd"])
+    k2["launches_by_path"]["fused_train"] = (fused_train["k2_fwd"]
+                                             + fused_train["k2_bwd"])
     k1["train"] = dict(fwd_launches=train["train_fwd"],
                        bwd_launches=train["train_bwd"], **k1_train)
+    k2["train"] = dict(fwd_launches=fused_train["k2_fwd"],
+                       bwd_launches=fused_train["k2_bwd"], **k2_train)
     k1["max_abs_err"] = max(k1["max_abs_err"], k1_train["bwd_max_abs_err"])
+    k2["max_abs_err"] = max(k2["max_abs_err"], k2_train["bwd_max_abs_err"])
     for entry in (k1, k2):
         entry["launches"] = sum(entry["launches_by_path"].values())
 

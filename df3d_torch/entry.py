@@ -19,6 +19,9 @@
   OneCycle, the JAX package's `adam_onecycle`) and the training step
   (`train.trainer.CenterPointTrainStep`): `step(state, batch) -> (state,
   logs)`.
+* `build_centerpoint3ddf_trainer(cfg, fcfg, device, seed)`: the same for
+  CenterPoint + 3D-DF (`train.trainer.FusedTrainStep`; the batch carries
+  images and proj too), with the image branch frozen.
 * `centerpoint_3ddf_nusc()`, `transfusion_l_nusc()` and
   `transfusion_3ddf_nusc()` are the port's copies of the JAX package's
   presets of those names; `fused_config(preset)` the `FusedConfig` the JAX
@@ -46,8 +49,8 @@ from df3d_torch.models.fusion.actr import ACTRConfig
 from df3d_torch.ops.voxelize import voxelize_batch
 from df3d_torch.train.schedules import adam_onecycle
 from df3d_torch.train.trainer import (
-    TrainState, CenterPointTrainStep, create_centerpoint_state,
-    make_centerpoint_train_step,
+    CenterPointTrainStep, FusedTrainStep, TrainState, create_train_state,
+    make_centerpoint_train_step, make_fused_train_step,
 )
 from df3d_torch.utils import stages
 
@@ -76,12 +79,28 @@ def build_centerpoint_trainer(cfg: CenterPointConfig, device=None,
     """(state, step) for training CenterPoint on `device` from random
     weights drawn from `seed`: AdamW with OneCycle at the JAX package's
     `tools/train.py` defaults (lr 1e-3, 20 epochs of 100 steps). Other
-    schedules: `create_centerpoint_state(model, adam_onecycle(...))`."""
+    schedules: `create_train_state(model, adam_onecycle(...))`."""
     device = resolve_device(device)
     model = CenterPoint(cfg).init_weights(torch.Generator().manual_seed(seed))
-    state = create_centerpoint_state(model.to(device).train(),
-                                     adam_onecycle(1e-3, 2000))
+    state = create_train_state(model.to(device).train(),
+                               adam_onecycle(1e-3, 2000))
     return state, make_centerpoint_train_step(cfg)
+
+
+def build_centerpoint3ddf_trainer(cfg: CenterPointConfig, fcfg: FusedConfig,
+                                  device=None, seed: int = 0
+                                  ) -> tuple[TrainState, FusedTrainStep]:
+    """(state, step) for training CenterPoint + 3D-DF on `device` from
+    random weights drawn from `seed` (as `build_centerpoint3ddf` draws
+    them), with `build_centerpoint_trainer`'s AdamW and OneCycle; the
+    state's parameters leave out the frozen image branch. Other schedules:
+    `create_train_state(model, adam_onecycle(...))`."""
+    device = resolve_device(device)
+    model = CenterPoint3DDF(cfg, fcfg).init_weights(
+        torch.Generator().manual_seed(seed))
+    state = create_train_state(model.to(device).train(),
+                               adam_onecycle(1e-3, 2000))
+    return state, make_fused_train_step(cfg)
 
 
 def _serve(model, cfg, predict, stage: str, points, valid, *model_inputs):

@@ -6,7 +6,14 @@ Six (or `num_cams`) camera images go through the image branch (DeepLabV3
 taps for CenterPoint + 3D-DF, ResNet-50 + FPN for TransFusion + 3D-DF);
 the multi-camera ACTR hook (IFAT + LT + dual-query deformable attention)
 fuses them into the stride-8 voxels of the LiDAR detector's backbone.
-Inference only. Not ported here: the 'swin', 'dla' and 'regnet' image
+`.eval()` serves; `.train()` trains the LiDAR detector and the fusion hook
+(CenterPoint + 3D-DF's training step is `train.trainer.FusedTrainStep`).
+The image branch is frozen, as the JAX package's default
+`freeze_image_branch` freezes it: it stays in eval mode after `.train()`,
+runs under `torch.no_grad()` on its running statistics and has
+`requires_grad=False` parameters (the JAX package's `stop_gradient` on its
+features). Not ported here: an image branch that trains (no configuration
+of either package asks for one), the 'swin', 'dla' and 'regnet' image
 branches, the auxiliary segmentation head and `VoxelRCNN3DDF`.
 """
 
@@ -80,12 +87,12 @@ class ImageBranch(nn.Module):
 class _CameraLidar3DDF(nn.Module):
     """A LiDAR detector with the multi-camera ACTR hook in its backbone and
     the image branch in front. Build, call `init_weights` (or load a state
-    dict), then `.eval()`."""
+    dict), then `.eval()` or `.train()`."""
 
     def __init__(self, detector_cls, cfg, fused: FusedConfig):
         super().__init__()
         self.cfg, self.fused = cfg, fused
-        self.image_branch = ImageBranch(fused)
+        self.image_branch = ImageBranch(fused).requires_grad_(False).eval()
         spec = ACTRFusionSpec(actr=fused.actr,
                               downsample=fused.fusion_downsample,
                               use_ifat=fused.use_ifat)
@@ -101,11 +108,20 @@ class _CameraLidar3DDF(nn.Module):
         """images (B, n_cam, H, W, 3) normalized; proj (B, n_cam, 3, 4)
         lidar -> image. Returns (preds, ms, overflow) like the detector."""
         b, nc = images.shape[:2]
-        feats = self.image_branch(images.reshape(b * nc, *images.shape[2:]))
+        flat = images.reshape(b * nc, *images.shape[2:])
+        with torch.no_grad():
+            feats = self.image_branch(flat)
         feats = [f.reshape(b, nc, *f.shape[1:]) for f in feats]
         stages.mark("image_branch")
         return self.detector(voxel_features, voxel_coords,
                              fusion_kwargs=dict(image_feats=feats, proj=proj))
+
+    def train(self, mode: bool = True):
+        """As `nn.Module.train`, but the frozen image branch stays in eval
+        mode."""
+        super().train(mode)
+        self.image_branch.eval()
+        return self
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator):

@@ -112,6 +112,13 @@ class FusionEncoderLayer(nn.Module):
         q_feat = self.norm_p(q_feat + hp)
         return q_feat, q_i_feat
 
+    def image_only_parameters(self) -> list[nn.Parameter]:
+        """The parameters that feed only the image-query output: the gate's
+        image-side projection, the image FFN and its norm."""
+        parts = (getattr(self.gate, self.gate.image_only), self.i_ffn0,
+                 self.i_ffn1, self.norm_i)
+        return [p for m in parts for p in m.parameters()]
+
 
 class ACTR(nn.Module):
     """Top-level fusion module.
@@ -189,3 +196,11 @@ class ACTR(nn.Module):
             q, qi = getattr(self, f"layer{i}")(q, qi, q_pos, ref, value,
                                                shapes)
         return torch.where(q_mask[..., None], q, 0.0)
+
+    def unreached_parameters(self) -> list[nn.Parameter]:
+        """The parameters the output does not depend on: the last dual-query
+        layer's image-only ones, whose image-query output nothing reads."""
+        if not self.cfg.hybrid:
+            return []
+        last = getattr(self, f"layer{self.cfg.num_layers - 1}")
+        return last.image_only_parameters()

@@ -13,6 +13,9 @@ from torch import nn
 
 
 class _Gate(nn.Module):
+    # the projection whose gate scales only the image-query output
+    image_only = "b_gate"
+
     def __init__(self, channels: int):
         super().__init__()
         self.a_gate = nn.Linear(channels, 1)
@@ -20,6 +23,8 @@ class _Gate(nn.Module):
 
 
 class BiGate1D(_Gate):
+    image_only = "a_gate"
+
     def forward(self, a: torch.Tensor, b: torch.Tensor):
         ga = torch.sigmoid(self.a_gate(a))  # from a, applied to b
         gb = torch.sigmoid(self.b_gate(b))

@@ -10,6 +10,12 @@ children (`ifat`, `actr`, `actr_out_proj`) sit under the backbone, where
 flax puts them. The single-camera hook (MVX early fusion at stride 1) and
 the bilinear image query are not on the CenterPoint + 3D-DF path and are
 not ported.
+
+Gradients in training, as JAX's autodiff gives them: the image query reads
+the frozen image branch's features and gets none; the IFAT gate's splat
+passes it back to the winning voxel of each pixel (`splat_to_image`) and so
+into the stride-8 voxel features; projections, FPS and ball-query indices
+carry none.
 """
 
 from __future__ import annotations

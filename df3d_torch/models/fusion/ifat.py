@@ -1,9 +1,11 @@
 """IFAT, image-side gated attention (port of `IFATGate` in
 df3d/models/fusion/ifat.py): splat the voxel features onto the image plane
 at each image-feature scale, run a small conv stack to a one-channel
-sigmoid gate, and scale the image features by it. Its BatchNorms use eps
-1e-3, as the JAX package sets them. The other IFAT variants are not on the
-CenterPoint + 3D-DF path and are not ported.
+sigmoid gate, and scale the image features by it. Its BatchNorms are
+flax's (`layers.FlaxBatchNorm2d`) with eps 1e-3, as the JAX package sets
+them: in training they normalise with the biased batch variance and move
+the running statistics at flax's momentum 0.99. The other IFAT variants
+are not on the CenterPoint + 3D-DF path and are not ported.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import torch
 from torch import nn
 
 from df3d_torch.models.fusion.projection import splat_to_image
+from df3d_torch.models.layers import FlaxBatchNorm2d
 
 
 class IFATGate(nn.Module):
@@ -28,7 +31,7 @@ class IFATGate(nn.Module):
         for s, c in enumerate(voxel_channels):
             for i in range(num_conv - 1):
                 self.add_module(f"s{s}_conv{i}", nn.Conv2d(c, c, 3, padding=1))
-                self.add_module(f"s{s}_bn{i}", nn.BatchNorm2d(c, eps=1e-3))
+                self.add_module(f"s{s}_bn{i}", FlaxBatchNorm2d(c, eps=1e-3))
             self.add_module(f"s{s}_out", nn.Conv2d(c, 1, 3, padding=1))
 
     def forward(self, img_feats: Sequence[torch.Tensor],

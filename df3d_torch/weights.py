@@ -48,7 +48,7 @@ from df3d_torch.models.layers import (
     SparseBasicBlock, SparseConv3d, SparseConvBNReLU, SubMConv3d,
 )
 from df3d_torch.models.necks import BEVBackbone
-from df3d_torch.train.trainer import create_centerpoint_state
+from df3d_torch.train.trainer import create_train_state
 
 _HOOK_CHILDREN = {name: f"fusion_hook.{name}"
                   for name in ("ifat", "actr", "actr_out_proj")}
@@ -195,9 +195,11 @@ def params_from_flax(model: nn.Module, tree) -> dict:
 
 
 def train_state_from_flax(model: nn.Module, params, batch_stats, tx):
-    """A flax `TrainState`'s params and batch_stats carried into `model`,
-    and a port `TrainState` around it with the optimizer moments at zero
-    (as `TrainState.create` leaves them)."""
+    """A flax `TrainState`'s params and batch_stats carried into `model`
+    (CenterPoint, or CenterPoint + 3D-DF with its image branch's and IFAT's
+    batch statistics), and a port `TrainState` around it with the optimizer
+    moments at zero (as `TrainState.create` leaves them). A frozen image
+    branch's parameters are carried but are not in the state's `params`."""
     model.load_state_dict(state_dict_from_flax(
         model, {"params": params, "batch_stats": batch_stats}))
-    return create_centerpoint_state(model, tx)
+    return create_train_state(model, tx)

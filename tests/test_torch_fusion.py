@@ -56,6 +56,7 @@ from df3d_torch.ops import dense3d as tdense
 from df3d_torch.ops import pointops as tpo
 from df3d_torch.ops import sparse as tsp
 from df3d_torch.utils.synth import camera_rig
+from df3d_torch.weights import params_from_flax, state_dict_from_flax
 from torch_port_helpers import load_flax, seeded_variables
 
 KEY = jax.random.PRNGKey(0)
@@ -298,6 +299,147 @@ def test_splat_duplicates_and_ifat():
         got = tm(_t(*imgs), _t(feats) * 2, _t(uv) * 2, _t(mask) * 2)
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-4)
+
+
+def _grad_tol(ref):
+    """Gradients through a few f32 layers: 1e-4 of the largest entry, and
+    1e-5 for the leaves whose gradient is 0 in exact arithmetic but
+    rounding noise of ~1e-6 in both packages (a conv bias ahead of a
+    training-mode BatchNorm, an attention key bias under the softmax)."""
+    return 1e-4 * np.abs(ref).max() + 1e-5
+
+
+def test_splat_gradient_to_the_winner():
+    """splat_to_image's gradient against jax.vjp: a pixel's cotangent goes
+    to the voxel whose write won (the last in row order), none to the
+    voxels it overwrote, none to masked or off-image ones."""
+    rng = np.random.RandomState(11)
+    b, n, c = 2, 30, 6
+    uv = rng.uniform(-0.1, 1.1, (b, n, 2)).astype(np.float32)
+    feats = rng.randn(b, n, c).astype(np.float32)
+    mask = rng.rand(b, n) > 0.2
+    cot = rng.randn(b, 4, 5, c).astype(np.float32)
+    _, vjp = jax.vjp(lambda f: jproj.splat_to_image(
+        jnp.asarray(uv), f, jnp.asarray(mask), (4, 5)), jnp.asarray(feats))
+    want = np.asarray(vjp(jnp.asarray(cot))[0])
+    ft = torch.from_numpy(feats).requires_grad_(True)
+    out = tproj.splat_to_image(*_t(uv), ft, *_t(mask), (4, 5))
+    (got,) = torch.autograd.grad(out, ft, torch.from_numpy(cot))
+    np.testing.assert_array_equal(got.numpy(), want)
+    xi = (uv[..., 0] * 5).astype(np.int32)  # truncation, as both cast
+    yi = (uv[..., 1] * 4).astype(np.int32)
+    ok = mask & (xi >= 0) & (xi < 5) & (yi >= 0) & (yi < 4)
+    pix = np.where(ok, yi * 5 + xi, -1)
+    losers = [(i, t) for i in range(b) for t in range(n)
+              if pix[i, t] >= 0 and (pix[i, t + 1:] == pix[i, t]).any()]
+    assert losers  # duplicates: every overwritten voxel gets 0
+    for i, t in losers:
+        assert not got[i, t].any()
+    assert not got.numpy()[~ok].any()
+
+
+def test_local_transformer_replace_gradient():
+    """LT 'replace' (overlapping neighborhoods, so rows are written more
+    than once) under jax.vjp: the gradients of the features, of the xyz
+    (through the relative positions only: FPS and ball-query indices carry
+    none) and of every parameter."""
+    rng = np.random.RandomState(12)
+    xyz, feats, valid = _lt_inputs(rng)
+    cot = rng.randn(*feats.shape).astype(np.float32)
+    args = (jnp.asarray(xyz), jnp.asarray(feats), jnp.asarray(valid))
+    jm = JLocalTransformer(npoint=8, radius=1.0, nsample=6, d_model=16,
+                           num_layers=2, feat_agg_method="replace")
+    v = _vars(jm, *args)
+
+    @jax.jit
+    def jvjp(params, x, f):
+        _, vjp = jax.vjp(lambda p, xx, ff: jm.apply({"params": p}, xx, ff,
+                                                    args[2]), params, x, f)
+        return vjp(jnp.asarray(cot))
+
+    want_params, want_x, want_f = jvjp(v["params"], *args[:2])
+    tm = load_flax(LocalTransformer(8, 1.0, 6, 16, 2,
+                                    feat_agg_method="replace"), v)
+    tm.requires_grad_(True)
+    xt, ft = [t.requires_grad_(True) for t in _t(xyz, feats)]
+    out = tm(xt, ft, *_t(valid))
+    names = [n for n, _ in tm.named_parameters()]
+    got = torch.autograd.grad(out, [*tm.parameters(), xt, ft],
+                              torch.from_numpy(cot), allow_unused=True,
+                              materialize_grads=True)
+    want = params_from_flax(tm, jax.tree_util.tree_map(np.asarray,
+                                                       want_params))
+    for name, g in zip(names, got):
+        np.testing.assert_allclose(g.numpy(), want[name].numpy(), rtol=0,
+                                   atol=_grad_tol(want[name].numpy()),
+                                   err_msg=name)
+    for g, w in zip(got[-2:], (want_x, want_f)):
+        w = np.asarray(w)
+        np.testing.assert_allclose(g.numpy(), w, rtol=0, atol=_grad_tol(w))
+
+
+def test_ifat_gate_training():
+    """IFATGate in training mode against flax (its BatchNorms at momentum
+    0.99, eps 1e-3, the biased fast variance): gated features, the
+    gradients of every parameter and of the voxel features (through the
+    splat; the image features get theirs through the gate), and the batch
+    statistics after the update."""
+    rng = np.random.RandomState(13)
+    b, n, c = 2, 30, 6
+    uv = rng.uniform(-0.1, 1.1, (b, n, 2)).astype(np.float32)
+    feats = rng.randn(b, n, c).astype(np.float32)
+    mask = rng.rand(b, n) > 0.2
+    imgs = [rng.randn(b, 8, 10, 5).astype(np.float32),
+            rng.randn(b, 4, 5, 7).astype(np.float32)]
+    cots = [rng.randn(*i.shape).astype(np.float32) for i in imgs]
+    jm = JIFATGate(2)
+    jargs = ([jnp.asarray(i) for i in imgs], [jnp.asarray(feats)] * 2,
+             [jnp.asarray(uv)] * 2, [jnp.asarray(mask)] * 2)
+    v = _vars(jm, *jargs)
+
+    @jax.jit
+    def jstep(params, stats, im, fe):
+        def f(p, ii, ff):
+            out, upd = jm.apply({"params": p, "batch_stats": stats}, ii,
+                                [ff] * 2, *jargs[2:], train=True,
+                                mutable=["batch_stats"])
+            return out, upd["batch_stats"]
+        out, vjp, upd = jax.vjp(f, params, im, fe, has_aux=True)
+        return out, vjp([jnp.asarray(t) for t in cots]), upd
+
+    want_out, (gp, gi, gf), upd = jstep(v["params"], v["batch_stats"],
+                                        jargs[0], jnp.asarray(feats))
+    tm = IFATGate([c, c])
+    tm.load_state_dict(state_dict_from_flax(tm, v))
+    tm.train()
+    it = [t.requires_grad_(True) for t in _t(*imgs)]
+    ft = torch.from_numpy(feats).requires_grad_(True)
+    out = tm(it, [ft] * 2, _t(uv) * 2, _t(mask) * 2)
+    names = [n for n, _ in tm.named_parameters()]
+    got = torch.autograd.grad(out, [*tm.parameters(), *it, ft],
+                              [torch.from_numpy(t) for t in cots])
+    for o, w in zip(out, want_out):
+        np.testing.assert_allclose(o.detach().numpy(), np.asarray(w),
+                                   atol=1e-4)
+    want = params_from_flax(tm, jax.tree_util.tree_map(np.asarray, gp))
+    for name, g in zip(names, got):
+        np.testing.assert_allclose(g.numpy(), want[name].numpy(), rtol=0,
+                                   atol=_grad_tol(want[name].numpy()),
+                                   err_msg=name)
+    for g, w in zip(got[len(names):], [*gi, gf]):
+        w = np.asarray(w)
+        assert np.abs(w).max() > 0
+        np.testing.assert_allclose(g.numpy(), w, rtol=0, atol=_grad_tol(w))
+    stats = state_dict_from_flax(tm, {"params": v["params"],
+                                      "batch_stats": jax.tree_util.tree_map(
+                                          np.asarray, upd)})
+    for k, t in tm.state_dict().items():
+        if k.endswith(("running_mean", "running_var")):
+            assert not torch.equal(t, torch.from_numpy(np.asarray(
+                v["batch_stats"][k.split(".")[0]][
+                    "mean" if "mean" in k else "var"]))), k
+            np.testing.assert_allclose(t.numpy(), stats[k].numpy(),
+                                       rtol=0, atol=1e-6, err_msg=k)
 
 
 def test_projection_and_sparsify():

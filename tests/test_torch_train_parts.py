@@ -8,7 +8,8 @@ Tolerances (f32): integer target outputs (inds, mask, cats) and the radius
 floor exact; heatmap, anno_box atol 1e-6, radii rtol = atol = 1e-6; losses
 rtol 1e-6 and their gradients atol 1e-6 * max|ref|; norms atol 1e-5 (outputs, input
 gradients) and 1e-6 (batch statistics); optimizer parameters and schedules
-rtol 1e-6."""
+rtol 1e-6. The frozen image branch of the fused model: exact (no gradient,
+no change)."""
 
 import jax
 import jax.numpy as jnp
@@ -26,10 +27,15 @@ from df3d.models.heads.center_head import (
 )
 from df3d.train import schedules as jsched
 from df3d_torch.core import target_utils as ttu
+from df3d_torch.entry import build_centerpoint3ddf_trainer
 from df3d_torch.models import losses as tlosses
 from df3d_torch.models.heads.center_head import center_head_targets
 from df3d_torch.models.layers import FlaxBatchNorm2d, MaskedBatchNorm
+from df3d_torch.models.detectors.centerpoint import CenterPointConfig
+from df3d_torch.models.detectors.fused import FusedConfig
+from df3d_torch.models.fusion.actr import ACTRConfig
 from df3d_torch.train import schedules as tsched
+from df3d_torch.utils.synth import camera_rig
 
 FEATURE_SIZE = (16, 20)       # (H, W)
 VOXEL, RANGE, STRIDE = (0.5, 0.4), (-4.0, -3.0), 2
@@ -313,3 +319,84 @@ def test_adam_onecycle_matches_optax():
     # scaled to norm 10, and not of the gradient itself
     assert tsched.global_norm([torch.from_numpy(v) for v in
                                grads[1].values()]).item() > 10
+
+
+def _small_fused_trainer():
+    """A tiny CenterPoint + 3D-DF trainer on the CPU and one batch for it."""
+    cfg = CenterPointConfig(
+        pc_range=(-16.0, -16.0, -2.4, 16.0, 16.0, 2.4),
+        voxel_size=(0.5, 0.5, 0.2), grid_size=(24, 64, 64), max_voxels=256,
+        stage_caps=(256, 128, 96, 64), tasks=(1, 2), max_objs=8)
+    fcfg = FusedConfig(
+        image_shape=(32, 48), image_layers=(1, 1, 1, 1), n_levels=2,
+        num_cams=2, actr=ACTRConfig(d_model=16, n_heads=2, n_points=2,
+                                    n_levels=2, dim_feedforward=32,
+                                    lt_npoint=8, lt_nsample=4))
+    state, step = build_centerpoint3ddf_trainer(cfg, fcfg, "cpu", seed=0)
+    rng = np.random.RandomState(0)
+    points = np.concatenate([rng.uniform(-15, 15, (2, 2048, 2)),
+                             rng.uniform(-1.8, 1.8, (2, 2048, 1)),
+                             rng.uniform(0, 1, (2, 2048, 2))], -1)
+    box = np.array([1.0, 2.0, 0.0, 4.0, 2.0, 1.5, 0.3, 0.0, 0.0])
+    batch = {"points": torch.tensor(points, dtype=torch.float32),
+             "points_valid": torch.ones(2, 2048, dtype=torch.bool),
+             "gt_boxes": torch.tensor(np.tile(box, (2, 4, 1)),
+                                      dtype=torch.float32),
+             "gt_classes": torch.zeros(2, 4, dtype=torch.long),
+             "gt_valid": torch.ones(2, 4, dtype=torch.bool),
+             "images": torch.tensor(rng.randn(2, 2, 32, 48, 3),
+                                    dtype=torch.float32),
+             "proj": torch.tensor(np.broadcast_to(camera_rig(2, (32, 48)),
+                                                  (2, 2, 3, 4)).copy())}
+    return state, step, batch
+
+
+def test_frozen_image_branch():
+    """CenterPoint + 3D-DF's image branch is frozen: after `.train()` the
+    branch is still in eval mode (its running statistics unmoved by a
+    step), its parameters need no gradient and are not in
+    `create_train_state(...).params`; the rest of the model trains, and a
+    training step leaves the branch as it was."""
+    state, step, batch = _small_fused_trainer()
+    model = state.model
+    branch = model.image_branch
+    assert model.training and model.detector.training
+    assert not any(m.training for m in branch.modules())
+    frozen = {id(p) for p in branch.parameters()}
+    assert frozen and not any(p.requires_grad for p in branch.parameters())
+    assert not frozen & {id(p) for p in state.params}
+    assert len(state.params) == sum(
+        1 for p in model.parameters() if id(p) not in frozen)
+    assert not any(n.startswith("image_branch.") for n in state.param_names)
+
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    state, logs = step(state, batch)
+    assert np.isfinite(float(logs["loss"]))
+    after = model.state_dict()
+    for k, v in before.items():
+        if k.startswith("image_branch."):
+            assert torch.equal(after[k], v), k
+    assert any(not torch.equal(after[k], v) for k, v in before.items()
+               if k.startswith("detector."))
+
+
+def test_fused_step_unreached_leaves():
+    """The fused step's loss reaches every trainable leaf but the last
+    dual-query layer's image-only ones (BiGateSum1D_2's b_gate, the image
+    FFN and its norm), which get zero gradients, as JAX gives them; a leaf
+    cut from the loss anywhere else raises instead of taking zeros."""
+    state, step, batch = _small_fused_trainer()
+    logs, grads = step.grads(state, batch)
+    unreached = step.unreached(state.model)
+    names = sorted(n for n, p in zip(state.param_names, state.params)
+                   if id(p) in unreached)
+    assert all(not g.any() for p, g in zip(state.params, grads)
+               if id(p) in unreached)
+    last = "detector.backbone.fusion_hook.actr.layer0."
+    assert names == sorted(last + n for n in (
+        "gate.b_gate.weight", "gate.b_gate.bias", "i_ffn0.weight",
+        "i_ffn0.bias", "i_ffn1.weight", "i_ffn1.bias", "norm_i.weight",
+        "norm_i.bias")), names
+    state.model.register_parameter("cut", torch.nn.Parameter(torch.ones(1)))
+    with pytest.raises(RuntimeError, match="cut"):
+        step.grads(state, batch)

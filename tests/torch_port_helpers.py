@@ -178,3 +178,51 @@ def k2_emulate(value, spatial_shapes, sampling_locations, attention_weights):
                 acc = acc + v * cw[k][..., None]
         out[:, :, lane] = acc
     return out.view(b, q, nh * d)
+
+
+def k2_bwd_emulate(value, spatial_shapes, sampling_locations,
+                   attention_weights, grad_output):
+    """The arithmetic of K2's backward (df3d_torch/csrc/msda.cu,
+    `sample_grads` and both backward kernels), vectorised over the
+    samples: positions loc * size - 0.5, the four corners with their
+    in-bounds masks, s_c = g . v_c over the head's channels (0 off the
+    map), then dattn = sum_c bilinear_c s_c, dloc = a (W, H) (d/ddx, d/ddy)
+    in the kernel's form, dvalue += g a bilinear_c at each in-bounds
+    corner. Returns (dvalue, dloc, dattn)."""
+    b, len_v, nh, d = value.shape
+    q, nl, npnt = sampling_locations.shape[1], *sampling_locations.shape[3:5]
+    g = grad_output.view(b, q, nh, 1, d)
+    rows = value.reshape(b * len_v * nh, d)
+    dvalue = torch.zeros_like(rows)
+    dloc = torch.zeros_like(sampling_locations)
+    dattn = torch.zeros_like(attention_weights)
+    batch = torch.arange(b).view(b, 1, 1, 1)
+    heads = torch.arange(nh).view(1, 1, nh, 1)
+    start = 0
+    for lid, (h, w) in enumerate(spatial_shapes):
+        loc = sampling_locations[:, :, :, lid]
+        a = attention_weights[:, :, :, lid]
+        px, py = loc[..., 0] * w - 0.5, loc[..., 1] * h - 0.5
+        x0, y0 = torch.floor(px), torch.floor(py)
+        dx, dy = px - x0, py - y0
+        s = []
+        for cx, cy, bil in ((x0, y0, (1 - dx) * (1 - dy)),
+                            (x0 + 1, y0, dx * (1 - dy)),
+                            (x0, y0 + 1, (1 - dx) * dy),
+                            (x0 + 1, y0 + 1, dx * dy)):
+            inb = (cx >= 0) & (cx < w) & (cy >= 0) & (cy < h)
+            pix = start + (cy.clamp(0, h - 1) * w + cx.clamp(0, w - 1)).long()
+            idx = ((batch * len_v + pix) * nh + heads).reshape(-1)
+            v = rows[idx].view(b, q, nh, npnt, d)
+            s.append(torch.where(inb, (g * v).sum(-1), 0.0))
+            contrib = g * torch.where(inb, a * bil, 0.0)[..., None]
+            dvalue.index_add_(0, idx, contrib.reshape(-1, d))
+        s00, s01, s10, s11 = s
+        dattn[:, :, :, lid] = (s00 * ((1 - dx) * (1 - dy))
+                               + s01 * (dx * (1 - dy))
+                               + s10 * ((1 - dx) * dy) + s11 * (dx * dy))
+        gx = (s01 - s00) * (1 - dy) + (s11 - s10) * dy
+        gy = (s10 - s00) * (1 - dx) + (s11 - s01) * dx
+        dloc[:, :, :, lid] = torch.stack([a * w * gx, a * h * gy], -1)
+        start += h * w
+    return dvalue.view_as(value), dloc, dattn
