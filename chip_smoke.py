@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving paths on one CUDA card: CenterPoint
 (LiDAR only), CenterPoint + 3D-DF (six cameras + LiDAR), TransFusion-L
-(LiDAR only) and TransFusion + 3D-DF (six cameras + LiDAR); then its
-CenterPoint and CenterPoint + 3D-DF training steps.
+(LiDAR only) and TransFusion + 3D-DF (six cameras + LiDAR); then the
+training steps of the same four models.
 
     python3 chip_smoke.py
 
@@ -84,12 +84,12 @@ any failure raises and the process exits non-zero:
    3xTF32 on the card, the plain version f32 on the CPU).
 15. K1 in the backward, at full width (`CenterPointConfig()`, batch 4, four
    260k-point ray-cast frames with their scenes' 79 object boxes): every K1
-   launch of one step's backward (the sparse convs' input gradients: the
-   same plan with flipped, transposed taps, or the transposed plan) against
-   the plain version with phase 4's tolerance and a repeat launch bit for
-   bit; each conv's input gradient on the card against torch autograd of
-   the plain version; per launch Cin, Cout, hit pairs, times and bound;
-   each conv's dW time.
+   launch of one step, its forward's 16 and its backward's 15 (the sparse
+   convs' input gradients: the same plan with flipped, transposed taps, or
+   the transposed plan), against the plain version with phase 4's
+   tolerance and a repeat launch bit for bit; each conv's input gradient on
+   the card against torch autograd of the plain version; per backward
+   launch Cin, Cout, hit pairs, times and bound; each conv's dW time.
 16. train path: the trainer at full width, batch 4, on that fixed batch:
    warm-up steps, then timed steps with K1's counts set to 0 just before and
    read just after (16 forward and 15 backward launches a step, K2 none);
@@ -106,11 +106,13 @@ any failure raises and the process exits non-zero:
    disagree (at most 4 such inputs, each within 1e-4 of 0;
    `phase_small_fused_train`), and the frozen image branch stays
    unchanged on both.
-18. K2's backward at full width (`centerpoint_3ddf_nusc` with
+18. K2 at full width in training (`centerpoint_3ddf_nusc` with
    `CenterPointConfig()`'s training caps, batch 4 x six 448x800 cameras,
    phase 15's frames and boxes, random normalized images, the rig): the
-   inputs and incoming gradient of one step's K2 backward launch are
-   captured; dvalue, dloc and dattn are held against autograd of the plain
+   inputs of one step's K2 forward launch are captured, and it must take
+   the warp path and agree with the plain version as in phase 7 (and bit
+   for bit on a repeat launch); the inputs and incoming gradient of the
+   step's K2 backward launch are captured; dvalue, dloc and dattn are held against autograd of the plain
    version (max|err| <= 1e-4 * max|ref| + 1e-5 each), a repeat launch
    gives the same dloc and dattn bits and dvalue (f32 atomics) within the
    tolerance; so do small inputs at its edge cases on both paths (corners
@@ -127,6 +129,28 @@ any failure raises and the process exits non-zero:
    falling below the first step's within 5 steps, no row dropped by a cap,
    the frozen image branch unchanged; ms/step, a host-clock split, peak
    memory, a one-step profile. It starts from phase 18's state.
+20. small TransFusion-L train step: one step of
+   `entry.build_transfusion_trainer` on the card against the same step on
+   the CPU (tests/test_torch_transfusion_slice.py's config at batch 2, four
+   boxes of three classes a sample), as phase 17: the card replays the
+   CPU's ReLU decisions, queries (top-k) and Hungarian matches where its own
+   differ, each a near tie, counted and bounded
+   (`small_step_card_vs_cpu`).
+21. TransFusion-L training at full width (`transfusion_l_nusc`'s
+   `TransFusionConfig()` with its training caps, batch 4, phase 15's
+   frames and boxes): every K1 launch of one step, forward (16) and
+   backward (15), as phase 15; then timed steps as phase 16 (K1 16 + 15 a step, K2 none, at least
+   one query matched each step, the split with its `assign` stage).
+22. small TransFusion + 3D-DF train step: as phase 20 on the fused config
+   of that test (2 cameras of 64x112, ResNet + FPN, two ACTR layers on one
+   level), K2 2 forward and 2 backward launches.
+23. TransFusion + 3D-DF training at full width (`transfusion_3ddf_nusc`
+   with `TransFusionConfig()`'s training caps, batch 4 x six 448x800
+   cameras, 24 value tables at one level, 112x200): both K2 forward
+   launches of one step against the plain version and both K2 backward
+   launches (one each per ACTR layer) against autograd of the plain
+   version, and the edge cases (the L = 1 warp-path ones among them), as in
+   phase 18; then timed steps as phase 19 (K1 16 + 15, K2 2 + 2 a step).
 
 TF32 is off for matmuls and cuDNN convs: the port serves in f32 (the JAX
 package's "exact" profile) and the comparisons need full f32. cuDNN picks
@@ -135,14 +159,15 @@ its conv algorithms by timing them (cudnn.benchmark).
 Each timed path prints a host-clock stage split (`df3d_torch.utils.stages`)
 and a one-frame profile. The last two lines of stdout are one JSON object
 on the kernels (times from this run, bounds from this run's inputs,
-launches from the timed runs of the four serving and two training paths,
+launches from the timed runs of the four serving and four training paths,
 also given by path; both give their device time, K1 its f32 CUDA-core
 bound, K2 its whole-table bound and general-path time; the top-level
 numbers are those of the CenterPoint paths, under "transfusion" those of
 the TransFusion ones, under K1's "train" its CenterPoint training
 launches, backward times and dW's time, and under K2's "train" its
-CenterPoint + 3D-DF training launches and its backward's times and bound)
-and the result line
+CenterPoint + 3D-DF training launches and its backward's times and bound;
+"transfusion"'s "train" the same for the TransFusion training steps) and
+the result line
 {"ok": true, "device": {...}}. With no CUDA device, or outside a checkout,
 the script exits non-zero without them.
 """
@@ -1053,13 +1078,7 @@ def phase_small_train(dev):
     from df3d_torch.ops import sparse_conv_kernel as K
 
     cfg = mesh_cfg()
-    rng = np.random.RandomState(0)
-    points = np.concatenate([rng.uniform(-15, 15, (2, 4096, 2)),
-                             rng.uniform(-1.8, 1.8, (2, 4096, 1)),
-                             rng.uniform(0, 1, (2, 4096, 2))], -1)
-    box = np.array([1.0, 2.0, 0.0, 4.0, 2.0, 1.5, 0.3, 0.0, 0.0], np.float32)
-    batch = (points.astype(np.float32), np.tile(box, (2, 4, 1)),
-             np.zeros((2, 4), np.int64))
+    batch, _ = small_train_arrays(2)
 
     def run(d):
         state, step = build_centerpoint_trainer(cfg, d, seed=0)
@@ -1147,22 +1166,36 @@ def compare_train_step(label, ref, got, strict):
         "updated parameters and batch statistics")
 
 
-def full_train_setup(dev):
-    """CenterPoint at the `centerpoint_nusc` preset's full width and caps,
-    its trainer from seed 0, and a batch of four ray-cast frames (seeds 0-3,
-    260k points) with each scene's 79 object boxes."""
-    from df3d_torch.entry import build_centerpoint_trainer
-    from df3d_torch.models.detectors.centerpoint import CenterPointConfig
+def full_train_batch(dev):
+    """Four ray-cast frames (seeds 0-3, 260k points) with each scene's 79
+    object boxes, as a training batch on `dev`."""
     from df3d_torch.utils.synth import make_raycast_frame
 
-    cfg = CenterPointConfig()
-    state, step = build_centerpoint_trainer(cfg, dev, seed=0)
     seeds = range(TRAIN_BATCH)
     points = np.stack([make_raycast_frame(np.random.RandomState(s),
                                           NUM_POINTS) for s in seeds])
     boxes = np.stack([scene_boxes(s) for s in seeds])
     classes = np.tile(np.asarray(SCENE_CLASSES, np.int64), (TRAIN_BATCH, 1))
-    return cfg, state, step, train_batch(points, boxes, classes, dev)
+    return train_batch(points, boxes, classes, dev)
+
+
+def full_train_setup(dev, transfusion=False):
+    """CenterPoint at the `centerpoint_nusc` preset's full width and caps
+    (or TransFusion-L at `transfusion_l_nusc`'s), its trainer from seed 0,
+    and `full_train_batch`."""
+    from df3d_torch.entry import (
+        build_centerpoint_trainer, build_transfusion_trainer,
+        transfusion_l_nusc,
+    )
+    from df3d_torch.models.detectors.centerpoint import CenterPointConfig
+
+    if transfusion:
+        cfg = transfusion_l_nusc()
+        state, step = build_transfusion_trainer(cfg, dev, seed=0)
+    else:
+        cfg = CenterPointConfig()
+        state, step = build_centerpoint_trainer(cfg, dev, seed=0)
+    return cfg, state, step, full_train_batch(dev)
 
 
 def phase_train_k1(state, step, batch):
@@ -1171,13 +1204,15 @@ def phase_train_k1(state, step, batch):
     tolerance, bit for bit); each sparse conv's input gradient on the card
     against torch autograd of `sparse_conv_plain` (a scatter through
     index_select's backward: it checks the flipped weights and the
-    transposed plans), and each conv's dW time. Returns K1's backward
-    numbers for the kernels line."""
+    transposed plans), and each conv's dW time; the step's 16 forward
+    launches are held the same way first. Returns K1's backward numbers
+    for the kernels line."""
     from df3d_torch.ops import sparse as S
     from df3d_torch.ops import sparse_conv_kernel as K
 
-    records, captured = [], []
+    records, captured, forward = [], [], []
     backward, launch = S._SparseConv.backward, K.sparse_conv_cuda_dx
+    fwd_launch = K.sparse_conv_cuda
 
     def recording_backward(ctx, dy):
         features, weights = ctx.saved_tensors
@@ -1190,20 +1225,39 @@ def phase_train_k1(state, step, batch):
                          weights.clone()))
         return launch(features, gather_idx, weights)
 
+    def recording_forward(features, gather_idx, weights):
+        forward.append((features.clone(), gather_idx.clone(),
+                        weights.clone()))
+        return fwd_launch(features, gather_idx, weights)
+
     S._SparseConv.backward = staticmethod(recording_backward)
     K.sparse_conv_cuda_dx = recording_launch
+    K.sparse_conv_cuda = recording_forward
     try:
         step.grads(state, batch)
     finally:
         S._SparseConv.backward = backward
         K.sparse_conv_cuda_dx = launch
+        K.sparse_conv_cuda = fwd_launch
     torch.cuda.synchronize()
     records.reverse()  # forward order: conv_input first
+    check(len(forward) == K1_PER_FRAME,
+          f"expected {K1_PER_FRAME} K1 launches in the forward, saw "
+          f"{len(forward)}")
     check(len(records) == K1_PER_FRAME,
           f"expected {K1_PER_FRAME} sparse conv backwards, saw {len(records)}")
     check(len(captured) == K1_BWD_PER_STEP,
           f"expected {K1_BWD_PER_STEP} K1 launches in the backward, saw "
           f"{len(captured)}")
+    fwd_err = 0.0
+    for i, (f, idx, w) in enumerate(forward):
+        _, _, err = k1_check(f"forward launch {i}", fwd_launch,
+                             K.sparse_conv_plain, f, idx, w)
+        fwd_err = max(fwd_err, err)
+    log(f"K1 in the forward of the step: {len(forward)} launches agree with "
+        f"the plain version (max abs err {fwd_err:.3g}), repeat launches "
+        "give the same bits")
+    del forward
 
     log("K1 in the backward (input gradients of one full-width batch-4 "
         "step; tolerance of phase 4, repeat launches bit for bit; bound as "
@@ -1264,16 +1318,18 @@ def phase_train_k1(state, step, batch):
                 bwd_plain_ms=total["plain_ms"], bwd_bound_ms=total["bound_ms"],
                 bwd_bound_by=("operations" if total["t_ops"] >= total["t_bytes"]
                               else "bytes"),
-                bwd_max_abs_err=max_err, dw_ms=dw_total)
+                bwd_max_abs_err=max(max_err, fwd_err), dw_ms=dw_total)
 
 
-def phase_train_path(state, step, batch):
+def phase_train_path(state, step, batch, label="train path"):
     """The trainer entry point at full width, batch 4: warm-up steps, then
     timed steps with K1's counts set to 0 just before and read just after
     (16 forward and 15 backward launches a step); every loss finite, the
     loss falling below the first step's within 5 steps on this fixed batch,
-    no cap overflow. Prints ms/step, a host-clock split of one step, peak
-    memory and a one-step profile."""
+    no cap overflow, and a TransFusion step's queries matched to at least
+    one box each step. Prints ms/step, a host-clock split of one step (a
+    TransFusion step's with its `assign` stage), peak memory and a one-step
+    profile."""
     from df3d_torch.ops import msda_kernel as K2
     from df3d_torch.ops import sparse_conv_kernel as K1
     from df3d_torch.utils import stages
@@ -1285,8 +1341,10 @@ def phase_train_path(state, step, batch):
         state, logs = step(state, batch)
         losses.append(logs["loss"].item())
         check(int(logs["cap_overflow"]) == 0,
-              f"train step {len(losses)}: cap overflow "
+              f"{label} step {len(losses)}: cap overflow "
               f"{int(logs['cap_overflow'])}")
+        check(int(logs.get("tf_matched", 1)) >= 1,
+              f"{label} step {len(losses)}: no query matched a box")
         return logs
 
     for _ in range(TRAIN_WARMUP_STEPS):
@@ -1303,31 +1361,31 @@ def phase_train_path(state, step, batch):
     fwd, bwd, k2 = K1.launches, K1.bwd_launches, K2.launches
     peak = torch.cuda.max_memory_allocated()
     check(fwd == K1_PER_FRAME * TRAIN_TIMED_STEPS,
-          f"train path: K1 forward launched {fwd} times in "
+          f"{label}: K1 forward launched {fwd} times in "
           f"{TRAIN_TIMED_STEPS} steps, expected {K1_PER_FRAME} a step")
     check(bwd == K1_BWD_PER_STEP * TRAIN_TIMED_STEPS,
-          f"train path: K1 backward launched {bwd} times in "
+          f"{label}: K1 backward launched {bwd} times in "
           f"{TRAIN_TIMED_STEPS} steps, expected {K1_BWD_PER_STEP} a step")
     check(k2 == 0 and K2.bwd_launches == 0,
-          f"train path: K2 launched {k2} + {K2.bwd_launches} times")
+          f"{label}: K2 launched {k2} + {K2.bwd_launches} times")
     with stages.recording() as split:
         logs = one_step()
     profile_frame(one_step)
-    check(all(np.isfinite(losses)), f"train path: losses {losses}")
+    check(all(np.isfinite(losses)), f"{label}: losses {losses}")
     check(min(losses[1:5]) < losses[0],
-          f"train path: the loss did not fall below {losses[0]} in 5 steps")
+          f"{label}: the loss did not fall below {losses[0]} in 5 steps")
     forward = sum(split.get(k, 0.0) for k in ("backbone_3d", "neck", "head"))
-    log(f"train path: batch {TRAIN_BATCH}, {TRAIN_TIMED_STEPS} timed steps "
+    log(f"{label}: batch {TRAIN_BATCH}, {TRAIN_TIMED_STEPS} timed steps "
         f"after {TRAIN_WARMUP_STEPS}, ms/step mean {np.mean(per_step):.3f} "
         f"median {np.median(per_step):.3f} min {np.min(per_step):.3f}; per "
         f"step {[round(x, 3) for x in per_step]}")
-    log(f"train path: K1 launches per step {fwd // TRAIN_TIMED_STEPS} forward"
+    log(f"{label}: K1 launches per step {fwd // TRAIN_TIMED_STEPS} forward"
         f", {bwd // TRAIN_TIMED_STEPS} backward; peak memory "
         f"{peak / 2**30:.3f} GiB")
-    log("train path step split (ms, host clock, synchronised): "
+    log(f"{label} step split (ms, host clock, synchronised): "
         + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
         + f"; forward (backbone_3d + neck + head) {forward:.3f}")
-    log(f"train path losses by step: {[round(x, 5) for x in losses]}; last "
+    log(f"{label} losses by step: {[round(x, 5) for x in losses]}; last "
         "step: " + ", ".join(f"{k} {float(v):.4f}" for k, v in logs.items()))
     return {"train_fwd": fwd, "train_bwd": bwd}
 
@@ -1390,66 +1448,111 @@ def fused_train_batch(points, boxes, classes, images, proj, dev):
     return batch
 
 
-def phase_small_fused_train(dev):
-    """One CenterPoint + 3D-DF training step of
-    `entry.build_centerpoint3ddf_trainer` on the card against the same step
-    on the CPU: `small_fused_train_configs()` at batch 2, phase 14's points
-    and gt layout, seeded normalized images and the rig of
-    `utils.synth.camera_rig`, the same seeded weights. As phase 14: first
-    with cuDNN off and the plain versions of K1 and K2 (forward and
-    backward, still through their autograd Functions), held tight; then as
-    the path runs, with K1, K2 and cuDNN, held by L2; tolerances of
-    `phase_small_train`, and the frozen image branch unchanged on both.
+@contextlib.contextmanager
+def transfusion_decisions(store, replay):
+    """Patch TransFusion's head: record the queries' top-k indices and the
+    Hungarian matches of each call in `store`, in call order; or, with
+    `replay`, give each call the recorded indices or matches where its own
+    differ. A replay is a near tie on this device: the top-k scores, or
+    the batch's summed assignment costs, of the two choices lie within
+    `gap` of each other (the caller bounds it). Yields the replays,
+    (kind, entries that differ, gap) per call that had any."""
+    from df3d_torch.models.heads import transfusion_head as H
 
-    ReLU decisions: the forwards on the card and on the CPU agree to ~1e-5
-    of the values, and a ReLU input that close to 0 passes the gradient on
+    top_k, match, replays = H.top_k_stable, H.hungarian_match, []
+    recorded = iter(store)
+
+    def recording_top_k(x, k):
+        vals, idx = top_k(x, k)
+        if not replay:
+            store.append(idx.cpu())
+            return vals, idx
+        want = next(recorded).to(idx.device)
+        if torch.equal(want, idx):
+            return vals, idx
+        chosen = x.gather(1, want)
+        replays.append(("top-k", int((want != idx).sum()),
+                        float((chosen - vals).abs().max())))
+        return chosen, want
+
+    def recording_match(cost, valid):
+        got = match(cost, valid)
+        if not replay:
+            store.append(got.cpu())
+            return got
+        want = next(recorded).to(got.device)
+        if torch.equal(want, got):
+            return got
+
+        def total(m):
+            c = cost.gather(2, m.clamp_min(0)[..., None])[..., 0]
+            return (c * (m >= 0)).sum()
+        replays.append(("assignment", int((want != got).sum()),
+                        float((total(want) - total(got)).abs())))
+        return want
+
+    H.top_k_stable, H.hungarian_match = recording_top_k, recording_match
+    try:
+        yield replays
+    finally:
+        H.top_k_stable, H.hungarian_match = top_k, match
+
+
+def small_step_card_vs_cpu(label, build_trainer, batch, dev, k2_per_step):
+    """One training step of `build_trainer(device) -> (state, step)` on the
+    card against the same step on the CPU, on `batch(device)`, as phase 14:
+    first with cuDNN off and the plain versions of K1 and K2 (forward and
+    backward, still through their autograd Functions), held tight; then as
+    the path runs, with K1, K2 (`k2_per_step` forward and as many backward
+    launches) and cuDNN, held by L2; tolerances of `phase_small_train`. A
+    fused model's frozen image branch stays unchanged on both.
+
+    Decisions: the forwards on the card and on the CPU agree to ~1e-5 of
+    the values, and a ReLU input that close to 0 passes the gradient on
     one device and not on the other, moving every leaf upstream by up to a
-    few percent (tests/test_torch_fused_train_step.py met two such elements
-    in the neck against JAX, |x| <= 4.1e-6). So the CPU step records every
-    ReLU's decisions and each card step replays them where its own
-    disagree (`relu_decisions`); as in the CPU test's
-    `test_neck_relu_decisions`, there may be at most 4 such elements in a
-    step, each within 1e-4 of 0, so a replay absorbs rounding and nothing
-    larger; their count is printed."""
-    from df3d_torch.entry import build_centerpoint3ddf_trainer
+    few percent (tests/test_torch_fused_train_step.py met two such
+    elements in the neck against JAX, |x| <= 4.1e-6); two near-equal
+    heatmap scores can swap in TransFusion's top-k, and two near-equal
+    assignments in its Hungarian step. So the CPU step records every
+    ReLU's decisions, the queries and the matches, and each card step
+    replays them where its own differ (`relu_decisions`,
+    `transfusion_decisions`): at most 4 ReLU inputs, each within 1e-4 of
+    0, as in the CPU tests, and at most 4 query slots or matches, each a
+    tie within 1e-4 (of the scores, or of the summed costs) on the card;
+    their counts are printed. With no replay the card's queries and matches
+    equal the CPU's as integers."""
     from df3d_torch.ops import msda_kernel as K2
     from df3d_torch.ops import sparse as S
     from df3d_torch.ops import sparse_conv_kernel as K
-    from df3d_torch.utils.synth import camera_rig
 
-    cfg, fcfg = small_fused_train_configs()
-    rng = np.random.RandomState(0)
-    points = np.concatenate([rng.uniform(-15, 15, (2, 4096, 2)),
-                             rng.uniform(-1.8, 1.8, (2, 4096, 1)),
-                             rng.uniform(0, 1, (2, 4096, 2))], -1)
-    box = np.array([1.0, 2.0, 0.0, 4.0, 2.0, 1.5, 0.3, 0.0, 0.0], np.float32)
-    nc, hw = fcfg.num_cams, fcfg.image_shape
-    images = rng.randn(2, nc, *hw, 3).astype(np.float32)
-    proj = np.broadcast_to(camera_rig(nc, hw), (2, nc, 3, 4)).copy()
-    batch = (points.astype(np.float32), np.tile(box, (2, 4, 1)),
-             np.zeros((2, 4), np.int64), images, proj)
-    masks = []
+    masks, picks = [], []
 
     def run(d, replay):
-        state, step = build_centerpoint3ddf_trainer(cfg, fcfg, d, seed=0)
-        branch = {k: v.clone() for k, v in
-                  state.model.image_branch.state_dict().items()}
-        with relu_decisions(masks, replay) as flips:
-            logs, grads = step.grads(state, fused_train_batch(*batch, d))
+        state, step = build_trainer(d)
+        branch = getattr(state.model, "image_branch", None)
+        frozen = {} if branch is None else {
+            k: v.clone() for k, v in branch.state_dict().items()}
+        with relu_decisions(masks, replay) as flips, \
+                transfusion_decisions(picks, replay) as replays:
+            logs, grads = step.grads(state, batch(d))
         grads = [g.cpu() for g in grads]
         state = step.apply(state, [g.to(d) for g in grads])
-        for k, v in state.model.image_branch.state_dict().items():
-            check(torch.equal(v, branch[k]),
-                  f"small fused train step on {d}: the frozen image branch "
-                  f"moved ({k})")
+        for k, v in frozen.items():
+            check(torch.equal(branch.state_dict()[k], v),
+                  f"{label} on {d}: the frozen image branch moved ({k})")
         check(sum(n for n, _ in flips) <= 4
               and all(z < 1e-4 for _, z in flips),
-              f"small fused train step on {d}: more than 4 ReLU inputs "
-              f"disagree with the CPU's, or one lies more than 1e-4 from "
-              f"0: {flips}")
-        log(f"small fused train step on {d}: {sum(n for n, _ in flips)} ReLU "
-            f"decisions taken from the CPU's (largest |x| "
-            f"{max([z for _, z in flips], default=0.0):.3g})")
+              f"{label} on {d}: more than 4 ReLU inputs disagree with the "
+              f"CPU's, or one lies more than 1e-4 from 0: {flips}")
+        check(sum(n for _, n, _ in replays) <= 4
+              and all(gap < 1e-4 for *_, gap in replays),
+              f"{label} on {d}: more than 4 queries or matches differ from "
+              f"the CPU's, or one is no tie within 1e-4: {replays}")
+        log(f"{label} on {d}: {sum(n for n, _ in flips)} ReLU decisions "
+            f"taken from the CPU's (largest |x| "
+            f"{max([z for _, z in flips], default=0.0):.3g}); top-k and "
+            f"assignment replays {replays}; {len(picks)} top-k and "
+            "assignment calls recorded")
         return (to_cpu(logs), dict(zip(state.param_names, grads)),
                 to_cpu(state.model.state_dict()), float(state.tx.lr(0)))
 
@@ -1463,38 +1566,157 @@ def phase_small_fused_train(dev):
     finally:
         S._conv_body, K2.msda_cuda, K2.msda_bwd_cuda = body, fwd, bwd
         torch.backends.cudnn.enabled = True
-    compare_train_step("small fused train step, plain K1 and K2, no cuDNN",
-                       cpu, card_plain, strict=True)
-    K2.launches = K2.bwd_launches = 0
+    compare_train_step(f"{label}, plain K1 and K2, no cuDNN", cpu,
+                       card_plain, strict=True)
+    K.launches = K.bwd_launches = K2.launches = K2.bwd_launches = 0
     card = run(dev, replay=True)
-    check(K2.launches == 1 and K2.bwd_launches == 1,
-          f"small fused train step: K2 launched {K2.launches} forward and "
-          f"{K2.bwd_launches} backward, expected 1 and 1")
-    compare_train_step("small fused train step, K1, K2 and cuDNN", cpu, card,
-                       strict=False)
+    check(K.launches == K1_PER_FRAME and K.bwd_launches == K1_BWD_PER_STEP
+          and K2.launches == k2_per_step and K2.bwd_launches == k2_per_step,
+          f"{label}: K1 launched {K.launches} forward and {K.bwd_launches} "
+          f"backward, K2 {K2.launches} and {K2.bwd_launches}, expected "
+          f"{K1_PER_FRAME}, {K1_BWD_PER_STEP}, {k2_per_step} and "
+          f"{k2_per_step}")
+    compare_train_step(f"{label}, K1, K2 and cuDNN", cpu, card, strict=False)
 
 
-def full_fused_train_setup(dev):
+def small_train_arrays(b, points_f=5, n=4096):
+    """Phase 14's batch as numpy: `n` points per sample over the +-16 m
+    grid, the multichip dry run's gt layout (four equal boxes of class 0)."""
+    rng = np.random.RandomState(0)
+    points = np.concatenate([rng.uniform(-15, 15, (b, n, 2)),
+                             rng.uniform(-1.8, 1.8, (b, n, 1)),
+                             rng.uniform(0, 1, (b, n, points_f - 3))], -1)
+    box = np.array([1.0, 2.0, 0.0, 4.0, 2.0, 1.5, 0.3, 0.0, 0.0], np.float32)
+    return (points.astype(np.float32), np.tile(box, (b, 4, 1)),
+            np.zeros((b, 4), np.int64)), rng
+
+
+def fused_batch_fn(arrays, rng, fcfg):
+    """`fused_train_batch` on a device, with seeded normalized images and
+    the rig of `utils.synth.camera_rig` for `fcfg`'s cameras."""
+    from df3d_torch.utils.synth import camera_rig
+
+    b, nc, hw = arrays[0].shape[0], fcfg.num_cams, fcfg.image_shape
+    images = rng.randn(b, nc, *hw, 3).astype(np.float32)
+    proj = np.broadcast_to(camera_rig(nc, hw), (b, nc, 3, 4)).copy()
+    return lambda d: fused_train_batch(*arrays, images, proj, d)
+
+
+def phase_small_fused_train(dev):
+    """One CenterPoint + 3D-DF training step of
+    `entry.build_centerpoint3ddf_trainer` on the card against the same step
+    on the CPU (`small_step_card_vs_cpu`): `small_fused_train_configs()` at
+    batch 2, phase 14's points and gt layout, seeded normalized images and
+    the rig of `utils.synth.camera_rig`, the same seeded weights."""
+    from df3d_torch.entry import build_centerpoint3ddf_trainer
+
+    cfg, fcfg = small_fused_train_configs()
+    arrays, rng = small_train_arrays(2)
+    small_step_card_vs_cpu(
+        "small fused train step",
+        lambda d: build_centerpoint3ddf_trainer(cfg, fcfg, d, seed=0),
+        fused_batch_fn(arrays, rng, fcfg), dev, k2_per_step=1)
+
+
+# four boxes a sample (gravity centre, 9-dof) of classes 0, 1, 2, 0, as
+# tests/test_torch_transfusion_train_step.py has them
+SMALL_TRANSFUSION_BOXES = np.array(
+    [[1.0, 2.0, 0.0, 4.0, 2.0, 1.5, 0.3, 0.0, 0.0],
+     [-6.0, -8.0, 0.2, 2.0, 1.0, 1.2, 1.0, 0.5, 0.0],
+     [8.0, 5.0, -0.3, 1.0, 1.0, 1.8, -0.5, 0.0, 0.3],
+     [3.0, -10.0, 0.0, 4.5, 2.0, 1.6, 2.0, 0.0, 0.0]], np.float32)
+
+
+def small_transfusion_train_configs():
+    """tests/test_torch_transfusion_slice.py's config: TransFusion-L on the
+    +-16 m grid with a tiny head (3 classes, 16 proposals, hidden 32, 8 x 8
+    BEV map), and its fused config (2 cameras of 64x112, ResNet + FPN on
+    one-block stages, the `transfusion_3ddf_nusc` preset's ACTRv2 narrowed:
+    one level, two layers, q_method "sum")."""
+    from df3d_torch.models.detectors.fused import FusedConfig
+    from df3d_torch.models.detectors.transfusion import TransFusionConfig
+    from df3d_torch.models.fusion.actr import ACTRConfig
+    from df3d_torch.models.heads.transfusion_head import TransFusionHeadCfg
+
+    head = TransFusionHeadCfg(
+        num_classes=3, num_proposals=16, hidden_channel=32, num_heads=4,
+        ffn_channel=64, small_classes=(2,), bev_size=(8, 8),
+        out_size_factor=8, voxel_size=(0.5, 0.5), pc_range=(-16.0, -16.0))
+    cfg = TransFusionConfig(
+        pc_range=(-16.0, -16.0, -2.4, 16.0, 16.0, 2.4),
+        voxel_size=(0.5, 0.5, 0.2), grid_size=(24, 64, 64), max_voxels=512,
+        num_point_features=4, stage_caps=(1024, 512, 256, 128), head=head)
+    actr = ACTRConfig(d_model=16, n_heads=2, n_points=2, n_levels=1,
+                      num_layers=2, dim_feedforward=32, lt_npoint=8,
+                      lt_nsample=4, model_name="ACTRv2", q_method="sum",
+                      attn_layer="BiGateSum1D_2", hybrid=True)
+    return cfg, FusedConfig(
+        image_shape=(64, 112), image_branch="resnet_fpn",
+        image_layers=(1, 1, 1, 1), n_levels=1, num_cams=2, actr=actr,
+        use_ifat=True, fusion_downsample=8)
+
+
+def small_transfusion_train_arrays():
+    """Phase 14's points with 4 features, and `SMALL_TRANSFUSION_BOXES` in
+    each of the two samples (the second's moved by (1.5, -0.5) m)."""
+    (points, _, _), rng = small_train_arrays(2, points_f=4)
+    boxes = np.tile(SMALL_TRANSFUSION_BOXES[None], (2, 1, 1))
+    boxes[1, :, :2] += (1.5, -0.5)
+    classes = np.tile(np.int64([0, 1, 2, 0]), (2, 1))
+    return (points, boxes, classes), rng
+
+
+def phase_small_transfusion_train(dev):
+    """One TransFusion-L training step of `entry.build_transfusion_trainer`
+    on the card against the same step on the CPU
+    (`small_step_card_vs_cpu`: queries and Hungarian matches equal as
+    integers, or replayed near ties counted and bounded), on
+    `small_transfusion_train_configs()` at batch 2."""
+    from df3d_torch.entry import build_transfusion_trainer
+
+    cfg, _ = small_transfusion_train_configs()
+    arrays, _ = small_transfusion_train_arrays()
+    small_step_card_vs_cpu(
+        "small TransFusion-L train step",
+        lambda d: build_transfusion_trainer(cfg, d, seed=0),
+        lambda d: train_batch(*arrays, d), dev, k2_per_step=0)
+
+
+def phase_small_transfusion_fused_train(dev):
+    """One TransFusion + 3D-DF training step of
+    `entry.build_transfusion3ddf_trainer` on the card against the same step
+    on the CPU, as phase 20, with the cameras of phase 17 (seeded
+    normalized images, the rig) and the frozen ResNet + FPN branch."""
+    from df3d_torch.entry import build_transfusion3ddf_trainer
+
+    cfg, fcfg = small_transfusion_train_configs()
+    arrays, rng = small_transfusion_train_arrays()
+    small_step_card_vs_cpu(
+        "small TransFusion + 3D-DF train step",
+        lambda d: build_transfusion3ddf_trainer(cfg, fcfg, d, seed=0),
+        fused_batch_fn(arrays, rng, fcfg), dev,
+        k2_per_step=fcfg.actr.num_layers)
+
+
+def full_fused_train_setup(dev, transfusion=False):
     """CenterPoint + 3D-DF at the `centerpoint_3ddf_nusc` preset's full
-    width with `CenterPointConfig()`'s training caps, its trainer from seed
-    0, and phase 15's batch (four ray-cast frames, seeds 0-3, with their
-    scenes' boxes) plus six random normalized 448x800 images per sample
-    and the rig of `utils.synth.camera_rig`."""
+    width with `CenterPointConfig()`'s training caps (or TransFusion +
+    3D-DF at `transfusion_3ddf_nusc`'s with `TransFusionConfig()`'s), its
+    trainer from seed 0, and `full_train_batch` plus six random normalized
+    448x800 images per sample and the rig of `utils.synth.camera_rig`."""
     from df3d_torch.entry import (
-        build_centerpoint3ddf_trainer, centerpoint_3ddf_nusc, fused_config,
+        build_centerpoint3ddf_trainer, build_transfusion3ddf_trainer,
+        centerpoint_3ddf_nusc, fused_config, transfusion_3ddf_nusc,
     )
-    from df3d_torch.utils.synth import camera_rig, make_raycast_frame
+    from df3d_torch.utils.synth import camera_rig
 
-    preset = centerpoint_3ddf_nusc()
+    preset = transfusion_3ddf_nusc() if transfusion else centerpoint_3ddf_nusc()
+    build = (build_transfusion3ddf_trainer if transfusion
+             else build_centerpoint3ddf_trainer)
     cfg, fcfg = preset["lidar"], fused_config(preset)
-    state, step = build_centerpoint3ddf_trainer(cfg, fcfg, dev, seed=0)
-    seeds = range(TRAIN_BATCH)
-    points = np.stack([make_raycast_frame(np.random.RandomState(s),
-                                          NUM_POINTS) for s in seeds])
-    boxes = np.stack([scene_boxes(s) for s in seeds])
-    classes = np.tile(np.asarray(SCENE_CLASSES, np.int64), (TRAIN_BATCH, 1))
+    state, step = build(cfg, fcfg, dev, seed=0)
     nc, hw = fcfg.num_cams, fcfg.image_shape
-    batch = train_batch(points, boxes, classes, dev)
+    batch = full_train_batch(dev)
     g = torch.Generator(device=dev).manual_seed(20)
     batch["images"] = torch.randn(TRAIN_BATCH, nc, *hw, 3, generator=g,
                                   device=dev)
@@ -1529,9 +1751,10 @@ def k2_bwd_check(label, launch, plain, value, shapes, locs, attn, grad):
 
 def k2_bwd_edge_cases(launch, plain, warp_path):
     """K2's backward against autograd of its plain version on small inputs,
-    on both paths: the warp path at L = 3 and L = 1 (nH 8, D 16, P 4), the
-    general path with an unaligned value table and at D = 8 (the KITTI
-    ACTR's head width), nH 2 and 3, L 2 and 8, P 1 and 2. Every case has
+    on both paths: the warp path at L = 3 and L = 1 (nH 8, D 16, P 4; B 2
+    and 6), the general path with an unaligned value table (L 3 and 1) and
+    at D = 8 (the KITTI ACTR's head width), nH 2 and 3, L 2 and 8, P 1 and
+    2. Every case has
     samples on the last pixel centre, at -0.5 px and far off the map
     (`k2_inputs`), a query wholly off the map, every point of query 3 on
     an exact integer pixel position, zero weights on query 4, and a zero
@@ -1545,7 +1768,9 @@ def k2_bwd_edge_cases(launch, plain, warp_path):
              (2, 10, 8, 8, K2_LEVELS, 4, 0, False),
              (2, 11, 2, 8, K2_LEVELS[:2], 4, 0, False),
              (3, 17, 3, 5, K2_LEVELS[:2], 2, 0, False),
-             (2, 13, 2, 8, K2_LEVELS_8, 1, 0, False)]
+             (2, 13, 2, 8, K2_LEVELS_8, 1, 0, False),
+             (6, 20, 8, 16, K2_LEVELS[2:], 4, 0, True),
+             (2, 37, 8, 16, K2_LEVELS[:1], 4, 1, False)]
     for b, q, nh, d, shapes, p, offset, warp in cases:
         value, locs, attn = k2_inputs(g, b, q, nh, d, shapes, p, (q - 1,),
                                       offset)
@@ -1569,28 +1794,40 @@ def k2_bwd_edge_cases(launch, plain, warp_path):
             check(not dloc[:, i].any() and not dattn[:, i].any(),
                   f"{label}: query {i} (off the map or g = 0) has a gradient")
     log("K2 backward edge cases (warp path at L = 3 and L = 1, B = 2 and 6; "
-        "general path: an unaligned table, D 8 and 5, nH 2, 3 and 8, L 2 and "
-        "8, P 1, 2 and 4; samples on the last pixel centre, at -0.5 px, on "
+        "general path: unaligned tables at L = 3 and 1, D 8 and 5, nH 2, 3 "
+        "and 8, L 2 and 8, P 1, 2 and 4; samples on the last pixel centre, "
+        "at -0.5 px, on "
         "exact integer pixel positions, far off the map, zero weights, a "
         "zero cotangent): agree with autograd of the plain version, repeat "
         "launches give the same dloc and dattn bits")
 
 
-def phase_fused_train_k2(state, step, batch):
-    """The K2 backward launch of one full-width CenterPoint + 3D-DF
-    training step (batch 4 x 6 cameras = 24 value tables): its inputs and
-    incoming gradient captured, dvalue, dloc and dattn held against
-    autograd of the plain version (max|err| <= 1e-4 * max|ref| + 1e-5 per
-    gradient; dloc and dattn bit for bit on a repeat launch), the edge
-    cases, and per launch the back-to-back and device time, the plain
-    version's time and the bound: g read and dvalue, dloc and dattn
-    written once, and for the queries with g != 0 (for the others every
-    gradient is 0, whatever their other inputs) their locations and
-    weights and the value rows their in-bounds corners touch read once.
-    Returns K2's backward numbers for the kernels line."""
+def phase_fused_train_k2(state, step, batch, per_step=1):
+    """The K2 launches of one full-width fused training step (batch 4 x 6
+    cameras = 24 value tables; `per_step` forward and `per_step` backward
+    launches, one each per ACTR layer). Each forward launch's inputs
+    captured, its output held against the plain version (`k2_check`:
+    max|err| <= 1e-4 * max|ref| + 1e-5, bit for bit on a repeat launch) on
+    the warp path, and timed beside the plain version. Each backward
+    launch's inputs and incoming gradient captured, dvalue, dloc and dattn
+    held against autograd of the plain version (max|err| <= 1e-4 *
+    max|ref| + 1e-5 per gradient; dloc and dattn bit for bit on a repeat
+    launch), the edge cases (at L = 1 and 3 on the warp path), and per
+    launch the back-to-back and device time, the plain version's time and
+    the bound: g read and dvalue, dloc and dattn written once, and for the
+    queries with g != 0 (for the others every gradient is 0, whatever
+    their other inputs) their locations and weights and the value rows
+    their in-bounds corners touch read once. Returns K2's numbers for the
+    kernels line, summed over the step's launches."""
     from df3d_torch.ops import msda_kernel as K2
 
     captured, launch = [], K2.msda_bwd_cuda
+    fwd_captured, fwd_launch = [], K2.msda_cuda
+
+    def recording_forward(value, shapes, locs, attn):
+        fwd_captured.append((value.clone(), tuple(shapes), locs.clone(),
+                             attn.clone(), K2.warp_path(value, shapes, locs)))
+        return fwd_launch(value, shapes, locs, attn)
 
     def recording(value, shapes, locs, attn, grad):
         captured.append((value.clone(), tuple(shapes), locs.clone(),
@@ -1598,60 +1835,99 @@ def phase_fused_train_k2(state, step, batch):
                          K2.warp_path(value, shapes, locs)))
         return launch(value, shapes, locs, attn, grad)
 
-    K2.msda_bwd_cuda = recording
+    K2.msda_cuda, K2.msda_bwd_cuda = recording_forward, recording
     try:
         logs, _ = step.grads(state, batch)
     finally:
-        K2.msda_bwd_cuda = launch
+        K2.msda_cuda, K2.msda_bwd_cuda = fwd_launch, launch
     torch.cuda.synchronize()
-    check(len(captured) == 1,
-          f"expected 1 K2 backward launch a fused step, saw {len(captured)}")
+    check(len(fwd_captured) == per_step,
+          f"expected {per_step} K2 forward launches a fused step, saw "
+          f"{len(fwd_captured)}")
+    check(len(captured) == per_step,
+          f"expected {per_step} K2 backward launches a fused step, saw "
+          f"{len(captured)}")
+    fwd = dict(fwd_ms=0.0, fwd_plain_ms=0.0, fwd_max_abs_err=0.0)
+    for i, (value, shapes, locs, attn, warp) in enumerate(fwd_captured):
+        label = f"K2 forward launch {i} of the full-width step"
+        check(warp, f"{label} missed the warp path")
+        _, _, err, tol = k2_check(label, fwd_launch, K2.msda_plain, value,
+                                  shapes, locs, attn)
+        ms = cuda_ms(lambda: fwd_launch(value, shapes, locs, attn), 10)
+        plain_ms = cuda_ms(lambda: K2.msda_plain(value, shapes, locs, attn),
+                           2)
+        fwd["fwd_ms"] += ms
+        fwd["fwd_plain_ms"] += plain_ms
+        fwd["fwd_max_abs_err"] = max(fwd["fwd_max_abs_err"], err)
+        log(f"{label}: value {tuple(value.shape)}, locations "
+            f"{tuple(locs.shape)}, levels {list(shapes)}; kernel {ms:.4f} "
+            f"ms, plain {plain_ms:.4f} ms; max abs err {err:.3g} "
+            f"(tolerance {tol:.3g})")
+    del fwd_captured
     k2_bwd_edge_cases(launch, K2.msda_bwd_plain, K2.warp_path)
-    value, shapes, locs, attn, grad, warp = captured[0]
-    check(warp, "the K2 backward launch of the step missed the warp path")
-    label = "K2 backward launch of the full-width step"
-    max_err, worst = k2_bwd_check(label, launch, K2.msda_bwd_plain, value,
+    rows, max_err = [], 0.0
+    for i, (value, shapes, locs, attn, grad, warp) in enumerate(captured):
+        label = f"K2 backward launch {i} of the full-width step"
+        check(warp, f"{label} missed the warp path")
+        err, worst = k2_bwd_check(label, launch, K2.msda_bwd_plain, value,
                                   shapes, locs, attn, grad)
-    ms = cuda_ms(lambda: launch(value, shapes, locs, attn, grad), 10)
-    dev_ms = device_ms(lambda: launch(value, shapes, locs, attn, grad), 10)
-    plain_ms = cuda_ms(lambda: K2.msda_bwd_plain(value, shapes, locs, attn,
-                                                 grad), 2)
-    b, len_v, nh, d = value.shape
-    q, nl, npnt = locs.shape[1], locs.shape[3], locs.shape[4]
-    live = grad.abs().amax(-1) > 0                       # (B, Q)
-    live_locs = torch.where(live[:, :, None, None, None, None], locs,
-                            torch.full_like(locs, -1e6))
-    corners, touched = k2_touched_rows(value, shapes, live_locs)
-    samples = b * q * nh * nl * npnt
-    flops = float(K2_BWD_FLOP_PER_SAMPLE * samples + 4 * d * corners)
-    n_live = int(live.sum())
-    nbytes = 4.0 * (grad.numel() + value.numel() + locs.numel()
-                    + attn.numel() + (locs[live].numel() + attn[live].numel())
-                    + touched * d)
-    t_ops, t_bytes = flops / FP32_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
-    bound_ms = 1e3 * max(t_ops, t_bytes)
-    bound_by = "operations" if t_ops >= t_bytes else "bytes"
-    log(f"{label}: value {tuple(value.shape)}, locations "
-        f"{tuple(locs.shape)}, levels {list(shapes)}; queries with g != 0 "
-        f"{n_live} of {b * q}; their in-bounds corners {corners}, "
-        f"touched rows {touched} of {b * len_v * nh}; {nbytes / 1e6:.1f} MB, "
-        f"{flops / 1e9:.3f} GFLOP; kernel {ms:.4f} ms, device {dev_ms:.4f} "
-        f"ms, plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}); "
-        f"max abs err {max_err:.3g} (worst err / tolerance {worst:.3g}); "
-        f"step loss {logs['loss'].item():.4f}")
-    return dict(bwd_replaces="df3d/ops/pallas/msda_kernel.py:132",
-                bwd_ms=ms, bwd_device_ms=dev_ms, bwd_plain_ms=plain_ms,
-                bwd_bound_ms=bound_ms, bwd_bound_by=bound_by,
+        max_err = max(max_err, err)
+        ms = cuda_ms(lambda: launch(value, shapes, locs, attn, grad), 10)
+        dev_ms = device_ms(lambda: launch(value, shapes, locs, attn, grad),
+                           10)
+        plain_ms = cuda_ms(lambda: K2.msda_bwd_plain(value, shapes, locs,
+                                                     attn, grad), 2)
+        b, len_v, nh, d = value.shape
+        q, nl, npnt = locs.shape[1], locs.shape[3], locs.shape[4]
+        live = grad.abs().amax(-1) > 0                       # (B, Q)
+        live_locs = torch.where(live[:, :, None, None, None, None], locs,
+                                torch.full_like(locs, -1e6))
+        corners, touched = k2_touched_rows(value, shapes, live_locs)
+        samples = b * q * nh * nl * npnt
+        flops = float(K2_BWD_FLOP_PER_SAMPLE * samples + 4 * d * corners)
+        n_live = int(live.sum())
+        nbytes = 4.0 * (grad.numel() + value.numel() + locs.numel()
+                        + attn.numel()
+                        + (locs[live].numel() + attn[live].numel())
+                        + touched * d)
+        t_ops, t_bytes = flops / FP32_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
+        bound_ms = 1e3 * max(t_ops, t_bytes)
+        bound_by = "operations" if t_ops >= t_bytes else "bytes"
+        rows.append(dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                         bound_ms=bound_ms, t_ops=t_ops, t_bytes=t_bytes))
+        log(f"{label}: value {tuple(value.shape)}, locations "
+            f"{tuple(locs.shape)}, levels {list(shapes)}; queries with g != "
+            f"0 {n_live} of {b * q}; their in-bounds corners {corners}, "
+            f"touched rows {touched} of {b * len_v * nh}; "
+            f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP; kernel "
+            f"{ms:.4f} ms, device {dev_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"bound {bound_ms:.5f} ms ({bound_by}); max abs err {err:.3g} "
+            f"(worst err / tolerance {worst:.3g})")
+    total = {key: sum(r[key] for r in rows) for key in rows[0]}
+    log(f"K2 forward per step: {per_step} launches, kernel "
+        f"{fwd['fwd_ms']:.4f} ms, plain {fwd['fwd_plain_ms']:.4f} ms")
+    log(f"K2 backward per step: {len(rows)} launches, kernel "
+        f"{total['ms']:.4f} ms (device {total['device_ms']:.4f} ms), plain "
+        f"{total['plain_ms']:.4f} ms, bound {total['bound_ms']:.5f} ms; step "
+        f"loss {logs['loss'].item():.4f}")
+    return dict(**fwd, bwd_replaces="df3d/ops/pallas/msda_kernel.py:132",
+                bwd_ms=total["ms"], bwd_device_ms=total["device_ms"],
+                bwd_plain_ms=total["plain_ms"], bwd_bound_ms=total["bound_ms"],
+                bwd_bound_by=("operations" if total["t_ops"] >= total["t_bytes"]
+                              else "bytes"),
                 bwd_library_ms=None, bwd_max_abs_err=max_err)
 
 
-def phase_fused_train_path(state, step, batch, fcfg):
-    """`entry.build_centerpoint3ddf_trainer`'s step at full width, batch 4,
-    on that fixed batch: warm-up steps, then timed steps with every
-    kernel's counts set to 0 just before and read just after (K1 16
-    forward and 15 backward launches a step, K2 1 forward and 1 backward);
-    every loss finite and falling below the first step's within 5 steps;
-    no row dropped by a cap (the down2/3/4 overflows 0: the logged
+def phase_fused_train_path(state, step, batch, fcfg, k2_per_step=1,
+                           label="fused train path"):
+    """A fused trainer's step (`entry.build_centerpoint3ddf_trainer` or
+    `build_transfusion3ddf_trainer`) at full width, batch 4, on that fixed
+    batch: warm-up steps, then timed steps with every kernel's counts set
+    to 0 just before and read just after (K1 16 forward and 15 backward
+    launches a step, K2 `k2_per_step` forward and backward, one per ACTR
+    layer); every loss finite and falling below the first step's within 5
+    steps; a TransFusion step's queries matched to at least one box; no
+    row dropped by a cap (the down2/3/4 overflows 0: the logged
     `cap_overflow` also counts the dense tail's rows summed over the batch
     against the per-sample cap, as the JAX package does); the frozen image
     branch unchanged. Prints ms/step, the host-clock split of one step,
@@ -1663,7 +1939,9 @@ def phase_fused_train_path(state, step, batch, fcfg):
     losses, overflows = [], []
     branch = {k: v.clone()
               for k, v in state.model.image_branch.state_dict().items()}
-    handle = state.model.detector.backbone.register_forward_hook(
+    detector = state.model.detector
+    backbone = getattr(detector, "backbone", None) or detector.middle_encoder
+    handle = backbone.register_forward_hook(
         lambda mod, inp, out: overflows.append(
             {k: v.detach().cpu() for k, v in out[2].items()}))
 
@@ -1674,8 +1952,9 @@ def phase_fused_train_path(state, step, batch, fcfg):
         dropped = {k: int(v.sum()) for k, v in overflows[-1].items()
                    if k != "cap_overflow_dense_tail"}
         check(not any(dropped.values()),
-              f"fused train step {len(losses)}: a cap dropped rows "
-              f"{dropped}")
+              f"{label} step {len(losses)}: a cap dropped rows {dropped}")
+        check(int(logs.get("tf_matched", 1)) >= 1,
+              f"{label} step {len(losses)}: no query matched a box")
         return logs
 
     for _ in range(TRAIN_WARMUP_STEPS):
@@ -1693,40 +1972,39 @@ def phase_fused_train_path(state, step, batch, fcfg):
                   k2_fwd=K2.launches, k2_bwd=K2.bwd_launches)
     peak = torch.cuda.max_memory_allocated()
     for name, want in (("k1_fwd", K1_PER_FRAME), ("k1_bwd", K1_BWD_PER_STEP),
-                       ("k2_fwd", 1), ("k2_bwd", 1)):
+                       ("k2_fwd", k2_per_step), ("k2_bwd", k2_per_step)):
         check(counts[name] == want * TRAIN_TIMED_STEPS,
-              f"fused train path: {name} launched {counts[name]} times in "
+              f"{label}: {name} launched {counts[name]} times in "
               f"{TRAIN_TIMED_STEPS} steps, expected {want} a step")
     with stages.recording() as split:
         one_step()
     profile_frame(one_step)
     handle.remove()
-    check(all(np.isfinite(losses)), f"fused train path: losses {losses}")
+    check(all(np.isfinite(losses)), f"{label}: losses {losses}")
     check(min(losses[1:5]) < losses[0],
-          f"fused train path: the loss did not fall below {losses[0]} in 5 "
-          "steps")
+          f"{label}: the loss did not fall below {losses[0]} in 5 steps")
     for k, v in state.model.image_branch.state_dict().items():
         check(torch.equal(v, branch[k]),
-              f"fused train path: the frozen image branch moved ({k})")
+              f"{label}: the frozen image branch moved ({k})")
     forward = sum(split.get(k, 0.0) for k in (
         "image_branch", "backbone_3d", "ifat", "lt", "msda_actr",
         "backbone_3d_tail", "neck", "head"))
     tail = overflows[-1]["cap_overflow_dense_tail"]
-    log(f"fused train path: batch {TRAIN_BATCH} x {fcfg.num_cams} cameras, "
+    log(f"{label}: batch {TRAIN_BATCH} x {fcfg.num_cams} cameras, "
         f"{TRAIN_TIMED_STEPS} timed steps after {TRAIN_WARMUP_STEPS}, ms/step "
         f"mean {np.mean(per_step):.3f} median {np.median(per_step):.3f} min "
         f"{np.min(per_step):.3f}; per step "
         f"{[round(x, 3) for x in per_step]}")
-    log(f"fused train path: launches per step K1 "
+    log(f"{label}: launches per step K1 "
         f"{counts['k1_fwd'] // TRAIN_TIMED_STEPS} forward, "
         f"{counts['k1_bwd'] // TRAIN_TIMED_STEPS} backward; K2 "
         f"{counts['k2_fwd'] // TRAIN_TIMED_STEPS} forward, "
         f"{counts['k2_bwd'] // TRAIN_TIMED_STEPS} backward; peak memory "
         f"{peak / 2**30:.3f} GiB")
-    log("fused train path step split (ms, host clock, synchronised): "
+    log(f"{label} step split (ms, host clock, synchronised): "
         + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
         + f"; forward (image_branch .. head) {forward:.3f}")
-    log(f"fused train path losses by step: {[round(x, 5) for x in losses]}; "
+    log(f"{label} losses by step: {[round(x, 5) for x in losses]}; "
         "last step: " + ", ".join(f"{k} {float(v):.4f}"
                                   for k, v in logs.items())
         + f"; no cap dropped a row (the dense tail's batch-summed count "
@@ -1829,6 +2107,25 @@ def main():
     _, fcfg, state, step, batch = full_fused_train_setup(dev)
     k2_train = phase_fused_train_k2(state, step, batch)
     fused_train = phase_fused_train_path(state, step, batch, fcfg)
+    del state, step, batch
+    torch.cuda.empty_cache()
+
+    phase_small_transfusion_train(dev)
+    _, state, step, batch = full_train_setup(dev, transfusion=True)
+    tk1_train = phase_train_k1(state, step, batch)
+    ttrain = phase_train_path(state, step, batch,
+                              label="TransFusion-L train path")
+    del state, step, batch
+    torch.cuda.empty_cache()
+
+    phase_small_transfusion_fused_train(dev)
+    _, fcfg, state, step, batch = full_fused_train_setup(dev,
+                                                         transfusion=True)
+    n_actr = fcfg.actr.num_layers
+    tk2_train = phase_fused_train_k2(state, step, batch, per_step=n_actr)
+    tfused_train = phase_fused_train_path(
+        state, step, batch, fcfg, k2_per_step=n_actr,
+        label="TransFusion + 3D-DF train path")
 
     # each path's timed run, counts set to 0 just before it and read just
     # after; "launches" sums the paths. The top-level numbers are the
@@ -1836,8 +2133,12 @@ def main():
     # and 12's, K1's "train" the CenterPoint training path's (phases 15
     # and 16: K1's forward and backward launches, its backward times and
     # dW's), K2's "train" the CenterPoint + 3D-DF training path's (phases
-    # 18 and 19: K2's forward and backward launches and its backward
-    # times); "fused_train" counts phase 19's launches of each kernel.
+    # 18 and 19: K2's forward and backward launches, its backward times
+    # and the step's forward launches' times and error), and "transfusion"'s "train" the same for the TransFusion
+    # training paths (K1: phase 21; K2: phase 23, two launches each way a
+    # step); "fused_train",
+    # "transfusion_train" and "transfusion_fused_train" count phases 19's,
+    # 21's and 23's launches of each kernel.
     paths = {"lidar": lidar, "fused": fused, "transfusion_lidar": tlidar,
              "transfusion_fused": tfused}
     for entry, kernel, extra in ((k1, K1, tk1), (k2, K2, tk2)):
@@ -1858,8 +2159,25 @@ def main():
                        bwd_launches=train["train_bwd"], **k1_train)
     k2["train"] = dict(fwd_launches=fused_train["k2_fwd"],
                        bwd_launches=fused_train["k2_bwd"], **k2_train)
-    k1["max_abs_err"] = max(k1["max_abs_err"], k1_train["bwd_max_abs_err"])
-    k2["max_abs_err"] = max(k2["max_abs_err"], k2_train["bwd_max_abs_err"])
+    k1["launches_by_path"]["transfusion_train"] = (ttrain["train_fwd"]
+                                                   + ttrain["train_bwd"])
+    k2["launches_by_path"]["transfusion_train"] = 0
+    k1["launches_by_path"]["transfusion_fused_train"] = (
+        tfused_train["k1_fwd"] + tfused_train["k1_bwd"])
+    k2["launches_by_path"]["transfusion_fused_train"] = (
+        tfused_train["k2_fwd"] + tfused_train["k2_bwd"])
+    k1["transfusion"]["train"] = dict(fwd_launches=ttrain["train_fwd"],
+                                      bwd_launches=ttrain["train_bwd"],
+                                      **tk1_train)
+    k2["transfusion"]["train"] = dict(fwd_launches=tfused_train["k2_fwd"],
+                                      bwd_launches=tfused_train["k2_bwd"],
+                                      **tk2_train)
+    k1["max_abs_err"] = max(k1["max_abs_err"], k1_train["bwd_max_abs_err"],
+                            tk1_train["bwd_max_abs_err"])
+    k2["max_abs_err"] = max(k2["max_abs_err"], k2_train["bwd_max_abs_err"],
+                            tk2_train["bwd_max_abs_err"],
+                            k2_train["fwd_max_abs_err"],
+                            tk2_train["fwd_max_abs_err"])
     for entry in (k1, k2):
         entry["launches"] = sum(entry["launches_by_path"].values())
 

@@ -5,8 +5,8 @@ encode() takes bottom-centre 9-dof boxes (x, y, z, dx, dy, dz, heading,
 vx, vy) and gives the 10-wide code (x, y in BEV feature pixels,
 gravity-centre z, log dims, sin, cos, vx, vy) that TransFusion's head
 predicts; decode() inverts it to bottom-centre boxes. Both take leading
-batch dims. decode is on the serving path; encode waits for the training
-slice.
+batch dims. decode is on the serving path, encode makes the training
+targets.
 """
 
 from __future__ import annotations

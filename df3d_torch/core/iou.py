@@ -1,4 +1,5 @@
-"""Rotated BEV IoU (port of df3d/core/iou.py: `iou_bev`, `iou_bev_chunked`).
+"""Rotated BEV and 3D IoU (port of df3d/core/iou.py: `iou_bev`,
+`iou_bev_chunked`, `iou_3d`).
 
 The intersection area of two rotated rectangles is the branch-free
 Green's-theorem clipping of the JAX package: the boundary of A∩B is made of
@@ -89,3 +90,22 @@ def iou_bev_chunked(boxes_a: torch.Tensor, boxes_b: torch.Tensor,
     assert n % chunk == 0, f"pad N={n} to a multiple of {chunk}"
     return torch.cat([iou_bev(boxes_a[..., i:i + chunk, :], boxes_b)
                       for i in range(0, n, chunk)], dim=-2)
+
+
+def iou_3d(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -> torch.Tensor:
+    """Pairwise 3D IoU of gravity-centre boxes: the rotated BEV
+    intersection times the z overlap, over the union of the volumes
+    (floored at 1e-8). (..., N, 7), (..., M, 7) -> (..., N, M)."""
+    inter_bev = overlap_bev(boxes_a, boxes_b)
+    za1 = boxes_a[..., 2] - 0.5 * boxes_a[..., 5]
+    za2 = boxes_a[..., 2] + 0.5 * boxes_a[..., 5]
+    zb1 = boxes_b[..., 2] - 0.5 * boxes_b[..., 5]
+    zb2 = boxes_b[..., 2] + 0.5 * boxes_b[..., 5]
+    overlap_h = (torch.minimum(za2[..., :, None], zb2[..., None, :])
+                 - torch.maximum(za1[..., :, None], zb1[..., None, :])
+                 ).clamp_min(0.0)
+    inter = inter_bev * overlap_h
+    vol_a = boxes_a[..., 3] * boxes_a[..., 4] * boxes_a[..., 5]
+    vol_b = boxes_b[..., 3] * boxes_b[..., 4] * boxes_b[..., 5]
+    union = vol_a[..., :, None] + vol_b[..., None, :] - inter
+    return inter / torch.clamp_min(union, _EPS)

@@ -22,6 +22,10 @@
 * `build_centerpoint3ddf_trainer(cfg, fcfg, device, seed)`: the same for
   CenterPoint + 3D-DF (`train.trainer.FusedTrainStep`; the batch carries
   images and proj too), with the image branch frozen.
+* `build_transfusion_trainer(cfg, device, seed)` and
+  `build_transfusion3ddf_trainer(cfg, fcfg, device, seed)`: the same for
+  TransFusion-L (`train.trainer.TransFusionTrainStep`) and TransFusion +
+  3D-DF (`FusedTrainStep` with the TransFusion loss).
 * `centerpoint_3ddf_nusc()`, `transfusion_l_nusc()` and
   `transfusion_3ddf_nusc()` are the port's copies of the JAX package's
   presets of those names; `fused_config(preset)` the `FusedConfig` the JAX
@@ -49,8 +53,9 @@ from df3d_torch.models.fusion.actr import ACTRConfig
 from df3d_torch.ops.voxelize import voxelize_batch
 from df3d_torch.train.schedules import adam_onecycle
 from df3d_torch.train.trainer import (
-    CenterPointTrainStep, FusedTrainStep, TrainState, create_train_state,
-    make_centerpoint_train_step, make_fused_train_step,
+    CenterPointTrainStep, FusedTrainStep, TrainState, TransFusionTrainStep,
+    create_train_state, make_centerpoint_train_step, make_fused_train_step,
+    make_transfusion_train_step,
 )
 from df3d_torch.utils import stages
 
@@ -97,6 +102,35 @@ def build_centerpoint3ddf_trainer(cfg: CenterPointConfig, fcfg: FusedConfig,
     `create_train_state(model, adam_onecycle(...))`."""
     device = resolve_device(device)
     model = CenterPoint3DDF(cfg, fcfg).init_weights(
+        torch.Generator().manual_seed(seed))
+    state = create_train_state(model.to(device).train(),
+                               adam_onecycle(1e-3, 2000))
+    return state, make_fused_train_step(cfg)
+
+
+def build_transfusion_trainer(cfg: TransFusionConfig, device=None,
+                              seed: int = 0
+                              ) -> tuple[TrainState, TransFusionTrainStep]:
+    """(state, step) for training TransFusion-L on `device` from random
+    weights drawn from `seed` (as `build_transfusion` draws them), with
+    `build_centerpoint_trainer`'s AdamW and OneCycle."""
+    device = resolve_device(device)
+    model = TransFusionL(cfg).init_weights(
+        torch.Generator().manual_seed(seed))
+    state = create_train_state(model.to(device).train(),
+                               adam_onecycle(1e-3, 2000))
+    return state, make_transfusion_train_step(cfg)
+
+
+def build_transfusion3ddf_trainer(cfg: TransFusionConfig, fcfg: FusedConfig,
+                                  device=None, seed: int = 0
+                                  ) -> tuple[TrainState, FusedTrainStep]:
+    """(state, step) for training TransFusion + 3D-DF on `device` from
+    random weights drawn from `seed` (as `build_transfusion3ddf` draws
+    them), with `build_centerpoint_trainer`'s AdamW and OneCycle; the
+    state's parameters leave out the frozen image branch."""
+    device = resolve_device(device)
+    model = TransFusion3DDF(cfg, fcfg).init_weights(
         torch.Generator().manual_seed(seed))
     state = create_train_state(model.to(device).train(),
                                adam_onecycle(1e-3, 2000))

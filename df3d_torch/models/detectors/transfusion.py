@@ -2,11 +2,11 @@
 df3d/models/detectors/transfusion.py).
 
 voxel features + coords -> `SparseEncoder` (hybrid dense tail) ->
-`BEVBackbone` (SECOND + FPN) -> `TransFusionHead`, and
-`transfusion_predict` for the decode. The mean VFE is fused into the
-voxelizer. Inference only; the Hungarian assignment and the losses wait for
-the training slice. With a `fusion_hook` it is the LiDAR part of
-TransFusion + 3D-DF (`detectors.fused.TransFusion3DDF`).
+`BEVBackbone` (SECOND + FPN) -> `TransFusionHead`, `transfusion_predict`
+for the decode and `transfusion_loss` for training (the Hungarian
+assignment and the losses). The mean VFE is fused into the voxelizer. With
+a `fusion_hook` it is the LiDAR part of TransFusion + 3D-DF
+(`detectors.fused.TransFusion3DDF`).
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ from df3d_torch.models.backbones_3d import SparseEncoder, SpMiddleResNetFHD
 from df3d_torch.models.detectors.centerpoint import init_detector_weights
 from df3d_torch.models.heads.transfusion_head import (
     HEATMAP_PRIOR, TransFusionHead, TransFusionHeadCfg,
-    transfusion_get_bboxes,
+    transfusion_get_bboxes, transfusion_targets_and_loss,
 )
 from df3d_torch.models.layers import flax_trunc_normal_
 from df3d_torch.models.necks import BEVBackbone
@@ -46,9 +46,10 @@ class TransFusionConfig:
 
 
 class TransFusionL(nn.Module):
-    """Build, call `init_weights` (or load a state dict), then `.eval()`.
-    Its encoder runs the JAX package's default hybrid tail
-    (`dense_tail=True`), the only one ported."""
+    """Build, call `init_weights` (or load a state dict); `.eval()` serves
+    on the running statistics, `.train()` trains on the batch statistics
+    and moves the running ones. Its encoder runs the JAX package's default
+    hybrid tail (`dense_tail=True`), the only one ported."""
 
     def __init__(self, cfg: TransFusionConfig,
                  fusion_hook: nn.Module | None = None):
@@ -71,7 +72,9 @@ class TransFusionL(nn.Module):
         the fusion hook's inputs.
 
         Returns (preds, ms, overflow): the head's dict, the per-stage
-        encoder tensors, and the strided stages' cap overflows."""
+        encoder tensors, and the strided stages' cap overflows (the values
+        the JAX package sows; `cap_overflow_total` sums them as the
+        training step logs them)."""
         st = SparseTensor(voxel_features, voxel_coords, self.cfg.sparse_shape)
         v = voxel_features.shape[1]
         caps = tuple(min(c, v) for c in self.cfg.stage_caps)
@@ -102,3 +105,11 @@ class TransFusionL(nn.Module):
 
 def transfusion_predict(cfg: TransFusionConfig, preds):
     return transfusion_get_bboxes(cfg.head, preds)
+
+
+def transfusion_loss(cfg: TransFusionConfig, preds, gt_boxes, gt_classes,
+                     gt_valid):
+    """gt_boxes (B, M, 9), gt_classes (B, M), gt_valid (B, M) -> (total
+    loss, logs)."""
+    return transfusion_targets_and_loss(cfg.head, preds, gt_boxes,
+                                        gt_classes, gt_valid)

@@ -24,7 +24,34 @@ from df3d_torch.ops.dense3d import DenseTensor, dense_conv
 from df3d_torch.ops.sparse import SparseTensor, apply_sparse_conv, _triple
 
 
-class MaskedBatchNorm(nn.Module):
+# flax's default momentum of the running statistics (torch's 0.01); a norm
+# built with another one (TransFusion's head: 0.9) keeps its own
+MOMENTUM = 0.99
+
+
+@torch.no_grad()
+def _update_running(bn: nn.Module, mean: torch.Tensor,
+                    var: torch.Tensor) -> None:
+    """flax's update of the running statistics, in place: old * momentum +
+    batch * (1 - momentum), at the norm's own `momentum`."""
+    m = bn.momentum
+    bn.running_mean.copy_(m * bn.running_mean + (1 - m) * mean)
+    bn.running_var.copy_(m * bn.running_var + (1 - m) * var)
+
+
+class _FlaxNorm(nn.Module):
+    """The parameters and running statistics of a flax `nn.BatchNorm`."""
+
+    def __init__(self, channels: int, eps: float, momentum: float):
+        super().__init__()
+        self.eps, self.momentum = eps, momentum
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("running_mean", torch.zeros(channels))
+        self.register_buffer("running_var", torch.ones(channels))
+
+
+class MaskedBatchNorm(_FlaxNorm):
     """BatchNorm over the valid rows of padded (..., C) features; rows
     outside the mask come out zero. In training the statistics are the mean
     and the biased variance over the valid rows, pooled over batch and rows,
@@ -32,12 +59,7 @@ class MaskedBatchNorm(nn.Module):
     (1 - MOMENTUM)."""
 
     def __init__(self, channels: int, eps: float = 1e-3):
-        super().__init__()
-        self.eps = eps
-        self.weight = nn.Parameter(torch.ones(channels))
-        self.bias = nn.Parameter(torch.zeros(channels))
-        self.register_buffer("running_mean", torch.zeros(channels))
-        self.register_buffer("running_var", torch.ones(channels))
+        super().__init__(channels, eps, MOMENTUM)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         if self.training:
@@ -54,46 +76,46 @@ class MaskedBatchNorm(nn.Module):
         return torch.where(mask[..., None], y, torch.zeros_like(y))
 
 
-# flax's momentum of the running statistics (torch's 0.01) on every norm of
-# the CenterPoint path
-MOMENTUM = 0.99
+class FlaxBatchNorm(_FlaxNorm):
+    """flax's `nn.BatchNorm` over the last axis of (..., C). In training it
+    normalises with the batch mean and the biased variance max(0, E[x^2] -
+    E[x]^2) (flax's fast variance) over every other axis and moves the
+    running statistics by old * momentum + batch * (1 - momentum); torch's
+    BatchNorms would put the unbiased variance there, with a reversed
+    momentum. In eval it is `F.batch_norm` on the running statistics."""
 
+    channel_axis = -1
 
-@torch.no_grad()
-def _update_running(bn: nn.Module, mean: torch.Tensor,
-                    var: torch.Tensor) -> None:
-    """flax's update of the running statistics, in place."""
-    bn.running_mean.copy_(MOMENTUM * bn.running_mean + (1 - MOMENTUM) * mean)
-    bn.running_var.copy_(MOMENTUM * bn.running_var + (1 - MOMENTUM) * var)
-
-
-class FlaxBatchNorm2d(nn.Module):
-    """flax's `nn.BatchNorm` over NCHW maps. In training it normalises
-    with the batch mean and the biased variance max(0, E[x^2] - E[x]^2)
-    (flax's fast variance) and moves the running statistics by
-    old * MOMENTUM + batch * (1 - MOMENTUM); `nn.BatchNorm2d` would put the
-    unbiased variance there, with torch's reversed momentum. In eval it is
-    `F.batch_norm` on the running statistics."""
-
-    def __init__(self, channels: int, eps: float):
-        super().__init__()
-        self.eps = eps
-        self.weight = nn.Parameter(torch.ones(channels))
-        self.bias = nn.Parameter(torch.zeros(channels))
-        self.register_buffer("running_mean", torch.zeros(channels))
-        self.register_buffer("running_var", torch.ones(channels))
+    def __init__(self, channels: int, eps: float,
+                 momentum: float = MOMENTUM):
+        super().__init__(channels, eps, momentum)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        axis = self.channel_axis % x.dim()
         if not self.training:
-            return F.batch_norm(x, self.running_mean, self.running_var,
-                                self.weight, self.bias, False, 0.0, self.eps)
-        red = (0, 2, 3)
+            if axis == 1:
+                return F.batch_norm(x, self.running_mean, self.running_var,
+                                    self.weight, self.bias, False, 0.0,
+                                    self.eps)
+            return F.batch_norm(
+                x.reshape(-1, x.shape[-1]), self.running_mean,
+                self.running_var, self.weight, self.bias, False, 0.0,
+                self.eps).reshape(x.shape)
+        red = tuple(d for d in range(x.dim()) if d != axis)
         mean = x.mean(red)
         var = (x.square().mean(red) - mean.square()).clamp_min(0.0)
         _update_running(self, mean, var)
+        shape = [1] * x.dim()
+        shape[axis] = -1
         inv = torch.rsqrt(var + self.eps) * self.weight
-        return ((x - mean[:, None, None]) * inv[:, None, None]
-                + self.bias[:, None, None])
+        return ((x - mean.view(shape)) * inv.view(shape)
+                + self.bias.view(shape))
+
+
+class FlaxBatchNorm2d(FlaxBatchNorm):
+    """`FlaxBatchNorm` over the channels of NCHW maps."""
+
+    channel_axis = 1
 
 
 class SubMConv3d(nn.Module):

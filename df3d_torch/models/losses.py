@@ -1,6 +1,8 @@
 """Detection losses (port of df3d/models/losses.py): the CenterPoint head's
 (det3d centernet_loss.py: CornerNet focal loss with gaussian-weighted
-negatives, masked L1 at the peak indices)."""
+negatives, masked L1 at the peak indices) and TransFusion's (mmdet's
+sigmoid focal loss on the queries' classes, Gaussian focal loss on the
+dense heatmap; its L1 on the encoded boxes is written in the head's loss)."""
 
 from __future__ import annotations
 
@@ -36,3 +38,33 @@ def reg_l1_loss(pred_map: torch.Tensor, ind: torch.Tensor, mask: torch.Tensor,
     m = mask.to(pred.dtype)[..., None]
     loss = (pred * m - target * m).abs() / (m.sum() + 1e-4)
     return loss.sum((0, 1))
+
+
+def sigmoid_focal_loss(logits: torch.Tensor, targets: torch.Tensor,
+                       weights: torch.Tensor, alpha: float = 0.25,
+                       gamma: float = 2.0) -> torch.Tensor:
+    """Per-element focal loss times `weights` (pcdet
+    SigmoidFocalClassificationLoss): one-hot {0, 1} targets; weights of one
+    dim fewer than the loss broadcast over the class dim."""
+    p = torch.sigmoid(logits)
+    alpha_w = targets * alpha + (1 - targets) * (1 - alpha)
+    pt = targets * (1 - p) + (1 - targets) * p
+    bce = (logits.clamp_min(0) - logits * targets
+           + torch.log1p(torch.exp(-logits.abs())))
+    loss = alpha_w * pt ** gamma * bce
+    if weights.dim() == loss.dim() - 1:
+        weights = weights[..., None]
+    return loss * weights
+
+
+def gaussian_focal_loss(pred: torch.Tensor, target: torch.Tensor,
+                        alpha: float = 2.0, gamma: float = 4.0
+                        ) -> torch.Tensor:
+    """mmdet's GaussianFocalLoss per element: positives where target == 1,
+    negatives weighted by (1 - target)^gamma."""
+    eps = 1e-12
+    pos_w = (target == 1).to(pred.dtype)
+    neg_w = (1 - target) ** gamma
+    pos = -torch.log(pred + eps) * (1 - pred) ** alpha * pos_w
+    neg = -torch.log(1 - pred + eps) * pred ** alpha * neg_w * (1 - pos_w)
+    return pos + neg

@@ -1,15 +1,18 @@
-"""The CenterPoint and CenterPoint + 3D-DF training steps (port of
-df3d/train/trainer.py:23-75 and of `make_fused_train_step` at :277, aux
-off).
+"""The training steps of CenterPoint, TransFusion-L and their 3D-DF fused
+detectors (port of df3d/train/trainer.py:23-75,
+`make_transfusion_train_step` at :171 and `make_fused_train_step` at
+:277, aux off).
 
 One step: voxelize -> (fused: the frozen image branch) -> forward in
-training mode (batch statistics, the running ones moved) ->
-`centerpoint_loss` -> gradients by autograd (the sparse convs' input
-gradients are K1 launches on the card, the deformable attention's
-gradients a K2 backward launch) -> clip + AdamW with OneCycle. The JAX
-package's step is a pure function of its state; here the model holds the
-parameters and batch statistics, and the step updates them and the
-optimizer moments in place, which keeps one copy of each on the card.
+training mode (batch statistics, the running ones moved) -> the host
+family's loss (`centerpoint_loss`, or `transfusion_loss` with its
+Hungarian assignment on the host) -> gradients by autograd (the sparse
+convs' input gradients are K1 launches on the card, the deformable
+attention's gradients a K2 backward launch) -> clip + AdamW with
+OneCycle. The JAX package's step is a pure function of its state; here
+the model holds the parameters and batch statistics, and the step updates
+them and the optimizer moments in place, which keeps one copy of each on
+the card.
 
 The state's parameters are the trainable ones: a frozen image branch is
 left out of the optimizer. optax's `adamw` in the JAX package decays every
@@ -26,8 +29,12 @@ import torch
 from df3d_torch.models.detectors.centerpoint import (
     CenterPoint, CenterPointConfig, cap_overflow_total, centerpoint_loss,
 )
-from df3d_torch.models.detectors.fused import CenterPoint3DDF
-from df3d_torch.models.detectors.transfusion import TransFusionConfig
+from df3d_torch.models.detectors.fused import (
+    CenterPoint3DDF, TransFusion3DDF,
+)
+from df3d_torch.models.detectors.transfusion import (
+    TransFusionConfig, TransFusionL, transfusion_loss,
+)
 from df3d_torch.models.fusion.actr import ACTR
 from df3d_torch.ops.voxelize import voxelize_batch
 from df3d_torch.train.schedules import AdamOneCycle, AdamState
@@ -40,7 +47,7 @@ class TrainState:
     parameters and batch statistics), the optimizer and its moments, and the
     number of steps taken."""
 
-    model: CenterPoint | CenterPoint3DDF
+    model: CenterPoint | CenterPoint3DDF | TransFusionL | TransFusion3DDF
     tx: AdamOneCycle
     opt_state: AdamState
     step: int = 0
@@ -56,12 +63,11 @@ class TrainState:
                 if p.requires_grad]
 
 
-def create_train_state(model: CenterPoint | CenterPoint3DDF,
-                       tx: AdamOneCycle) -> TrainState:
+def create_train_state(model, tx: AdamOneCycle) -> TrainState:
     """A state for `model` as it stands (random or carried weights), with
     the optimizer moments at zero, as `TrainState.create` leaves them, for
-    its trainable parameters (CenterPoint + 3D-DF's without the frozen
-    image branch)."""
+    its trainable parameters (a fused detector's without the frozen image
+    branch)."""
     state = TrainState(model, tx, AdamState([], []))
     state.opt_state = tx.init(state.params)
     return state
@@ -75,6 +81,8 @@ class CenterPointTrainStep:
     `task{t}_hm_loss` and `task{t}_loc_loss`, `loss` and `cap_overflow`, as
     0-d tensors on the model's device. `grads` and `apply` are the step's two
     halves."""
+
+    loss = staticmethod(centerpoint_loss)
 
     def __init__(self, cfg: CenterPointConfig):
         self.cfg = cfg
@@ -91,8 +99,8 @@ class CenterPointTrainStep:
         stages.mark("voxelize")
         preds, _, overflow = model(res.features, res.coords,
                                    *self.model_inputs(batch))
-        total, logs = centerpoint_loss(cfg, preds, batch["gt_boxes"],
-                                       batch["gt_classes"], batch["gt_valid"])
+        total, logs = self.loss(cfg, preds, batch["gt_boxes"],
+                                batch["gt_classes"], batch["gt_valid"])
         logs["cap_overflow"] = cap_overflow_total(overflow)
         stages.mark("loss")
         unreached = self.unreached(model)
@@ -134,19 +142,33 @@ def make_centerpoint_train_step(cfg: CenterPointConfig) -> CenterPointTrainStep:
     return CenterPointTrainStep(cfg)
 
 
-class FusedTrainStep(CenterPointTrainStep):
-    """The CenterPoint + 3D-DF step, `step(state, batch) -> (state, logs)`
-    as `CenterPointTrainStep`, with images (B, n_cam, H, W, 3) normalized
-    and proj (B, n_cam, 3, 4) lidar -> image in the batch; logs as
-    CenterPoint's, `cap_overflow` counting the fusion's dense tail too."""
+class TransFusionTrainStep(CenterPointTrainStep):
+    """The TransFusion-L step, `step(state, batch) -> (state, logs)` as
+    `CenterPointTrainStep` with `transfusion_loss`; logs `tf_cls_loss`,
+    `tf_bbox_loss`, `tf_hm_loss`, `tf_matched`, `loss` and
+    `cap_overflow`."""
 
-    def __init__(self, cfg: CenterPointConfig):
-        if isinstance(cfg, TransFusionConfig):
-            raise NotImplementedError(
-                "the TransFusion + 3D-DF training step is not ported yet "
-                "(ROADMAP section 1 item 2: Hungarian assignment, iou_3d, "
-                "the code_size encode)")
-        if not isinstance(cfg, CenterPointConfig):
+    loss = staticmethod(transfusion_loss)
+
+
+def make_transfusion_train_step(cfg: TransFusionConfig
+                                ) -> TransFusionTrainStep:
+    return TransFusionTrainStep(cfg)
+
+
+class FusedTrainStep(CenterPointTrainStep):
+    """The 3D-DF step of a CenterPoint or TransFusion-L host,
+    `step(state, batch) -> (state, logs)` as its host's step, with images
+    (B, n_cam, H, W, 3) normalized and proj (B, n_cam, 3, 4) lidar -> image
+    in the batch; the loss and logs are the host family's, `cap_overflow`
+    counting the fusion's dense tail too."""
+
+    def __init__(self, cfg: CenterPointConfig | TransFusionConfig):
+        if isinstance(cfg, CenterPointConfig):
+            self.loss = centerpoint_loss
+        elif isinstance(cfg, TransFusionConfig):
+            self.loss = transfusion_loss
+        else:
             raise ValueError(f"unsupported fused host config {type(cfg)}")
         super().__init__(cfg)
 
@@ -160,5 +182,6 @@ class FusedTrainStep(CenterPointTrainStep):
                 for p in m.unreached_parameters()}
 
 
-def make_fused_train_step(cfg: CenterPointConfig) -> FusedTrainStep:
+def make_fused_train_step(cfg: CenterPointConfig | TransFusionConfig
+                          ) -> FusedTrainStep:
     return FusedTrainStep(cfg)

@@ -41,10 +41,10 @@ from df3d_torch.models.fusion.actr import (
 from df3d_torch.models.fusion.pointformer import PreNormEncoderLayer
 from df3d_torch.models.heads.center_head import CenterHead, SepHeadBranch
 from df3d_torch.models.heads.transfusion_head import (
-    DecoderLayer, LastAxisBatchNorm, PositionEmbeddingLearned,
+    DecoderLayer, PositionEmbeddingLearned,
 )
 from df3d_torch.models.layers import (
-    ConvBNReLU2d, DeconvBNReLU2d, FlaxBatchNorm2d, MaskedBatchNorm,
+    ConvBNReLU2d, DeconvBNReLU2d, FlaxBatchNorm, MaskedBatchNorm,
     SparseBasicBlock, SparseConv3d, SparseConvBNReLU, SubMConv3d,
 )
 from df3d_torch.models.necks import BEVBackbone
@@ -100,8 +100,7 @@ def _leaf(module: nn.Module, collection: str, name: str,
     """(torch entry name, value in the torch layout) for one flax leaf."""
     if isinstance(module, (SubMConv3d, SparseConv3d)) and name == "kernel":
         return "weight", value
-    if isinstance(module, (MaskedBatchNorm, FlaxBatchNorm2d, nn.BatchNorm2d,
-                           LastAxisBatchNorm)):
+    if isinstance(module, (MaskedBatchNorm, FlaxBatchNorm, nn.BatchNorm2d)):
         table = {("params", "scale"): "weight", ("params", "bias"): "bias",
                  ("batch_stats", "mean"): "running_mean",
                  ("batch_stats", "var"): "running_var"}
@@ -196,10 +195,12 @@ def params_from_flax(model: nn.Module, tree) -> dict:
 
 def train_state_from_flax(model: nn.Module, params, batch_stats, tx):
     """A flax `TrainState`'s params and batch_stats carried into `model`
-    (CenterPoint, or CenterPoint + 3D-DF with its image branch's and IFAT's
-    batch statistics), and a port `TrainState` around it with the optimizer
-    moments at zero (as `TrainState.create` leaves them). A frozen image
-    branch's parameters are carried but are not in the state's `params`."""
+    (CenterPoint or TransFusion-L, or their 3D-DF detectors with the image
+    branch's and IFAT's batch statistics; TransFusion's head with those of
+    its heatmap branch, position embeddings and FFN branches), and a port
+    `TrainState` around it with the optimizer moments at zero (as
+    `TrainState.create` leaves them). A frozen image branch's parameters
+    are carried but are not in the state's `params`."""
     model.load_state_dict(state_dict_from_flax(
         model, {"params": params, "batch_stats": batch_stats}))
     return create_train_state(model, tx)

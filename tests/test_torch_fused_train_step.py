@@ -305,6 +305,9 @@ def test_frozen_image_branch(step_run):
                                    rtol=1e-6, atol=1e-9, err_msg=name)
 
 
-def test_transfusion_host_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_fused_train_step(TransFusionConfig())
+def test_unsupported_host_config_raises():
+    """A host config of neither family is refused, as the JAX package's
+    `make_fused_train_step` refuses it; both families are taken."""
+    with pytest.raises(ValueError, match="unsupported fused host config"):
+        make_fused_train_step(FusedConfig())
+    assert make_fused_train_step(TransFusionConfig()).cfg == TransFusionConfig()

@@ -223,3 +223,55 @@ def test_dense_tail_gradients():
                                           torch.from_numpy(g_bev)))
     for got, ref in zip(args, want):
         _close(got.grad.numpy(), ref)
+
+
+@pytest.mark.parametrize("pad", [1, (0, 1, 1)], ids=["p1", "p011"])
+def test_sparse_encoder_tail_gradients(pad):
+    """SparseEncoder's tail in training, as it runs at pad 1 (its first
+    two downsamples) and (0, 1, 1) (the last): a strided sparse conv (K1's
+    transposed plan in the backward) -> densify -> a dense subm conv ->
+    `conv_out`, the dense (3, 1, 1) / (2, 1, 1) conv -> the BEV map. The
+    gradients of the features and the three weights against jax.vjp, same
+    tolerance; on the CPU no K1 launch."""
+    from df3d.ops import dense3d as jdense
+    from df3d_torch.ops import dense3d as tdense
+
+    rng = np.random.RandomState(9)
+    shape = (11, 10, 10)
+    feats, coords = sparse_inputs(rng, batch=2, shape=shape, n=70, cin=8,
+                                  pad_to=80)
+    w_down = (rng.randn(27, 8, 12) * 0.2).astype(np.float32)
+    w_subm = (rng.randn(27, 12, 12) * 0.2).astype(np.float32)
+    w_out = (rng.randn(3, 12, 6) * 0.2).astype(np.float32)
+    out_z = (11 + 2 * (pad if pad == 1 else 0) - 3) // 2 + 1
+    g_bev = rng.randn(2, 5, 5, ((out_z - 3) // 2 + 1) * 6).astype(np.float32)
+
+    def run(mod, sparse_mod, f, c, a, b, o):
+        st = sparse_mod.SparseTensor(f, c, shape)
+        plan = sparse_mod.build_conv_plan(st, 3, 2, pad, max_out=160)
+        down = sparse_mod.SparseTensor(
+            sparse_mod.apply_sparse_conv(f, plan, a), plan.out_coords,
+            plan.out_spatial_shape)
+        dt = mod.dense_conv(mod.densify(down), b, 3, 1, 1, subm=True)
+        dt = mod.dense_conv(dt, o, (3, 1, 1), (2, 1, 1), 0, subm=False)
+        return mod.bev_from_dense(dt), plan
+
+    @jax.jit
+    def jax_run(f, c, a, b, o, g):
+        bev, vjp = jax.vjp(lambda *x: run(jdense, jsp, x[0], c, *x[1:])[0],
+                           f, a, b, o)
+        return (bev, *vjp(g))
+
+    jbev, *want = jax_run(*map(jnp.asarray, (feats, coords, w_down, w_subm,
+                                             w_out, g_bev)))
+    args = [torch.from_numpy(a).requires_grad_(True)
+            for a in (feats, w_down, w_subm, w_out)]
+    before = k1.launches, k1.bwd_launches
+    bev, plan = run(tdense, tsp, args[0], torch.from_numpy(coords), *args[1:])
+    assert not plan.symmetric and (plan.true_occ <= 160).all()
+    _close(bev.detach().numpy(), jbev)
+    bev.backward(torch.from_numpy(g_bev))
+    assert (k1.launches, k1.bwd_launches) == before
+    for got, ref in zip(args, want):
+        _close(got.grad.numpy(), ref)
+        assert np.abs(np.asarray(ref)).max() > 0

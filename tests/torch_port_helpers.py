@@ -5,6 +5,8 @@ packages: flax variables are filled leaf by leaf (no flax init run) and
 carried to the torch modules by `df3d_torch.weights.state_dict_from_flax`.
 """
 
+import contextlib
+
 import jax
 import numpy as np
 import torch
@@ -38,6 +40,68 @@ def seeded_variables(shapes, rng: np.random.RandomState, out_scale=None):
 
     tree = jax.tree_util.tree_map_with_path(fill, shapes)
     return jax.tree_util.tree_map(np.asarray, tree)
+
+
+@contextlib.contextmanager
+def recorded_jax_relus(store: list):
+    """While the JAX package's modules are traced inside the block, each
+    `nn.relu` call appends its input to `store`, in call order (return the
+    list from the jitted function to read it)."""
+    from flax import linen
+
+    relu = linen.relu
+
+    def recording(x):
+        store.append(x)
+        return relu(x)
+
+    linen.relu = recording
+    try:
+        yield store
+    finally:
+        linen.relu = relu
+
+
+@contextlib.contextmanager
+def replayed_relus(jax_inputs):
+    """Give the port's ReLUs (`torch.relu`, in call order) the decisions
+    (x > 0) of the JAX package's ReLUs, whose inputs `recorded_jax_relus`
+    gave (an NHWC map stands for the port's NCHW one, and the first of B
+    equal rows for the port's one row): where the two
+    disagree, the input takes JAX's sign at its own magnitude, and the
+    gradient passes through unchanged. Yields the replayed disagreements,
+    (call, elements, largest |x|) per call that had any; raises if a call
+    has no JAX counterpart of its shape."""
+    relu, flips = torch.relu, []
+    calls = iter(enumerate(jax_inputs))
+
+    def patched(x):
+        i, z_jax = next(calls, (None, None))
+        if z_jax is None:
+            raise AssertionError(f"ReLU of {tuple(x.shape)} has no JAX call")
+        z_jax = torch.from_numpy(np.array(z_jax))
+        if z_jax.shape != x.shape and z_jax.dim() == 4:
+            z_jax = z_jax.permute(0, 3, 1, 2)
+        if z_jax.shape[1:] == x.shape[1:] and x.shape[0] == 1:
+            z_jax = z_jax[:1]  # one row where JAX runs B equal ones
+        if z_jax.shape != x.shape:
+            raise AssertionError(f"ReLU call {i}: {tuple(x.shape)} against "
+                                 f"JAX's {tuple(z_jax.shape)}")
+        z = x.detach()
+        want = z_jax > 0
+        flip = (z > 0) != want
+        if not flip.any():
+            return relu(x)
+        flips.append((i, int(flip.sum()), float(z[flip].abs().max())))
+        signed = torch.where(want, z.abs(), -z.abs())
+        return relu(torch.where(flip, x - z + signed, x))
+
+    torch.relu = patched
+    try:
+        yield flips
+    finally:
+        torch.relu = relu
+    assert next(calls, None) is None, "JAX made more ReLU calls"
 
 
 def load_flax(module: torch.nn.Module, variables) -> torch.nn.Module:
