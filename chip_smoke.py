@@ -2,7 +2,8 @@
 """Drive the PyTorch port's serving paths on one CUDA card: CenterPoint
 (LiDAR only), CenterPoint + 3D-DF (six cameras + LiDAR), TransFusion-L
 (LiDAR only) and TransFusion + 3D-DF (six cameras + LiDAR); then the
-training steps of the same four models.
+training steps of the same four models; then KITTI's Voxel R-CNN and
+Voxel R-CNN + 3D-DF (one camera + LiDAR) serving paths.
 
     python3 chip_smoke.py
 
@@ -151,6 +152,30 @@ any failure raises and the process exits non-zero:
    launches (one each per ACTR layer) against autograd of the plain
    version, and the edge cases (the L = 1 warp-path ones among them), as in
    phase 18; then timed steps as phase 19 (K1 16 + 15, K2 2 + 2 a step).
+24. small KITTI inputs: `infer_voxelrcnn` and `infer_voxelrcnn_fused` on
+   the card against the CPU (tests/test_torch_voxelrcnn_slice.py's tiny
+   config, the fused one with the preset's ACTRv2 on one 96x320 camera):
+   voxel coords, cap overflows, roi_mask and valid equal; RPN maps, RoIs,
+   RCNN cls and reg, boxes and scores to atol = rtol = 1e-3; the card
+   replays the CPU's NMS and RoI-neighbour decisions only at near ties
+   (`voxelrcnn_decisions`, within 1e-4, at most 4 calls), counted.
+25. KITTI frames (`utils.synth.make_kitti_frame`: one 64-beam sweep cut to
+   the front camera's view, ~20k points): each frame's voxels against
+   max_voxels and each stage's rows against its cap, with the rows the
+   caps drop; every K1 launch of one `voxel_rcnn_car_kitti` frame (12:
+   Cin 4 to 64, 27 taps, and `conv_out`'s 3) against the plain version as
+   in phase 4.
+26. Voxel R-CNN main path: `infer_voxelrcnn` on full-width frames as phase
+   5 does: K1 12 launches a frame, K2 none.
+27. K2 at `voxel_rcnn_3ddf_kitti`'s shapes (one 384x1280 camera, the
+   DeepLabV3 taps at 96x320, 48x160 and 48x160, d_model 64 with 8 heads
+   of 8): its edge cases at nH 8, D 8, then the frame's launch, which must
+   take the general path (the warp path takes only 128 channels), held
+   against the plain version as in phase 7.
+28. Voxel R-CNN + 3D-DF main path: `infer_voxelrcnn_fused` on full-width
+   frames as phase 8 does (the camera of `utils.synth.kitti_camera`): K1
+   12 and K2 1 launches a frame; the share of stage-4 rows the camera
+   sees.
 
 TF32 is off for matmuls and cuDNN convs: the port serves in f32 (the JAX
 package's "exact" profile) and the comparisons need full f32. cuDNN picks
@@ -166,8 +191,8 @@ numbers are those of the CenterPoint paths, under "transfusion" those of
 the TransFusion ones, under K1's "train" its CenterPoint training
 launches, backward times and dW's time, and under K2's "train" its
 CenterPoint + 3D-DF training launches and its backward's times and bound;
-"transfusion"'s "train" the same for the TransFusion training steps) and
-the result line
+"transfusion"'s "train" the same for the TransFusion training steps,
+"kitti" those of the KITTI paths, phases 25 and 27) and the result line
 {"ok": true, "device": {...}}. With no CUDA device, or outside a checkout,
 the script exits non-zero without them.
 """
@@ -467,17 +492,18 @@ def capture_k1(model, cfg, frame, dev, infer_fn=None):
     return captured
 
 
-def phase_k1(model, cfg, frame, dev, infer_fn=None, edge_cases=True):
+def phase_k1(model, cfg, frame, dev, infer_fn=None, edge_cases=True,
+             per_frame=K1_PER_FRAME):
     """Capture every K1 launch of one forward (`infer_fn`, default
-    `entry.infer`); hold each against the plain version (and a repeat
-    launch against the first, bit for bit) and time both. With
-    `edge_cases`, K1's edge cases first."""
+    `entry.infer`; `per_frame` of them); hold each against the plain
+    version (and a repeat launch against the first, bit for bit) and time
+    both. With `edge_cases`, K1's edge cases first."""
     from df3d_torch.ops import sparse_conv_kernel as K
 
     captured = capture_k1(model, cfg, frame, dev, infer_fn)
     launch = K.sparse_conv_cuda
-    check(len(captured) == K1_PER_FRAME,
-          f"expected {K1_PER_FRAME} K1 launches per frame, saw {len(captured)}")
+    check(len(captured) == per_frame,
+          f"expected {per_frame} K1 launches per frame, saw {len(captured)}")
 
     if edge_cases:
         k1_edge_cases(launch, K.sparse_conv_plain)
@@ -563,7 +589,8 @@ def profile_frame(run_frame):
             f"{e.key[:100]}")
 
 
-def timed_path(label, run, n_boxes, inputs, n_frames, per_frame):
+def timed_path(label, run, n_boxes, inputs, n_frames, per_frame,
+               box_dim=9):
     """`run(*inputs[i])` on full-width frames: one warm-up pass over the
     inputs, then `n_frames` timed frames with every kernel's launch count
     set to 0 just before and read just after; `per_frame` maps each kernel
@@ -571,7 +598,7 @@ def timed_path(label, run, n_boxes, inputs, n_frames, per_frame):
     must hold `n_boxes` finite boxes. Prints ms/frame, launches, peak
     memory, overflows and kept boxes (those marked valid where the decode
     marks them), then a host-clock stage split and a one-frame profile of
-    inputs[0]. Returns the launch counts."""
+    inputs[0]. Boxes are `box_dim` wide. Returns the launch counts."""
     from df3d_torch.utils import stages
 
     for args in inputs:
@@ -599,7 +626,7 @@ def timed_path(label, run, n_boxes, inputs, n_frames, per_frame):
         for key, t in det.items():
             if t.is_floating_point():
                 check(torch.isfinite(t).all(), f"{label}: non-finite {key}")
-        shape = (1, n_boxes, 9)
+        shape = (1, n_boxes, box_dim)
         check(tuple(det["boxes"].shape) == shape,
               f"{label}: boxes {tuple(det['boxes'].shape)}, expected {shape}")
     log(f"{label}: {n_frames} frames, ms/frame mean "
@@ -727,29 +754,47 @@ def k2_check(label, launch, plain, value, shapes, locs, attn):
     return out, ref, err, tol
 
 
-def k2_edge_cases(launch, plain, warp_path):
-    """K2 against its plain version on both of the kernel's paths. Warp
-    path (nH 8, D 16, P 4; L 3 and L 1): a small map, Q not a multiple of
-    the 8 queries a block holds, Q = 1, B = 6, and a wholly off-map query
-    between two visible ones in one block (its output must be exactly 0).
-    General path: the same shapes with an unaligned value table; D 5 and 8,
-    nH 2 and 3, L 1, 2 and 8, P 1 and 2. Every case also puts samples on
-    the last pixel centre, at -0.5 px and far off the map. Each repeat
-    launch must give the same bits."""
+# (B, Q, nH, D, levels, P, off-map queries, value offset, warp path)
+K2_EDGE_CASES = (
+    [(2, 37, 8, 16, K2_LEVELS, 4, (9,), 0, True),
+     (1, 1, 8, 16, K2_LEVELS, 4, (), 0, True),
+     (6, 20, 8, 16, K2_LEVELS, 4, (11,), 0, True),
+     (2, 37, 8, 16, K2_LEVELS[:1], 4, (9,), 0, True),
+     (6, 20, 8, 16, K2_LEVELS[2:], 4, (11,), 0, True),
+     (2, 37, 8, 16, K2_LEVELS, 4, (9,), 1, False),
+     (2, 37, 8, 16, K2_LEVELS[:1], 4, (9,), 1, False),
+     (2, 10, 2, 8, K2_LEVELS[:2], 4, (), 0, False),
+     (1, 1000, 8, 16, K2_LEVELS[:2], 4, (), 0, False),
+     (3, 77, 3, 5, K2_LEVELS[:2], 2, (), 0, False),
+     (1, 50, 4, 8, K2_LEVELS[:1], 1, (5,), 0, False),
+     (2, 33, 2, 8, K2_LEVELS_8, 2, (), 0, False)],
+    "warp path at L = 3 and L = 1: a small map, Q = 37 and 1, B = 6, an "
+    "off-map query inside a block; general path: unaligned tables at L = 3 "
+    "and 1, D 5 and 8, nH 2 and 3, L 1, 2 and 8, P 1 and 2")
+# KITTI's head shape: nH 8, D 8 (64 channels, which the warp path refuses)
+K2_KITTI_EDGE_CASES = (
+    [(1, 37, 8, 8, K2_LEVELS, 4, (9,), 0, False),
+     (1, 1, 8, 8, K2_LEVELS, 4, (), 0, False),
+     (2, 1000, 8, 8, K2_LEVELS, 4, (), 0, False),
+     (1, 37, 8, 8, K2_LEVELS[:1], 4, (9,), 0, False),
+     (1, 37, 8, 8, K2_LEVELS, 4, (9,), 1, False)],
+    "KITTI's nH 8, D 8 on the general path: L 3 and 1, Q 37, 1 and 1000, "
+    "B 2, an unaligned table, an off-map query")
+
+
+def k2_edge_cases(launch, plain, warp_path, cases=K2_EDGE_CASES):
+    """K2 against its plain version on `cases`, a (list of (B, Q, nH, D,
+    levels, P, off-map queries, value offset, warp path), summary) pair;
+    the default is both of the kernel's paths. Warp path (nH 8, D 16, P 4;
+    L 3 and L 1): a small map, Q not a multiple of the 8 queries a block
+    holds, Q = 1, B = 6, and a wholly off-map query between two visible
+    ones in one block (its output must be exactly 0). General path: the
+    same shapes with an unaligned value table; D 5 and 8, nH 2 and 3, L 1,
+    2 and 8, P 1 and 2. Every case also puts samples on the last pixel
+    centre, at -0.5 px and far off the map. Each repeat launch must give
+    the same bits."""
     g = torch.Generator(device="cuda").manual_seed(3)
-    # (B, Q, nH, D, levels, P, off-map queries, value offset, warp path)
-    cases = [(2, 37, 8, 16, K2_LEVELS, 4, (9,), 0, True),
-             (1, 1, 8, 16, K2_LEVELS, 4, (), 0, True),
-             (6, 20, 8, 16, K2_LEVELS, 4, (11,), 0, True),
-             (2, 37, 8, 16, K2_LEVELS[:1], 4, (9,), 0, True),
-             (6, 20, 8, 16, K2_LEVELS[2:], 4, (11,), 0, True),
-             (2, 37, 8, 16, K2_LEVELS, 4, (9,), 1, False),
-             (2, 37, 8, 16, K2_LEVELS[:1], 4, (9,), 1, False),
-             (2, 10, 2, 8, K2_LEVELS[:2], 4, (), 0, False),
-             (1, 1000, 8, 16, K2_LEVELS[:2], 4, (), 0, False),
-             (3, 77, 3, 5, K2_LEVELS[:2], 2, (), 0, False),
-             (1, 50, 4, 8, K2_LEVELS[:1], 1, (5,), 0, False),
-             (2, 33, 2, 8, K2_LEVELS_8, 2, (), 0, False)]
+    cases, summary = cases
     for b, q, nh, d, shapes, p, off_map, offset, warp in cases:
         value, locs, attn = k2_inputs(g, b, q, nh, d, shapes, p, off_map,
                                       offset)
@@ -761,12 +806,9 @@ def k2_edge_cases(launch, plain, warp_path):
                                 attn)
         for i in off_map:
             check(not out[:, i].any(), f"{label}: off-map query {i} is not 0")
-    log("K2 edge cases (warp path at L = 3 and L = 1: a small map, Q = 37 "
-        "and 1, B = 6, an off-map query inside a block; general path: "
-        "unaligned tables at L = 3 and 1, D 5 and 8, nH 2 and 3, L 1, 2 and "
-        "8, P 1 and 2; samples on the last pixel centre, at -0.5 px and far "
-        "off the map): agree with the plain version, and repeat launches "
-        "give the same bits")
+    log(f"K2 edge cases ({summary}; samples on the last pixel centre, at "
+        "-0.5 px and far off the map): agree with the plain version, and "
+        "repeat launches give the same bits")
 
 
 def unaligned_copy(value):
@@ -826,11 +868,13 @@ def capture_k2(model, cfg, inputs, infer_fn=None):
     return captured
 
 
-def phase_k2(model, cfg, inputs, infer_fn, per_frame, edge_cases=True):
+def phase_k2(model, cfg, inputs, infer_fn, per_frame, edge_cases=True,
+             warp=True, k1_per_frame=K1_PER_FRAME):
     """Capture every K2 launch of one fused frame (`infer_fn`; `per_frame`
-    of them, and K1's 16 counted); with `edge_cases`, K2's edge cases;
-    hold each K2 output against the plain version and time it, the plain
-    version and the general path on the same inputs."""
+    of them, and K1's `k1_per_frame` counted), each on the warp path (or,
+    with `warp` False, on the general path); with `edge_cases`, K2's edge
+    cases; hold each K2 output against the plain version and time it, the
+    plain version and the general path on the same inputs."""
     from df3d_torch.ops import msda_kernel as K2
     from df3d_torch.ops import sparse_conv_kernel as K1
 
@@ -840,12 +884,13 @@ def phase_k2(model, cfg, inputs, infer_fn, per_frame, edge_cases=True):
     check(len(captured) == per_frame,
           f"expected {per_frame} K2 launches per fused frame, saw "
           f"{len(captured)}")
-    check(K1.launches == K1_PER_FRAME,
-          f"expected {K1_PER_FRAME} K1 launches per fused frame, saw "
+    check(K1.launches == k1_per_frame,
+          f"expected {k1_per_frame} K1 launches per fused frame, saw "
           f"{K1.launches}")
-    for i, (*_, warp) in enumerate(captured):
-        check(warp, f"K2 launch {i}: the main path's tensors missed the "
-              "warp path")
+    for i, (*_, on_warp) in enumerate(captured):
+        check(on_warp == warp,
+              f"K2 launch {i}: the main path's tensors took the "
+              f"{'warp' if on_warp else 'general'} path")
 
     if edge_cases:
         k2_edge_cases(launch, K2.msda_plain, K2.warp_path)
@@ -2012,6 +2057,317 @@ def phase_fused_train_path(state, step, batch, fcfg, k2_per_step=1,
     return counts
 
 
+# KITTI (Voxel R-CNN, phases 24-28): K1 launches a frame (12 sparse convs,
+# no dense tail) and K2 launches a fused frame (one ACTR layer)
+K1_PER_KITTI_FRAME = 12
+K2_PER_KITTI_FUSED_FRAME = 1
+KITTI_IMAGE = (384, 1280)
+
+
+def kitti_frames(n):
+    """`n` single-sweep 64-beam frames cut to the front camera's view
+    (`utils.synth.make_kitti_frame`, ~20k points each)."""
+    from df3d_torch.utils.synth import make_kitti_frame
+
+    return [make_kitti_frame(np.random.RandomState(100 + i))
+            for i in range(n)]
+
+
+def kitti_inputs(frame, image_shape, dev, seed, scale=1.0):
+    """(points, valid, images, proj) on `dev` for one KITTI frame: the
+    lidar frame, a random normalized (1, H, W, 3) image and the front
+    camera (`utils.synth.kitti_camera`, pixels scaled by `scale`)."""
+    from df3d_torch.utils.synth import kitti_camera
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    images = torch.randn(1, *image_shape, 3, generator=g, device=dev)
+    proj = torch.from_numpy(kitti_camera(scale)[None]).to(dev)
+    pts = torch.from_numpy(frame[None]).to(dev)
+    valid = torch.ones(pts.shape[:2], dtype=torch.bool, device=dev)
+    return pts, valid, images, proj
+
+
+def _nms_gap(args, _want):
+    """How near a tie the rotated NMS's decisions are on this device: the
+    least |IoU - threshold| of two candidates and the least gap between
+    two candidates' scores."""
+    from df3d_torch.core.iou import iou_bev
+    from df3d_torch.core.nms import top_k_stable
+
+    boxes, scores, thresh, pre = args[:4]
+    k = min(pre, boxes.shape[-2])
+    vals, order = top_k_stable(scores, k)
+    cand = boxes.gather(-2, order[..., None].expand(*order.shape, 7))
+    mat = iou_bev(cand, cand)
+    upper = torch.ones(k, k, dtype=torch.bool, device=mat.device).triu(1)
+    gap_iou = (mat - thresh).abs()[..., upper].min()
+    gap_score = (vals[..., :-1] - vals[..., 1:]).min()
+    return float(torch.minimum(gap_iou, gap_score))
+
+
+def _collect_gap(args, _want):
+    """The least gap, per RoI, between its max_local-th and next nearest
+    voxels' squared distances, or of one to the coarse radius squared."""
+    from df3d_torch.ops.roi_ops import _sqdist
+
+    centres, xyz, valid, coarse, k = args
+    d2 = _sqdist(centres[:, :, None], xyz[:, None])
+    d2 = torch.where(valid[:, None], d2, torch.full_like(d2, 1e10))
+    s = torch.sort(d2, -1).values
+    return float(torch.minimum((s[..., k] - s[..., k - 1]).min()
+                               if s.shape[-1] > k else s.new_tensor(1e10),
+                               (d2 - coarse * coarse).abs().min()))
+
+
+def _ball_gap(args, _want):
+    """The least |d^2 - radius^2| of a grid point and a local voxel."""
+    from df3d_torch.ops.roi_ops import _sqdist
+
+    grid, xyz, lidx, _, radius, _ = args
+    b, r, l = lidx.shape
+    local = xyz.gather(1, lidx.reshape(b, r * l, 1).expand(-1, -1, 3))
+    d2 = _sqdist(grid[:, :, :, None], local.view(b, r, l, 3)[:, :, None])
+    return float((d2 - radius * radius).abs().min())
+
+
+@contextlib.contextmanager
+def voxelrcnn_decisions(store, replay):
+    """Patch Voxel R-CNN's decisions, the proposal and final NMS and the
+    RoI head's two-stage neighbour search: record each call's integer
+    outputs in `store`, in call order; or, with `replay`, give each call
+    the recorded outputs where its own differ. A replay is a near tie on
+    this device (`_nms_gap`, `_collect_gap`, `_ball_gap`: within 1e-4;
+    the caller bounds it). Yields the replays, (kind, entries that differ,
+    gap) per call that had any."""
+    from df3d_torch.models.detectors import voxel_rcnn as V
+    from df3d_torch.models.heads import voxelrcnn_head as H
+
+    patched = [(V, "nms_bev", _nms_gap),
+               (H, "collect_local_voxels", _collect_gap),
+               (H, "grid_ball_query", _ball_gap)]
+    originals = {(m, n): getattr(m, n) for m, n, _ in patched}
+    recorded, replays = iter(store), []
+
+    def wrap(fn, kind, gap):
+        def decided(*args):
+            got = fn(*args)
+            if not replay:
+                store.append(tuple(t.cpu() for t in got))
+                return got
+            want = tuple(t.to(got[0].device) for t in next(recorded))
+            if all(torch.equal(a, b) for a, b in zip(got, want)):
+                return got
+            replays.append((kind, int(sum((a != b).sum() for a, b in
+                                          zip(got, want))),
+                            gap(args, want)))
+            return want
+        return decided
+
+    for m, n, gap in patched:
+        setattr(m, n, wrap(originals[m, n], n, gap))
+    try:
+        yield replays
+    finally:
+        for (m, n), fn in originals.items():
+            setattr(m, n, fn)
+
+
+def small_kitti_configs():
+    """tests/test_torch_voxelrcnn_slice.py's tiny Voxel R-CNN (a 64x64
+    grid, 16 RoIs, grid 4) and, for the fused path, the preset's ACTRv2
+    (d_model 64, 8 heads, 3 levels, 4 points; LT at 64 centres) with a
+    one-block DeepLabV3 on one 96x320 camera."""
+    from df3d_torch.entry import fused_config, voxel_rcnn_3ddf_kitti
+    from df3d_torch.models.detectors.voxel_rcnn import VoxelRCNNConfig
+    from df3d_torch.models.heads.voxelrcnn_head import (
+        RoIPoolScaleCfg, VoxelRCNNHeadCfg,
+    )
+
+    cfg = VoxelRCNNConfig(
+        pc_range=(0.0, -16.0, -2.4, 32.0, 16.0, 2.4),
+        voxel_size=(0.5, 0.5, 0.2), grid_size=(24, 64, 64), max_voxels=512,
+        stage_caps=(512, 384, 256, 128), test_pre_nms=128, test_post_nms=16,
+        rcnn=VoxelRCNNHeadCfg(grid_size=4, max_local=64, scales=tuple(
+            RoIPoolScaleCfg(k, ds, r, nsample=8) for k, ds, r in
+            (("conv2", 2, 0.8), ("conv3", 4, 1.6), ("conv4", 8, 1.6)))))
+    preset = voxel_rcnn_3ddf_kitti()
+    fcfg = fused_config(preset, image_shape=(96, 320),
+                        image_layers=(1, 1, 1, 1),
+                        actr=dataclasses.replace(preset["actr"],
+                                                 lt_npoint=64))
+    return cfg, fcfg
+
+
+def kitti_card_vs_cpu(label, build, cfg, inputs, infer_fn, dev):
+    """A Voxel R-CNN path with its kernels on the card against the same
+    path with the plain versions on the CPU: same weights
+    (`build(device)` -> (rpn, head)) and inputs (CPU tensors: points,
+    valid, then the fused path's images and proj). The card replays the
+    CPU's NMS and neighbour decisions where its own differ, each a near
+    tie within 1e-4, at most 4 calls (`voxelrcnn_decisions`). Voxel
+    coords, cap overflows, roi_mask and valid equal; the RPN maps, RoIs,
+    RCNN cls and reg, final boxes and scores to atol = rtol = 1e-3."""
+    from df3d_torch.ops.voxelize import voxelize_batch
+
+    store, out = [], []
+    for d, replay in (("cpu", False), (dev, True)):
+        rpn, head = build(d)
+        args = [t.to(d) for t in inputs]
+        with torch.no_grad(), voxelrcnn_decisions(store, replay) as replays:
+            res = voxelize_batch(args[0], args[1], cfg.voxel_size,
+                                 cfg.pc_range, cfg.grid_size, cfg.max_voxels,
+                                 cfg.max_points_per_voxel)
+            preds, _ = rpn(res.features, res.coords, *args[2:])
+            det, overflow = infer_fn(rpn, head, cfg, *args)
+            cls, reg = head(det["rois"], det["roi_mask"], preds["ms"])
+        maps = {k: preds[k] for k in ("cls", "box", "dir")}
+        out.append(to_cpu((res.coords, maps, det, overflow,
+                           {"cls": cls, "reg": reg})))
+    (c_coords, c_maps, c_det, c_ov, c_head), (g_coords, g_maps, g_det, g_ov,
+                                              g_head) = out
+    check(len(replays) <= 4 and all(g < 1e-4 for *_, g in replays),
+          f"{label}: more than 4 decisions differ from the CPU's, or one is "
+          f"no tie within 1e-4: {replays}")
+    check(torch.equal(c_coords, g_coords), f"{label}: voxel coords differ")
+    for k in c_ov:
+        check(torch.equal(c_ov[k], g_ov[k]), f"{label}: {k} differs")
+    for k in ("roi_mask", "valid", "labels"):
+        check(torch.equal(c_det[k], g_det[k]), f"{label}: {k} differs")
+    check(bool(c_det["valid"].any()), f"{label}: no detection kept")
+    worst = 0.0
+    for tree_c, tree_g in ((c_maps, g_maps), (c_head, g_head),
+                           (c_det, g_det)):
+        for k, t in tree_c.items():
+            if not t.is_floating_point():
+                continue
+            check(torch.isfinite(tree_g[k]).all(), f"{label}: non-finite {k}")
+            torch.testing.assert_close(tree_g[k], t, atol=1e-3, rtol=1e-3)
+            worst = max(worst, (tree_g[k] - t).abs().max().item())
+    log(f"{label}: card vs CPU plain path agree: {len(store)} NMS and "
+        f"neighbour decisions recorded, replays {replays}; "
+        f"{int(c_det['roi_mask'].sum())} RoIs and "
+        f"{int(c_det['valid'].sum())} kept boxes equal; max diff of the RPN "
+        f"maps, the RCNN head, boxes and scores {worst:.3g}; cap overflow "
+        + ", ".join(f"{k}={int(v.sum())}" for k, v in c_ov.items()))
+
+
+def phase_small_kitti(dev):
+    """Both KITTI paths on a small input, card against CPU
+    (`kitti_card_vs_cpu`): tests/test_torch_voxelrcnn_slice.py's points,
+    and for the fused path a seeded normalized 96x320 image and the front
+    camera scaled to it."""
+    from df3d_torch.entry import (
+        build_voxelrcnn, build_voxelrcnn3ddf, infer_voxelrcnn,
+        infer_voxelrcnn_fused,
+    )
+
+    cfg, fcfg = small_kitti_configs()
+    rng = np.random.RandomState(0)
+    n = 1500
+    pts = np.concatenate([rng.uniform(0, 31, (1, n, 1)),
+                          rng.uniform(-15, 15, (1, n, 1)),
+                          rng.uniform(-1.8, 1.8, (1, n, 1)),
+                          rng.uniform(0, 1, (1, n, 1))], -1).astype(np.float32)
+    kitti_card_vs_cpu(
+        "small KITTI input", lambda d: build_voxelrcnn(cfg, d, seed=0), cfg,
+        list(kitti_inputs(pts[0], fcfg.image_shape, "cpu", 0)[:2]),
+        infer_voxelrcnn, dev)
+    kitti_card_vs_cpu(
+        "small KITTI fused input",
+        lambda d: build_voxelrcnn3ddf(cfg, fcfg, d, seed=0), cfg,
+        list(kitti_inputs(pts[0], fcfg.image_shape, "cpu", 0,
+                          scale=fcfg.image_shape[1] / KITTI_IMAGE[1])),
+        infer_voxelrcnn_fused, dev)
+
+
+def kitti_rows(label, rpn, cfg, frames, dev):
+    """Each frame's voxels against max_voxels and each stage's rows against
+    its cap, with the rows a cap drops."""
+    from df3d_torch.ops.voxelize import compute_voxel_coords, voxelize_batch
+
+    zg, yg, xg = cfg.grid_size
+    for i, f in enumerate(frames):
+        pts = torch.from_numpy(f).to(dev)
+        c = compute_voxel_coords(pts, cfg.voxel_size, cfg.pc_range).long()
+        ok = ((c >= 0) & (c < torch.tensor([zg, yg, xg], device=dev))).all(1)
+        voxels = int(torch.unique((c[ok, 0] * yg + c[ok, 1]) * xg
+                                  + c[ok, 2]).numel())
+        with torch.no_grad():
+            res = voxelize_batch(pts[None], torch.ones(1, len(f), dtype=torch.bool,
+                                                       device=dev),
+                                 cfg.voxel_size, cfg.pc_range, cfg.grid_size,
+                                 cfg.max_voxels, cfg.max_points_per_voxel)
+            preds, overflow = rpn(res.features, res.coords)
+        rows = {k: int(st.valid.sum()) for k, st in preds["ms"].items()}
+        caps = dict(zip(("conv1", "conv2", "conv3", "conv4"),
+                        cfg.stage_caps))
+        drops = {k: int(v.sum()) for k, v in overflow.items()}
+        log(f"{label} frame {i}: {len(f)} points, {voxels} voxels of "
+            f"max_voxels {cfg.max_voxels} ({max(0, voxels - cfg.max_voxels)} "
+            "dropped); rows per stage (cap): "
+            + ", ".join(f"{k} {rows[k]} ({caps[k]})" for k in rows)
+            + "; rows the caps drop: "
+            + ", ".join(f"{k}={v}" for k, v in drops.items()))
+
+
+def phase_kitti_paths(dev, frames):
+    """Phases 25-28 at full KITTI width: `voxel_rcnn_car_kitti` (K1 per
+    launch, then `infer_voxelrcnn` timed, K1 12 launches a frame, K2
+    none), then `voxel_rcnn_3ddf_kitti` (one 384x1280 camera: K2's launch
+    against the plain version on the general path with its nH 8, D 8 edge
+    cases, then `infer_voxelrcnn_fused` timed, K1 12 and K2 1 launches a
+    frame). Returns K1's and K2's entries and each path's launches."""
+    from df3d_torch.entry import (
+        build_voxelrcnn, build_voxelrcnn3ddf, fused_config,
+        infer_voxelrcnn, infer_voxelrcnn_fused, voxel_rcnn_3ddf_kitti,
+        voxel_rcnn_car_kitti,
+    )
+    from df3d_torch.ops import msda_kernel as K2
+    from df3d_torch.ops import sparse_conv_kernel as K1
+
+    cfg = voxel_rcnn_car_kitti()
+    rpn, head = build_voxelrcnn(cfg, dev, seed=0)
+    kitti_rows("KITTI", rpn, cfg, frames, dev)
+    lidar_fn = lambda m, c, p, v: infer_voxelrcnn(m, head, c, p, v)
+    k1 = phase_k1(rpn, cfg, frames[0], dev, lidar_fn, edge_cases=False,
+                  per_frame=K1_PER_KITTI_FRAME)
+    inputs = [kitti_inputs(f, KITTI_IMAGE, dev, 10 + i)[:2]
+              for i, f in enumerate(frames)]
+    lidar = timed_path("KITTI Voxel R-CNN path",
+                       lambda *a: lidar_fn(rpn, cfg, *a),
+                       cfg.final_max_boxes, inputs, TIMED_FRAMES,
+                       {K1: K1_PER_KITTI_FRAME, K2: 0}, box_dim=7)
+    del rpn, head
+
+    preset = voxel_rcnn_3ddf_kitti()
+    fcfg = fused_config(preset)
+    frpn, fhead = build_voxelrcnn3ddf(preset["lidar"], fcfg, dev, seed=0)
+    fused_fn = lambda m, c, *a: infer_voxelrcnn_fused(m, fhead, c, *a)
+    inputs = [kitti_inputs(f, KITTI_IMAGE, dev, 10 + i)
+              for i, f in enumerate(frames)]
+    k2_edge_cases(K2.msda_cuda, K2.msda_plain, K2.warp_path,
+                  K2_KITTI_EDGE_CASES)
+    k2 = phase_k2(frpn, cfg, inputs[0], fused_fn, K2_PER_KITTI_FUSED_FRAME,
+                  edge_cases=False, warp=False,
+                  k1_per_frame=K1_PER_KITTI_FRAME)
+    fused = timed_path("KITTI Voxel R-CNN + 3D-DF path",
+                       lambda *a: fused_fn(frpn, cfg, *a),
+                       cfg.final_max_boxes, inputs, FUSED_TIMED_FRAMES,
+                       {K1: K1_PER_KITTI_FRAME,
+                        K2: K2_PER_KITTI_FUSED_FRAME}, box_dim=7)
+    seen = []
+    hook = frpn.detector.backbone.fusion_hook
+    handle = hook.actr.register_forward_hook(
+        lambda mod, inp, out: seen.append(inp[4]))
+    with torch.no_grad():
+        fused_fn(frpn, cfg, *inputs[0])
+    handle.remove()
+    mask = seen[0]
+    log(f"KITTI Voxel R-CNN + 3D-DF queries: {mask.shape[1]} stage-4 rows, "
+        f"the camera sees {int(mask.sum())} ({float(mask.float().mean()):.4f})")
+    return k1, k2, lidar, fused
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2166,6 +2522,19 @@ def main():
         tfused_train["k1_fwd"] + tfused_train["k1_bwd"])
     k2["launches_by_path"]["transfusion_fused_train"] = (
         tfused_train["k2_fwd"] + tfused_train["k2_bwd"])
+    del state, step, batch
+    torch.cuda.empty_cache()
+
+    phase_small_kitti(dev)
+    kk1, kk2, klidar, kfused = phase_kitti_paths(dev, kitti_frames(3))
+    for entry, kernel, extra in ((k1, K1, kk1), (k2, K2, kk2)):
+        entry["launches_by_path"]["kitti_lidar"] = klidar[kernel]
+        entry["launches_by_path"]["kitti_fused"] = kfused[kernel]
+        entry["kitti"] = {k: v for k, v in extra.items()
+                          if k not in ("name", "route", "source",
+                                       "replaces", "library_ms")}
+        entry["max_abs_err"] = max(entry["max_abs_err"],
+                                   extra["max_abs_err"])
     k1["transfusion"]["train"] = dict(fwd_launches=ttrain["train_fwd"],
                                       bwd_launches=ttrain["train_bwd"],
                                       **tk1_train)

@@ -1,8 +1,12 @@
-"""TransFusion's box coder (port of `TransFusionBBoxCoder` in
+"""Box coders (port of `ResidualCoder` and `TransFusionBBoxCoder` in
 df3d/core/box_coders.py).
 
-encode() takes bottom-centre 9-dof boxes (x, y, z, dx, dy, dz, heading,
-vx, vy) and gives the 10-wide code (x, y in BEV feature pixels,
+`ResidualCoder.decode` turns Voxel R-CNN's anchor-relative 7-dof residuals
+(pcdet's convention) back into boxes; it is on the serving path of both
+stages (anchors, and RoIs in their canonical frame).
+
+`TransFusionBBoxCoder.encode` takes bottom-centre 9-dof boxes (x, y, z,
+dx, dy, dz, heading, vx, vy) and gives the 10-wide code (x, y in BEV feature pixels,
 gravity-centre z, log dims, sin, cos, vx, vy) that TransFusion's head
 predicts; decode() inverts it to bottom-centre boxes. Both take leading
 batch dims. decode is on the serving path, encode makes the training
@@ -48,3 +52,21 @@ class TransFusionBBoxCoder:
         if vel is not None:
             parts.append(vel)
         return torch.cat(parts, -1)
+
+
+@dataclasses.dataclass(frozen=True)
+class ResidualCoder:
+    """Anchor-relative 7-dof residual coder (pcdet convention), the JAX
+    package's default (no sin/cos heading). Leading batch dims broadcast."""
+
+    def decode(self, encodings: torch.Tensor,
+               anchors: torch.Tensor) -> torch.Tensor:
+        xa, ya, za = anchors[..., 0], anchors[..., 1], anchors[..., 2]
+        dxa, dya, dza = anchors[..., 3], anchors[..., 4], anchors[..., 5]
+        diag = torch.sqrt(dxa ** 2 + dya ** 2)
+        return torch.stack([
+            encodings[..., 0] * diag + xa, encodings[..., 1] * diag + ya,
+            encodings[..., 2] * dza + za, torch.exp(encodings[..., 3]) * dxa,
+            torch.exp(encodings[..., 4]) * dya,
+            torch.exp(encodings[..., 5]) * dza,
+            encodings[..., 6] + anchors[..., 6]], -1)

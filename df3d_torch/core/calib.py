@@ -63,3 +63,17 @@ def voxel_centers_from_coords(coords_zyx: torch.Tensor, voxel_size,
     origin = torch.tensor(pc_range[:3], dtype=torch.float32, device=dev)
     xyz_idx = coords_zyx.flip(-1).to(torch.float32)
     return xyz_idx * vs + origin + 0.5 * vs
+
+
+def voxel_centers_fma(coords_zyx: torch.Tensor, voxel_size, pc_range,
+                      downsample: int = 1) -> torch.Tensor:
+    """`voxel_centers_from_coords` rounded as XLA computes it under `jit`:
+    idx * size + origin as one fused multiply-add (exact in f64, one f32
+    rounding), then + size / 2. The RoI head's neighbour search ranks
+    lattice distances, where the last bit decides ties."""
+    dev = coords_zyx.device
+    vs = torch.tensor(voxel_size, dtype=torch.float32, device=dev) * downsample
+    origin = torch.tensor(pc_range[:3], dtype=torch.float32, device=dev)
+    xyz_idx = coords_zyx.flip(-1).to(torch.float64)
+    return ((xyz_idx * vs.double() + origin.double()).float()
+            + 0.5 * vs)

@@ -26,7 +26,15 @@
   `build_transfusion3ddf_trainer(cfg, fcfg, device, seed)`: the same for
   TransFusion-L (`train.trainer.TransFusionTrainStep`) and TransFusion +
   3D-DF (`FusedTrainStep` with the TransFusion loss).
-* `centerpoint_3ddf_nusc()`, `transfusion_l_nusc()` and
+* `build_voxelrcnn(cfg, device, seed)` -> (rpn, head) and
+  `infer_voxelrcnn(rpn, head, cfg, points, valid)`: Voxel R-CNN (voxelize
+  -> RPN -> proposals -> RCNN head -> post-processing, the JAX package's
+  `make_voxelrcnn_eval_step`); `build_voxelrcnn3ddf(cfg, fcfg, device,
+  seed)` and `infer_voxelrcnn_fused(rpn, head, cfg, points, valid,
+  images, proj)` (the same function): Voxel R-CNN + 3D-DF with its one
+  camera.
+* `voxel_rcnn_car_kitti()`, `voxel_rcnn_3ddf_kitti()`,
+  `centerpoint_3ddf_nusc()`, `transfusion_l_nusc()` and
   `transfusion_3ddf_nusc()` are the port's copies of the JAX package's
   presets of those names; `fused_config(preset)` the `FusedConfig` the JAX
   package builds for a fused preset.
@@ -44,12 +52,17 @@ from df3d_torch.models.detectors.centerpoint import (
     CenterPoint, CenterPointConfig, centerpoint_predict,
 )
 from df3d_torch.models.detectors.fused import (
-    CenterPoint3DDF, FusedConfig, TransFusion3DDF,
+    CenterPoint3DDF, FusedConfig, TransFusion3DDF, VoxelRCNN3DDF,
 )
 from df3d_torch.models.detectors.transfusion import (
     TransFusionConfig, TransFusionL, transfusion_predict,
 )
+from df3d_torch.models.detectors.voxel_rcnn import (
+    VoxelRCNN, VoxelRCNNConfig, init_head_weights, proposal_layer,
+    voxel_rcnn_post_processing,
+)
 from df3d_torch.models.fusion.actr import ACTRConfig
+from df3d_torch.models.heads.voxelrcnn_head import VoxelRCNNHead
 from df3d_torch.ops.voxelize import voxelize_batch
 from df3d_torch.train.schedules import adam_onecycle
 from df3d_torch.train.trainer import (
@@ -213,6 +226,84 @@ def infer_transfusion_fused(model: TransFusion3DDF, cfg: TransFusionConfig,
                   images, proj)
 
 
+def _voxelrcnn_head(cfg: VoxelRCNNConfig, generator: torch.Generator,
+                    device) -> VoxelRCNNHead:
+    head = VoxelRCNNHead(cfg.rcnn, cfg.voxel_size, cfg.pc_range)
+    return init_head_weights(head, generator).to(device).eval()
+
+
+def build_voxelrcnn(cfg: VoxelRCNNConfig, device=None, seed: int = 0
+                    ) -> tuple[VoxelRCNN, VoxelRCNNHead]:
+    """(first stage, RCNN head) on `device`, random weights drawn from
+    `seed`, in eval mode."""
+    device = resolve_device(device)
+    g = torch.Generator().manual_seed(seed)
+    rpn = VoxelRCNN(cfg).init_weights(g).to(device).eval()
+    return rpn, _voxelrcnn_head(cfg, g, device)
+
+
+def build_voxelrcnn3ddf(cfg: VoxelRCNNConfig, fcfg: FusedConfig,
+                        device=None, seed: int = 0
+                        ) -> tuple[VoxelRCNN3DDF, VoxelRCNNHead]:
+    """As `build_voxelrcnn`, for Voxel R-CNN + 3D-DF."""
+    device = resolve_device(device)
+    g = torch.Generator().manual_seed(seed)
+    rpn = VoxelRCNN3DDF(cfg, fcfg).init_weights(g).to(device).eval()
+    return rpn, _voxelrcnn_head(cfg, g, device)
+
+
+@torch.no_grad()
+def infer_voxelrcnn(rpn: VoxelRCNN, head: VoxelRCNNHead,
+                    cfg: VoxelRCNNConfig, points: torch.Tensor,
+                    valid: torch.Tensor, images: torch.Tensor | None = None,
+                    proj: torch.Tensor | None = None):
+    """points (B, P, 4) xyz first, valid (B, P) -> (detections, cap
+    overflows). Detections: boxes (B, F, 7), scores, labels, valid (B, F),
+    and the proposals, rois (B, R, 7) and roi_mask (B, R), as the JAX
+    package's `make_voxelrcnn_eval_step` returns them. images (B, H, W, 3)
+    normalized and proj (B, 3, 4) lidar -> image: the camera of a
+    `VoxelRCNN3DDF` first stage, None for `VoxelRCNN`."""
+    res = voxelize_batch(points, valid, cfg.voxel_size, cfg.pc_range,
+                         cfg.grid_size, cfg.max_voxels,
+                         cfg.max_points_per_voxel)
+    stages.mark("voxelize")
+    cams = () if images is None else (images, proj)
+    preds, overflow = rpn(res.features, res.coords, *cams)
+    anchors = getattr(rpn, "detector", rpn).anchors
+    rois, _, roi_mask = proposal_layer(cfg, preds, anchors)
+    cls, reg = head(rois, roi_mask, preds["ms"])
+    stages.mark("roi_head")
+    det = voxel_rcnn_post_processing(cfg, rois, roi_mask, cls, reg)
+    det.update(rois=rois, roi_mask=roi_mask)
+    stages.mark("post")
+    return det, overflow
+
+
+infer_voxelrcnn_fused = infer_voxelrcnn
+
+
+def voxel_rcnn_car_kitti() -> VoxelRCNNConfig:
+    """The JAX package's `voxel_rcnn_car_kitti` preset (pcdet's
+    tools/cfgs/kitti_models/voxel_rcnn_car.yaml)."""
+    return VoxelRCNNConfig()
+
+
+def voxel_rcnn_3ddf_kitti() -> dict:
+    """The JAX package's `voxel_rcnn_3ddf_kitti` preset (the reference's
+    voxel_rcnn_car_mm_mvx+actrv2_hybrid_ifat.yaml): Voxel R-CNN with one
+    384x1280 camera (KITTI's 375x1242 padded), MVX at stride 1 and an
+    ACTRv2 hybrid at d_model 64 over three DeepLabV3 levels at stride 8."""
+    return {
+        "lidar": VoxelRCNNConfig(),
+        "actr": ACTRConfig(
+            d_model=64, n_levels=3, num_layers=1, q_method="gating",
+            attn_layer="BiGateSum1D_2", model_name="ACTRv2",
+        ),
+        "max_ne_voxel": 13000,
+        "image_shape": (384, 1280),
+    }
+
+
 def centerpoint_3ddf_nusc() -> dict:
     """The JAX package's `centerpoint_3ddf_nusc` preset
     (df3d/config/presets.py): the LiDAR model of `centerpoint_nusc` with
@@ -257,13 +348,14 @@ def transfusion_3ddf_nusc() -> dict:
 def fused_config(preset: dict, **overrides) -> FusedConfig:
     """A `FusedConfig` for a fused preset, as the JAX package's
     `build_detector` makes it: the ResNet-50 image branch (ResNet + FPN for
-    a TransFusion preset, DeepLabV3 taps at stride 8 otherwise), IFAT on,
-    fusion at the stage-4 stride."""
+    a TransFusion preset, DeepLabV3 taps at stride 8 otherwise), one camera
+    unless the preset says otherwise, IFAT on, fusion at the stage-4
+    stride."""
     branch = ("resnet_fpn" if isinstance(preset["lidar"], TransFusionConfig)
               else "deeplabv3")
     fields = dict(image_shape=preset["image_shape"], image_branch=branch,
                   image_layers=(3, 4, 6, 3), n_levels=preset["actr"].n_levels,
-                  num_cams=preset["num_cams"], actr=preset["actr"],
+                  num_cams=preset.get("num_cams", 1), actr=preset["actr"],
                   use_ifat=True, fusion_downsample=8)
     fields.update(overrides)
     return FusedConfig(**fields)

@@ -2,12 +2,14 @@
 
 `SpMiddleResNetFHD` (CenterPoint) and `SparseEncoder` (TransFusion) on the
 JAX package's hybrid tail (`dense_tail=True`): sparse through the last
-downsample, then `densify` and the dense last-stage blocks. Conv plans are
-built once per coord set and shared by every submanifold layer of a stage
+downsample, then `densify` and the dense last-stage blocks.
+`VoxelBackBone8x` (Voxel R-CNN, KITTI) is sparse throughout, `conv_out`
+included, and `height_compress` makes its BEV map. Conv plans are built
+once per coord set and shared by every submanifold layer of a stage
 (spconv's indice_key pattern).
 
-With a `fusion_hook` (the 3D-DF camera fusion) the stride-8 grid goes back
-to rows (`sparsify`, capped at the stage-4 cap), through the hook, and is
+With a `fusion_hook` (the 3D-DF camera fusion) the dense-tail backbones'
+stride-8 grid goes back to rows (`sparsify`, capped at the stage-4 cap), through the hook, and is
 densified again before the last (3, 1, 1) conv. The hook is a child module,
 so its parameters sit under the backbone as flax puts them.
 """
@@ -198,3 +200,94 @@ class SparseEncoder(nn.Module):
                     else "backbone_3d_tail")
         ms = {f"conv{i + 1}": s for i, s in enumerate(stage_outs)}
         return bev_from_dense(out), ms, overflow
+
+
+def height_compress(st: SparseTensor) -> torch.Tensor:
+    """Sparse tensor -> BEV map (B, Y, X, Z*C) (pcdet's
+    HeightCompression)."""
+    return bev_from_dense(densify(st))
+
+
+class VoxelBackBone8x(nn.Module):
+    """pcdet's KITTI backbone: plain sparse conv stacks of 16, 32, 64 and 64
+    channels, then `conv_out` to 128 with a (3, 1, 1) kernel and (2, 1, 1)
+    stride. With a `fusion_hook` (Voxel R-CNN + 3D-DF) the hook runs on
+    conv1's output (`stage="conv1"`, MVX early fusion) and on conv4's
+    (`stage="conv4"`, ACTR), when it has inputs."""
+
+    CHANNELS = (16, 32, 64, 64)
+
+    def __init__(self, num_input_features: int,
+                 fusion_hook: nn.Module | None = None):
+        super().__init__()
+        c1, c2, c3, c4 = self.CHANNELS
+        self.conv_input = SparseConvBNReLU(num_input_features, c1)
+        self.conv1 = SparseConvBNReLU(c1, c1)
+        self.down2 = SparseConvBNReLU(c1, c2, subm=False)
+        self.conv2a = SparseConvBNReLU(c2, c2)
+        self.conv2b = SparseConvBNReLU(c2, c2)
+        self.down3 = SparseConvBNReLU(c2, c3, subm=False)
+        self.conv3a = SparseConvBNReLU(c3, c3)
+        self.conv3b = SparseConvBNReLU(c3, c3)
+        self.down4 = SparseConvBNReLU(c3, c4, subm=False)
+        self.conv4a = SparseConvBNReLU(c4, c4)
+        self.conv4b = SparseConvBNReLU(c4, c4)
+        self.conv_out = SparseConvBNReLU(c4, 128, subm=False,
+                                         kernel_size=(3, 1, 1))
+        self.fusion_hook = fusion_hook
+
+    @staticmethod
+    def out_depth(sparse_z: int) -> int:
+        """Z extent of the BEV output: three stride-2 z convs (pads 1, 1,
+        0), then `conv_out` (kernel 3, stride 2, no pad)."""
+        z = sparse_z
+        for pad in (1, 1, 0, 0):
+            z = (z + 2 * pad - 3) // 2 + 1
+        return z
+
+    def _fuse(self, x: SparseTensor, stage: str, fusion_kwargs):
+        if self.fusion_hook is None or not fusion_kwargs:
+            return x
+        stages.mark("backbone_3d")
+        return self.fusion_hook(x, stage=stage, **fusion_kwargs)
+
+    def forward(self, st: SparseTensor, stage_caps: Sequence[int],
+                fusion_kwargs: dict | None = None):
+        """stage_caps: static max voxel counts at strides 1, 2, 4, 8
+        (`conv_out` shares the last); fusion_kwargs the hook's inputs.
+
+        -> (BEV map (B, Y, X, Z*C), per-stage tensors, cap overflows)."""
+        _, n2, n3, n4 = stage_caps
+        overflow = {}
+
+        plan1 = build_subm_plan(st, 3)
+        x = self.conv_input(st, plan1)
+        x_conv1 = self._fuse(self.conv1(x, plan1), "conv1", fusion_kwargs)
+
+        down2 = build_conv_plan(x_conv1, 3, 2, 1, max_out=n2)
+        overflow["cap_overflow_down2"] = _overflow(down2)
+        x = self.down2(x_conv1, down2)
+        plan2 = build_subm_plan(x, 3)
+        x_conv2 = self.conv2b(self.conv2a(x, plan2), plan2)
+
+        down3 = build_conv_plan(x_conv2, 3, 2, 1, max_out=n3)
+        overflow["cap_overflow_down3"] = _overflow(down3)
+        x = self.down3(x_conv2, down3)
+        plan3 = build_subm_plan(x, 3)
+        x_conv3 = self.conv3b(self.conv3a(x, plan3), plan3)
+
+        down4 = build_conv_plan(x_conv3, 3, 2, (0, 1, 1), max_out=n4)
+        overflow["cap_overflow_down4"] = _overflow(down4)
+        x = self.down4(x_conv3, down4)
+        plan4 = build_subm_plan(x, 3)
+        x_conv4 = self._fuse(self.conv4b(self.conv4a(x, plan4), plan4),
+                             "conv4", fusion_kwargs)
+
+        out_plan = build_conv_plan(x_conv4, (3, 1, 1), (2, 1, 1), 0,
+                                   max_out=n4)
+        overflow["cap_overflow_out"] = _overflow(out_plan)
+        bev = height_compress(self.conv_out(x_conv4, out_plan))
+        stages.mark("backbone_3d")
+        ms = {"conv1": x_conv1, "conv2": x_conv2, "conv3": x_conv3,
+              "conv4": x_conv4}
+        return bev, ms, overflow

@@ -1,11 +1,13 @@
 """3D Dual-Fusion, the camera+LiDAR detectors (port of `FusedConfig`,
-`ImageBranch`, `CenterPoint3DDF` and `TransFusion3DDF` in
+`ImageBranch`, `VoxelRCNN3DDF`, `CenterPoint3DDF` and `TransFusion3DDF` in
 df3d/models/detectors/fused.py).
 
 Six (or `num_cams`) camera images go through the image branch (DeepLabV3
-taps for CenterPoint + 3D-DF, ResNet-50 + FPN for TransFusion + 3D-DF);
-the multi-camera ACTR hook (IFAT + LT + dual-query deformable attention)
-fuses them into the stride-8 voxels of the LiDAR detector's backbone.
+taps for CenterPoint + 3D-DF and Voxel R-CNN + 3D-DF, ResNet-50 + FPN for
+TransFusion + 3D-DF); the ACTR hook (IFAT + LT + dual-query deformable
+attention) fuses them into the stride-8 voxels of the LiDAR detector's
+backbone. Voxel R-CNN + 3D-DF (KITTI) has one camera and also sums the
+nearest image features into its stride-1 voxels (MVX).
 `.eval()` serves; `.train()` trains the LiDAR detector and the fusion hook
 (CenterPoint + 3D-DF's training step is `train.trainer.FusedTrainStep`).
 The image branch is frozen, as the JAX package's default
@@ -14,7 +16,7 @@ runs under `torch.no_grad()` on its running statistics and has
 `requires_grad=False` parameters (the JAX package's `stop_gradient` on its
 features). Not ported here: an image branch that trains (no configuration
 of either package asks for one), the 'swin', 'dla' and 'regnet' image
-branches, the auxiliary segmentation head and `VoxelRCNN3DDF`.
+branches and the auxiliary segmentation head.
 """
 
 from __future__ import annotations
@@ -27,9 +29,11 @@ from torch import nn
 from df3d_torch.models.detectors.centerpoint import (
     CenterPoint, CenterPointConfig,
 )
+from df3d_torch.models.backbones_3d import VoxelBackBone8x
 from df3d_torch.models.detectors.transfusion import (
     TransFusionConfig, TransFusionL,
 )
+from df3d_torch.models.detectors.voxel_rcnn import VoxelRCNN, VoxelRCNNConfig
 from df3d_torch.models.fusion.actr import ACTR, ACTRConfig
 from df3d_torch.models.fusion.hooks import (
     ACTRFusionSpec, MultiCamACTRFusionHook,
@@ -89,7 +93,8 @@ class _CameraLidar3DDF(nn.Module):
     the image branch in front. Build, call `init_weights` (or load a state
     dict), then `.eval()` or `.train()`."""
 
-    def __init__(self, detector_cls, cfg, fused: FusedConfig):
+    def __init__(self, detector_cls, cfg, fused: FusedConfig,
+                 voxel_channels: int = 128, mvx_channels: int | None = None):
         super().__init__()
         self.cfg, self.fused = cfg, fused
         self.image_branch = ImageBranch(fused).requires_grad_(False).eval()
@@ -98,15 +103,16 @@ class _CameraLidar3DDF(nn.Module):
                               use_ifat=fused.use_ifat)
         hook = MultiCamACTRFusionHook(
             spec, cfg.voxel_size, cfg.pc_range, fused.image_shape,
-            fused.num_cams, voxel_channels=128,
-            image_channels=self.image_branch.channels)
+            fused.num_cams, voxel_channels=voxel_channels,
+            image_channels=self.image_branch.channels,
+            mvx_channels=mvx_channels)
         self.detector = detector_cls(cfg, fusion_hook=hook)
 
     def forward(self, voxel_features: torch.Tensor,
                 voxel_coords: torch.Tensor, images: torch.Tensor,
                 proj: torch.Tensor):
         """images (B, n_cam, H, W, 3) normalized; proj (B, n_cam, 3, 4)
-        lidar -> image. Returns (preds, ms, overflow) like the detector."""
+        lidar -> image. Returns what the detector returns."""
         b, nc = images.shape[:2]
         flat = images.reshape(b * nc, *images.shape[2:])
         with torch.no_grad():
@@ -155,6 +161,28 @@ class _CameraLidar3DDF(nn.Module):
                 m.sampling_offsets.bias.copy_(offset_bias_grid(
                     m.n_heads, m.n_levels, m.n_points))
         return self
+
+
+class VoxelRCNN3DDF(_CameraLidar3DDF):
+    """Voxel R-CNN + MVX at stride 1 + ACTRv2 hybrid at stride 8 + IFAT
+    (KITTI, one camera): the first stage; its proposals go to the plain
+    `VoxelRCNNHead`. MVX is always on, as the JAX package's default
+    `mvx_early` has it (no configuration turns it off)."""
+
+    def __init__(self, cfg: VoxelRCNNConfig, fused: FusedConfig):
+        if fused.num_cams != 1:
+            raise ValueError("Voxel R-CNN + 3D-DF has one camera")
+        channels = VoxelBackBone8x.CHANNELS
+        super().__init__(VoxelRCNN, cfg, fused, voxel_channels=channels[3],
+                         mvx_channels=channels[0])
+
+    def forward(self, voxel_features: torch.Tensor,
+                voxel_coords: torch.Tensor, images: torch.Tensor,
+                proj: torch.Tensor):
+        """images (B, H, W, 3) normalized; proj (B, 3, 4) lidar -> image.
+        -> (preds, overflow) as `VoxelRCNN`."""
+        return super().forward(voxel_features, voxel_coords,
+                               images[:, None], proj[:, None])
 
 
 class CenterPoint3DDF(_CameraLidar3DDF):

@@ -1,15 +1,17 @@
-"""The multi-camera ACTR fusion hook (port of
-`make_multicam_actr_fusion_hook` in df3d/models/fusion/hooks.py).
+"""The ACTR fusion hook (port of `make_multicam_actr_fusion_hook` and
+`make_actr_fusion_hook` in df3d/models/fusion/hooks.py).
 
 The cameras fold into the batch axis: the stage's voxel queries become
 (B * n_cam, N, ...) with a visibility mask per camera; the image query is
 the nearest-pixel image feature at each voxel's projection; IFAT gates the
 camera features; ACTR enhances the queries; the enhancements of all
-cameras are summed back into the voxel stream. The hook is a module whose
-children (`ifat`, `actr`, `actr_out_proj`) sit under the backbone, where
-flax puts them. The single-camera hook (MVX early fusion at stride 1) and
-the bilinear image query are not on the CenterPoint + 3D-DF path and are
-not ported.
+cameras are summed back into the voxel stream. With one camera this is the
+JAX package's single-camera hook (Voxel R-CNN + 3D-DF, KITTI), which also
+runs MVX early fusion on the stride-1 voxels: the nearest image query of
+every level through `mvx_proj`, summed in where the camera sees the voxel.
+The hook is a module whose children (`mvx_proj`, `ifat`, `actr`,
+`actr_out_proj`) sit under the backbone, where flax puts them. The
+bilinear image query is not on a ported path and is not ported.
 
 Gradients in training, as JAX's autodiff gives them: the image query reads
 the frozen image branch's features and gets none; the IFAT gate's splat
@@ -26,7 +28,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from df3d_torch.core.calib import voxel_centers_from_coords
+from df3d_torch.core.calib import voxel_centers_fma
 from df3d_torch.models.fusion.actr import ACTR, ACTRConfig
 from df3d_torch.models.fusion.ifat import IFATGate
 from df3d_torch.models.fusion.projection import (
@@ -63,15 +65,19 @@ class ACTRFusionSpec:
 
 
 class MultiCamACTRFusionHook(nn.Module):
-    """forward(st, image_feats, proj) -> st with the fused features.
+    """forward(st, image_feats, proj, stage=None) -> st with the fused
+    features.
 
     image_feats: per level (B, n_cam, H_l, W_l, C_l); proj (B, n_cam, 3, 4)
     lidar -> image matrices; st the stage's SparseTensor, whose features
-    are `voxel_channels` wide."""
+    are `voxel_channels` wide (`mvx_channels` wide at `stage="conv1"`,
+    where the MVX sum runs if `mvx_channels` is given; any other stage
+    runs ACTR)."""
 
     def __init__(self, spec: ACTRFusionSpec, voxel_size, pc_range,
                  image_shape, num_cams: int, voxel_channels: int,
-                 image_channels: Sequence[int]):
+                 image_channels: Sequence[int],
+                 mvx_channels: int | None = None):
         super().__init__()
         self.spec = spec
         self.voxel_size, self.pc_range = tuple(voxel_size), tuple(pc_range)
@@ -81,17 +87,39 @@ class MultiCamACTRFusionHook(nn.Module):
         self.actr = ACTR(spec.actr, voxel_channels, sum(image_channels),
                          image_channels)
         self.actr_out_proj = nn.Linear(spec.actr.d_model, voxel_channels)
+        if mvx_channels is not None:
+            if num_cams != 1:
+                raise ValueError("MVX early fusion is the single-camera "
+                                 "hook's")
+            self.mvx_proj = nn.Linear(sum(image_channels), mvx_channels)
 
-    def forward(self, st: SparseTensor, image_feats, proj) -> SparseTensor:
-        b, n, c = st.features.shape
-        nc = self.num_cams
+    def _project(self, st, image_feats, proj, downsample):
+        """Per camera (folded into the batch): uv (B*n_cam, N, 2), mask
+        (B*n_cam, N), the image feature maps and the image query."""
+        b, n, _ = st.features.shape
         uv, _, mask = project_voxels_to_image(
             st.coords, st.valid, proj, self.image_shape, self.voxel_size,
-            self.pc_range, downsample=self.spec.downsample)
-        uv = uv.reshape(b * nc, n, 2)
-        mask_f = mask.reshape(b * nc, n)
-        cam_feats = [f.reshape(b * nc, *f.shape[2:]) for f in image_feats]
-        i_query = gather_image_query(cam_feats, uv, mask_f)
+            self.pc_range, downsample=downsample)
+        uv = uv.reshape(b * self.num_cams, n, 2)
+        mask_f = mask.reshape(b * self.num_cams, n)
+        cam_feats = [f.reshape(-1, *f.shape[2:]) for f in image_feats]
+        return uv, mask_f, cam_feats, gather_image_query(cam_feats, uv,
+                                                         mask_f)
+
+    def forward(self, st: SparseTensor, image_feats, proj,
+                stage=None) -> SparseTensor:
+        b, n, c = st.features.shape
+        nc = self.num_cams
+        if stage == "conv1":
+            if not hasattr(self, "mvx_proj"):
+                return st
+            _, mask_f, _, i_query = self._project(st, image_feats, proj, 1)
+            iq = self.mvx_proj(i_query) * mask_f[..., None]
+            stages.mark("mvx")
+            return st.with_features(st.features
+                                    + iq.reshape(b, nc, n, c).sum(1))
+        uv, mask_f, cam_feats, i_query = self._project(
+            st, image_feats, proj, self.spec.downsample)
         q_feat_rep = st.features.repeat_interleave(nc, 0)
 
         feats_for_actr = cam_feats
@@ -101,7 +129,9 @@ class MultiCamACTRFusionHook(nn.Module):
                                        [mask_f] * k)
         stages.mark("ifat")
 
-        centers = voxel_centers_from_coords(
+        # rounded as under `jit`: LT's ball query decides pairs that lie
+        # on its radius by the centres' last bit
+        centers = voxel_centers_fma(
             st.coords, self.voxel_size, self.pc_range, self.spec.downsample)
         enh = self.actr(q_feat_rep, i_query, uv,
                         centers.repeat_interleave(nc, 0), mask_f,

@@ -35,7 +35,7 @@ def _sqdist(xyz: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return (d[..., 2] * d[..., 2] + acc).float()
 
 
-def _fma_dot3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def fma_dot3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """sum_i a_i b_i over the last axis (3) of f32 a and b, as a fused
     multiply-add chain: each product is exact in f64 and each partial sum
     is rounded to f32 once."""
@@ -50,9 +50,9 @@ def pairwise_dist2(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     2 a.b, rounded as XLA computes it under `jit`: both norms and the dot
     product as fused multiply-add chains, then (|a|^2 + |b|^2) - 2 a.b.
     a (..., S, 3), b (..., N, 3) -> (..., S, N)."""
-    a2 = _fma_dot3(a, a)
-    b2 = _fma_dot3(b, b)
-    ab = _fma_dot3(a[..., :, None, :], b[..., None, :, :])
+    a2 = fma_dot3(a, a)
+    b2 = fma_dot3(b, b)
+    ab = fma_dot3(a[..., :, None, :], b[..., None, :, :])
     return (a2[..., :, None] + b2[..., None, :]) - 2.0 * ab
 
 

@@ -10,6 +10,11 @@ seed gives the same frame as the JAX package's generator.
 
 ``camera_rig`` is test data of the port's own: a nuScenes-like ring of six
 pinhole cameras around the lidar.
+
+``make_kitti_frame`` and ``kitti_camera`` are the port's own too: one sweep
+of a 64-beam lidar over the same kind of scene, cut to the front camera's
+field of view as pcdet's KITTI pipeline cuts it (FOV_POINTS_ONLY), and that
+camera's lidar -> image projection with KITTI's published P2 intrinsics.
 """
 
 from __future__ import annotations
@@ -196,3 +201,68 @@ def camera_rig(num_cams: int = 6, image_shape=(448, 800)) -> np.ndarray:
         center = 0.5 * fwd + np.array([0.0, 0.0, -0.3])
         out.append(k @ np.concatenate([rot, -rot @ center[:, None]], 1))
     return np.stack(out).astype(np.float32)
+
+
+# KITTI's front colour camera (P2 of the raw recordings' calibration,
+# 2011_09_26): focal length and principal point in pixels of the 375x1242
+# image, and P2's fourth column (the camera's offset from the reference
+# camera); the lidar sits 0.27 m behind it, 0.08 m above and 0.004 m left
+KITTI_P2 = ((721.5377, 0.0, 609.5593, 44.85728),
+            (0.0, 721.5377, 172.854, 0.2163791),
+            (0.0, 0.0, 1.0, 0.002745884))
+KITTI_VELO_TO_CAM_T = (-0.004069766, -0.07631618, -0.2717806)
+KITTI_IMAGE = (375, 1242)
+
+
+def kitti_camera(scale: float = 1.0) -> np.ndarray:
+    """(3, 4) float32 lidar -> image projection of KITTI's front camera:
+    lidar axes (x forward, y left, z up) to camera axes (right, down,
+    forward), KITTI's lidar-to-camera translation, then P2. The 375x1242
+    image pads at its bottom and right to 384x1280, which moves no pixel;
+    `scale` scales the pixel coordinates for a resized image."""
+    rot = np.array([[0.0, -1.0, 0.0], [0.0, 0.0, -1.0], [1.0, 0.0, 0.0]])
+    velo_to_cam = np.concatenate(
+        [rot, np.asarray(KITTI_VELO_TO_CAM_T)[:, None]], 1)
+    p2 = np.asarray(KITTI_P2)
+    proj = p2[:, :3] @ velo_to_cam
+    proj[:, 3] += p2[:, 3]
+    proj[:2] *= scale
+    return proj.astype(np.float32)
+
+
+def make_kitti_frame(rng: np.random.RandomState, n_azimuth: int = 2600,
+                     n_beams: int = 64) -> np.ndarray:
+    """Ray-cast single-sweep 64-beam lidar frame (an HDL-64E's elevations,
+    +2 to -24.8 degrees, at `n_azimuth` steps a turn) over the scene of
+    `make_raycast_frame` with the ego lane clear, cut to the points in
+    KITTI's front camera image and in Voxel R-CNN's range (x 0..70.4,
+    |y| < 40, -3 < z < 1) -> (P, 4) float32 x, y, z, intensity. About 20k
+    points, as a KITTI frame has in the camera's field of view (12k-17k
+    voxels at 0.05 m)."""
+    c, dims, yaw, _ = _scene(rng)
+    # the road ahead is clear: nothing stands in the ego lane's 40 m (the
+    # scene's ground lies 1.8 m below the lidar, the HDL-64E's 1.73 m)
+    free = ~((c[:, 0] > 0) & (c[:, 0] < 40) & (np.abs(c[:, 1]) < 4))
+    c, dims, yaw = c[free], dims[free], yaw[free]
+    el = np.deg2rad(np.linspace(2.0, -24.8, n_beams))
+    # only the azimuths the camera can see (+-41 degrees) are cast
+    az = (np.arange(n_azimuth) + rng.rand()) * (2 * np.pi / n_azimuth)
+    az = az[(az < np.deg2rad(45.0)) | (az > np.deg2rad(315.0))]
+    azg, elg = np.meshgrid(az, el, indexing="ij")
+    dirs = np.stack([np.cos(elg) * np.cos(azg), np.cos(elg) * np.sin(azg),
+                     np.sin(elg)], -1).reshape(-1, 3)
+    t = _cast(np.zeros(3), dirs, c, dims, yaw)
+    keep = np.isfinite(t) & (t < 120.0) & (t > 1.0)
+    keep &= rng.rand(len(t)) > 0.06  # dropout
+    p = dirs[keep] * (t[keep, None] + 0.015 * rng.randn(keep.sum(), 1))
+    proj = kitti_camera()
+    uvw = p @ proj[:, :3].T + proj[:, 3]
+    depth = uvw[:, 2]
+    u = uvw[:, 0] / np.maximum(depth, 1e-6)
+    v = uvw[:, 1] / np.maximum(depth, 1e-6)
+    h, w = KITTI_IMAGE
+    m = (depth > 0) & (u >= 0) & (u < w) & (v >= 0) & (v < h)
+    m &= ((p[:, 0] >= 0) & (p[:, 0] < 70.4) & (np.abs(p[:, 1]) < 40)
+          & (p[:, 2] > -3) & (p[:, 2] < 1))
+    p = p[m]
+    return np.concatenate([p, rng.rand(len(p), 1)], 1).astype(np.float32)

@@ -17,10 +17,14 @@ into a `state_dict` for `model`:
   `DenseGeneral` kernels `(in, heads, head_dim)` (query/key/value) and
   `(heads, head_dim, out)` (out), and a 1x1 Conv kernel `(1, 1, in, out)`
   that the port runs as a Linear, flatten to `(in, out)` first;
-* the multi-camera fusion hook's children (`ifat`, `actr`,
-  `actr_out_proj`), which flax puts under the backbone (CenterPoint's
-  `backbone`, TransFusion's `middle_encoder`), live under the backbone's
-  `fusion_hook` module.
+* the fusion hook's children (`mvx_proj`, `ifat`, `actr`,
+  `actr_out_proj`), which flax puts under the backbone (CenterPoint's and
+  Voxel R-CNN's `backbone`, TransFusion's `middle_encoder`), live under
+  the backbone's `fusion_hook` module.
+
+`load_voxelrcnn(rpn, head, params, batch_stats)` carries Voxel R-CNN's
+two-part tree, `{"rpn": ..., "rcnn": ...}` in each collection (the tree the
+JAX package's `build_detector` makes), into its two modules.
 
 Flax names a module's children `<Class>_<i>` by creation order; the tables
 below give each torch module's attribute for them. A leaf that maps to no
@@ -34,7 +38,9 @@ import numpy as np
 import torch
 from torch import nn
 
-from df3d_torch.models.backbones_3d import SparseEncoder, SpMiddleResNetFHD
+from df3d_torch.models.backbones_3d import (
+    SparseEncoder, SpMiddleResNetFHD, VoxelBackBone8x,
+)
 from df3d_torch.models.fusion.actr import (
     ACTR, EncoderLayer, FusionEncoderLayer,
 )
@@ -51,7 +57,7 @@ from df3d_torch.models.necks import BEVBackbone
 from df3d_torch.train.trainer import create_train_state
 
 _HOOK_CHILDREN = {name: f"fusion_hook.{name}"
-                  for name in ("ifat", "actr", "actr_out_proj")}
+                  for name in ("mvx_proj", "ifat", "actr", "actr_out_proj")}
 _CHILD_NAMES = {
     SparseConvBNReLU: {"SubMConv3d_0": "conv", "SparseConv3d_0": "conv",
                        "MaskedBatchNorm_0": "bn"},
@@ -62,6 +68,7 @@ _CHILD_NAMES = {
     CenterHead: {"Conv_0": "shared_conv", "BatchNorm_0": "shared_bn"},
     SpMiddleResNetFHD: _HOOK_CHILDREN,
     SparseEncoder: _HOOK_CHILDREN,
+    VoxelBackBone8x: _HOOK_CHILDREN,
     PositionEmbeddingLearned: {"Dense_0": "fc0", "Dense_1": "fc1"},
     DecoderLayer: {"LayerNorm_0": "norm1", "LayerNorm_1": "norm2",
                    "LayerNorm_2": "norm3", "Dense_0": "ff1", "Dense_1": "ff2"},
@@ -178,6 +185,18 @@ def state_dict_from_flax(model: nn.Module, variables) -> dict:
         if k.endswith("num_batches_tracked"):
             out[k] = torch.zeros((), dtype=torch.long)
     return out
+
+
+def load_voxelrcnn(rpn: nn.Module, head: nn.Module, params,
+                   batch_stats) -> None:
+    """Voxel R-CNN's flax variables, {"rpn": ..., "rcnn": ...} in `params`
+    and in `batch_stats`, carried into the first stage `rpn` (`VoxelRCNN`
+    or `VoxelRCNN3DDF`) and the `VoxelRCNNHead` (strictly, as
+    `state_dict_from_flax`)."""
+    for part, module in (("rpn", rpn), ("rcnn", head)):
+        module.load_state_dict(state_dict_from_flax(
+            module, {"params": params[part],
+                     "batch_stats": batch_stats[part]}))
 
 
 def params_from_flax(model: nn.Module, tree) -> dict:

@@ -125,6 +125,20 @@ def test_transfusion_entries_without_cuda_raise():
         entry_mod.build_transfusion3ddf(preset["lidar"], fcfg)
 
 
+def test_voxelrcnn_entries_without_cuda_raise():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    cfg = entry_mod.voxel_rcnn_car_kitti()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        entry_mod.build_voxelrcnn(cfg)
+    preset = entry_mod.voxel_rcnn_3ddf_kitti()
+    fcfg = entry_mod.fused_config(preset)
+    assert (fcfg.num_cams, fcfg.image_shape, fcfg.image_branch,
+            fcfg.n_levels) == (1, (384, 1280), "deeplabv3", 3)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        entry_mod.build_voxelrcnn3ddf(preset["lidar"], fcfg)
+
+
 def test_k1_launcher_raises_on_cpu_tensors():
     """The launcher never computes the plain version: that is reached only
     through the CPU-tensor branch of apply_sparse_conv."""
