@@ -3,7 +3,8 @@ df3d/core/box_coders.py).
 
 `ResidualCoder.decode` turns Voxel R-CNN's anchor-relative 7-dof residuals
 (pcdet's convention) back into boxes; it is on the serving path of both
-stages (anchors, and RoIs in their canonical frame).
+stages (anchors, and RoIs in their canonical frame). `encode` makes both
+stages' regression targets in training.
 
 `TransFusionBBoxCoder.encode` takes bottom-centre 9-dof boxes (x, y, z,
 dx, dy, dz, heading, vx, vy) and gives the 10-wide code (x, y in BEV feature pixels,
@@ -58,6 +59,25 @@ class TransFusionBBoxCoder:
 class ResidualCoder:
     """Anchor-relative 7-dof residual coder (pcdet convention), the JAX
     package's default (no sin/cos heading). Leading batch dims broadcast."""
+
+    def encode(self, boxes: torch.Tensor,
+               anchors: torch.Tensor) -> torch.Tensor:
+        """Boxes (..., 7) relative to anchors (..., 7): centre offsets over
+        the anchor's BEV diagonal (z over its height), log size ratios
+        (sizes floored at 1e-5), heading difference."""
+        anchors = torch.cat([anchors[..., :3],
+                             anchors[..., 3:6].clamp_min(1e-5),
+                             anchors[..., 6:]], -1)
+        boxes = torch.cat([boxes[..., :3], boxes[..., 3:6].clamp_min(1e-5),
+                           boxes[..., 6:]], -1)
+        xa, ya, za = anchors[..., 0], anchors[..., 1], anchors[..., 2]
+        dxa, dya, dza = anchors[..., 3], anchors[..., 4], anchors[..., 5]
+        diag = torch.sqrt(dxa ** 2 + dya ** 2)
+        return torch.stack([
+            (boxes[..., 0] - xa) / diag, (boxes[..., 1] - ya) / diag,
+            (boxes[..., 2] - za) / dza, torch.log(boxes[..., 3] / dxa),
+            torch.log(boxes[..., 4] / dya), torch.log(boxes[..., 5] / dza),
+            boxes[..., 6] - anchors[..., 6]], -1)
 
     def decode(self, encodings: torch.Tensor,
                anchors: torch.Tensor) -> torch.Tensor:

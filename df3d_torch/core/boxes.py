@@ -1,5 +1,5 @@
 """3D box geometry (port of df3d/core/boxes.py): what the IoU, the anchor
-decode and the RoI grid need.
+decode, the RoI grid and the RCNN corner loss need.
 
 Box convention as in the JAX package: 7-dof ``(cx, cy, cz, dx, dy, dz,
 heading)`` with ``cz`` the gravity center and ``heading`` the CCW rotation
@@ -13,6 +13,10 @@ import math
 import torch
 
 _BEV_SIGNS = ((1.0, 1.0), (-1.0, 1.0), (-1.0, -1.0), (1.0, -1.0))
+# pcdet's corner order: the 4 bottom corners, then the 4 top ones, from
+# (+x, +y)
+_CORNER_SIGNS = ((1, 1, -1), (1, -1, -1), (-1, -1, -1), (-1, 1, -1),
+                 (1, 1, 1), (1, -1, 1), (-1, -1, 1), (-1, 1, 1))
 
 
 def boxes_bev_corners(boxes: torch.Tensor) -> torch.Tensor:
@@ -45,3 +49,12 @@ def rotate_points_along_z(points: torch.Tensor,
     xr = ((c * x).float().double() - s * y).float()
     yr = ((s * x).float().double() + c * y).float()
     return torch.cat([torch.stack([xr, yr], -1), points[..., 2:]], -1)
+
+
+def boxes_to_corners_3d(boxes: torch.Tensor) -> torch.Tensor:
+    """(..., 7) -> (..., 8, 3) corner points, in pcdet's order."""
+    signs = torch.tensor(_CORNER_SIGNS, dtype=boxes.dtype,
+                         device=boxes.device)
+    corners = 0.5 * boxes[..., None, 3:6] * signs
+    corners = rotate_points_along_z(corners, boxes[..., 6])
+    return corners + boxes[..., None, :3]

@@ -1,5 +1,6 @@
 """Rotated BEV and 3D IoU (port of df3d/core/iou.py: `iou_bev`,
-`iou_bev_chunked`, `iou_3d`).
+`iou_bev_chunked`, `iou_3d`), and the axis-aligned `iou_nearest_bev` of the
+anchor target assigner.
 
 The intersection area of two rotated rectangles is the branch-free
 Green's-theorem clipping of the JAX package: the boundary of A∩B is made of
@@ -13,6 +14,8 @@ Every function broadcasts over leading batch dims, so the NMS of all
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -109,3 +112,35 @@ def iou_3d(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -> torch.Tensor:
     vol_b = boxes_b[..., 3] * boxes_b[..., 4] * boxes_b[..., 5]
     union = vol_a[..., :, None] + vol_b[..., None, :] - inter
     return inter / torch.clamp_min(union, _EPS)
+
+
+def iou_nearest_bev(boxes_a: torch.Tensor,
+                    boxes_b: torch.Tensor) -> torch.Tensor:
+    """Axis-aligned BEV IoU after snapping each heading to the nearest
+    multiple of pi/2 (pcdet's boxes3d_nearest_bev_iou, which its anchor
+    target assigner uses): (N, 7), (M, 7) -> (N, M).
+
+    Rounded as XLA computes the JAX package's under `jit`: the union's
+    area_a + area_b as one fused multiply-add of b's sides onto area_a (the
+    product exact in f64, one f32 rounding). On a lattice of anchors two
+    anchors symmetric about a gt tie in exact arithmetic, and that last bit
+    decides which one the target assigner forces and whether an IoU
+    reaches a threshold."""
+
+    def to_aabb(boxes):
+        swap = torch.sin(boxes[:, 6]).abs() > math.sqrt(0.5)
+        dx = torch.where(swap, boxes[:, 4], boxes[:, 3])
+        dy = torch.where(swap, boxes[:, 3], boxes[:, 4])
+        return torch.stack([boxes[:, 0] - dx / 2, boxes[:, 1] - dy / 2,
+                            boxes[:, 0] + dx / 2, boxes[:, 1] + dy / 2], -1)
+
+    aa, bb = to_aabb(boxes_a), to_aabb(boxes_b)
+    lt = torch.maximum(aa[:, None, :2], bb[None, :, :2])
+    rb = torch.minimum(aa[:, None, 2:], bb[None, :, 2:])
+    wh = (rb - lt).clamp_min(0.0)
+    inter = wh[..., 0] * wh[..., 1]
+    area_a = (aa[:, 2] - aa[:, 0]) * (aa[:, 3] - aa[:, 1])
+    sides_b = (bb[:, 2:] - bb[:, :2]).double()
+    areas = (area_a[:, None].double()
+             + (sides_b[:, 0] * sides_b[:, 1])[None, :]).float()
+    return inter / torch.clamp_min(areas - inter, _EPS)

@@ -33,6 +33,13 @@
   seed)` and `infer_voxelrcnn_fused(rpn, head, cfg, points, valid,
   images, proj)` (the same function): Voxel R-CNN + 3D-DF with its one
   camera.
+* `build_voxelrcnn_trainer(cfg, device, seed)` and
+  `build_voxelrcnn3ddf_trainer(cfg, fcfg, device, seed)`: both stages of
+  Voxel R-CNN (or Voxel R-CNN + 3D-DF, image branch frozen) in one
+  `VoxelRCNNTwoStage` with random weights in training mode, its
+  `TrainState` and the step (`train.trainer.VoxelRCNNTrainStep`):
+  `step(state, batch, generator) -> (state, logs)`, the generator drawing
+  the RoI sampler's noise on the step's device.
 * `voxel_rcnn_car_kitti()`, `voxel_rcnn_3ddf_kitti()`,
   `centerpoint_3ddf_nusc()`, `transfusion_l_nusc()` and
   `transfusion_3ddf_nusc()` are the port's copies of the JAX package's
@@ -58,8 +65,8 @@ from df3d_torch.models.detectors.transfusion import (
     TransFusionConfig, TransFusionL, transfusion_predict,
 )
 from df3d_torch.models.detectors.voxel_rcnn import (
-    VoxelRCNN, VoxelRCNNConfig, init_head_weights, proposal_layer,
-    voxel_rcnn_post_processing,
+    VoxelRCNN, VoxelRCNNConfig, VoxelRCNNTwoStage, init_head_weights,
+    proposal_layer, voxel_rcnn_post_processing,
 )
 from df3d_torch.models.fusion.actr import ACTRConfig
 from df3d_torch.models.heads.voxelrcnn_head import VoxelRCNNHead
@@ -67,8 +74,9 @@ from df3d_torch.ops.voxelize import voxelize_batch
 from df3d_torch.train.schedules import adam_onecycle
 from df3d_torch.train.trainer import (
     CenterPointTrainStep, FusedTrainStep, TrainState, TransFusionTrainStep,
-    create_train_state, make_centerpoint_train_step, make_fused_train_step,
-    make_transfusion_train_step,
+    VoxelRCNNTrainStep, create_train_state, make_centerpoint_train_step,
+    make_fused_train_step, make_transfusion_train_step,
+    make_voxelrcnn_train_step,
 )
 from df3d_torch.utils import stages
 
@@ -250,6 +258,33 @@ def build_voxelrcnn3ddf(cfg: VoxelRCNNConfig, fcfg: FusedConfig,
     g = torch.Generator().manual_seed(seed)
     rpn = VoxelRCNN3DDF(cfg, fcfg).init_weights(g).to(device).eval()
     return rpn, _voxelrcnn_head(cfg, g, device)
+
+
+def _voxelrcnn_trainer(rpn, head, cfg, fused: bool):
+    model = VoxelRCNNTwoStage(rpn, head).train()
+    state = create_train_state(model, adam_onecycle(1e-3, 2000))
+    return state, make_voxelrcnn_train_step(cfg, fused)
+
+
+def build_voxelrcnn_trainer(cfg: VoxelRCNNConfig, device=None, seed: int = 0
+                            ) -> tuple[TrainState, VoxelRCNNTrainStep]:
+    """(state, step) for training Voxel R-CNN on `device`: both stages in
+    one `VoxelRCNNTwoStage`, random weights drawn from `seed` as
+    `build_voxelrcnn` draws them, `build_centerpoint_trainer`'s AdamW and
+    OneCycle over both stages."""
+    return _voxelrcnn_trainer(*build_voxelrcnn(cfg, device, seed), cfg,
+                              fused=False)
+
+
+def build_voxelrcnn3ddf_trainer(cfg: VoxelRCNNConfig, fcfg: FusedConfig,
+                                device=None, seed: int = 0
+                                ) -> tuple[TrainState, VoxelRCNNTrainStep]:
+    """As `build_voxelrcnn_trainer`, for Voxel R-CNN + 3D-DF (weights as
+    `build_voxelrcnn3ddf` draws them); the state's parameters leave out the
+    frozen image branch, and the batch carries images (B, H, W, 3) and proj
+    (B, 3, 4)."""
+    return _voxelrcnn_trainer(*build_voxelrcnn3ddf(cfg, fcfg, device, seed),
+                              cfg, fused=True)
 
 
 @torch.no_grad()

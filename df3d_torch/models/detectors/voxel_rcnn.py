@@ -1,4 +1,4 @@
-"""Voxel R-CNN, KITTI's two-stage detector, its serving path (port of
+"""Voxel R-CNN, KITTI's two-stage detector (port of
 df3d/models/detectors/voxel_rcnn.py).
 
 voxel features + coords -> `VoxelBackBone8x` (fully sparse) ->
@@ -6,8 +6,12 @@ height compression -> `BEVBackbone` -> `AnchorHeadSingle` (the RPN,
 `VoxelRCNN`), then `proposal_layer` (anchor decode + rotated NMS to fixed
 proposals), `VoxelRCNNHead` (RoI grid pooling over conv2..conv4 and the
 refinement FCs) and `voxel_rcnn_post_processing` (decode, rotated NMS,
-score threshold). The mean VFE is fused into the voxelizer. Target
-assignment and the losses (training) are not ported yet.
+score threshold). The mean VFE is fused into the voxelizer.
+
+Training: `assign_rpn_targets` (per class, `assign_anchor_targets`),
+`proposal_layer(train=True)` (its own NMS settings), the head's proposal
+target layer and `voxel_rcnn_train_losses`; `VoxelRCNNTwoStage` holds both
+stages as one module, as the JAX package's `{"rpn", "rcnn"}` trees do.
 """
 
 from __future__ import annotations
@@ -23,10 +27,11 @@ from df3d_torch.core.nms import nms_bev
 from df3d_torch.models.backbones_3d import VoxelBackBone8x
 from df3d_torch.models.detectors.centerpoint import init_detector_weights
 from df3d_torch.models.heads.anchor_head import (
-    AnchorClassCfg, AnchorHeadSingle, anchor_head_decode, generate_anchors,
+    AnchorClassCfg, AnchorHeadSingle, anchor_head_decode, anchor_head_loss,
+    assign_anchor_targets, generate_anchors,
 )
 from df3d_torch.models.heads.voxelrcnn_head import (
-    VoxelRCNNHead, VoxelRCNNHeadCfg, decode_rcnn_boxes,
+    VoxelRCNNHead, VoxelRCNNHeadCfg, decode_rcnn_boxes, rcnn_loss,
 )
 from df3d_torch.models.layers import flax_trunc_normal_
 from df3d_torch.models.necks import BEVBackbone
@@ -34,13 +39,13 @@ from df3d_torch.ops.sparse import SparseTensor
 from df3d_torch.utils import stages
 
 KITTI_CAR = AnchorClassCfg(
-    name="Car", size=(3.9, 1.6, 1.56), bottom_height=-1.78)
+    name="Car", size=(3.9, 1.6, 1.56), bottom_height=-1.78,
+    matched_threshold=0.6, unmatched_threshold=0.45)
 
 
 @dataclasses.dataclass(frozen=True)
 class VoxelRCNNConfig:
-    """The serving fields of the JAX package's `VoxelRCNNConfig` (pcdet's
-    voxel_rcnn_car.yaml; its training NMS settings belong to training)."""
+    """The JAX package's `VoxelRCNNConfig` (pcdet's voxel_rcnn_car.yaml)."""
 
     pc_range: tuple = (0.0, -40.0, -3.0, 70.4, 40.0, 1.0)
     voxel_size: tuple = (0.05, 0.05, 0.1)
@@ -51,7 +56,11 @@ class VoxelRCNNConfig:
     stage_caps: tuple = (16_000, 12_000, 8_000, 4_000)
     anchor_classes: tuple = (KITTI_CAR,)
     out_size_factor: int = 8
-    # proposals (pcdet NMS_CONFIG, test)
+    # proposals (pcdet NMS_CONFIG, train and test; pcdet's 9000 candidates
+    # capped to a top-k)
+    train_pre_nms: int = 1024
+    train_post_nms: int = 512
+    train_nms_thresh: float = 0.8
     test_pre_nms: int = 1024
     test_post_nms: int = 100
     test_nms_thresh: float = 0.7
@@ -152,16 +161,20 @@ def init_head_weights(head: VoxelRCNNHead,
 
 
 def proposal_layer(cfg: VoxelRCNNConfig, preds: dict,
-                   anchors: torch.Tensor):
+                   anchors: torch.Tensor, train: bool = False):
     """Anchor decode + rotated NMS -> fixed-size proposals: (rois (B, R,
-    7), roi_scores (B, R), roi_mask (B, R)), R = cfg.test_post_nms."""
+    7), roi_scores (B, R), roi_mask (B, R)), R = cfg.test_post_nms, or
+    cfg.train_post_nms with `train` (the training NMS settings)."""
     scores, boxes = anchor_head_decode(preds["cls"], preds["box"],
                                        preds["dir"], anchors,
                                        ResidualCoder())
     score = scores.amax(-1)
     stages.mark("rpn")
-    idx, mask = nms_bev(boxes, score, cfg.test_nms_thresh, cfg.test_pre_nms,
-                        cfg.test_post_nms)
+    if train:
+        nms = (cfg.train_nms_thresh, cfg.train_pre_nms, cfg.train_post_nms)
+    else:
+        nms = (cfg.test_nms_thresh, cfg.test_pre_nms, cfg.test_post_nms)
+    idx, mask = nms_bev(boxes, score, *nms)
     rois = boxes.gather(1, idx[..., None].expand(-1, -1, 7))
     roi_scores = score.gather(1, idx) * mask
     stages.mark("proposal")
@@ -184,3 +197,62 @@ def voxel_rcnn_post_processing(cfg: VoxelRCNNConfig, rois, roi_mask,
             "labels": torch.zeros(fs.shape, dtype=torch.int32,
                                   device=fs.device),
             "valid": keep & (fs > cfg.score_thresh)}
+
+
+def assign_rpn_targets(cfg: VoxelRCNNConfig, anchors: torch.Tensor,
+                       gt_boxes: torch.Tensor, gt_classes: torch.Tensor,
+                       gt_valid: torch.Tensor) -> dict:
+    """Every anchor's targets, batched: gt_boxes (B, M, 7), gt_classes (B,
+    M) class ids, gt_valid (B, M); each class's anchors assigned against its
+    own gts (`assign_anchor_targets`, the class's thresholds). -> dict
+    labels (B, A) in {-1, 0, 1}, reg_targets (B, A, 7), anchors (A, 7),
+    gt_classes_per_anchor (B, A)."""
+    cls_ids = anchor_class_ids(cfg, anchors.device)
+    coder = ResidualCoder()
+    b, a = gt_boxes.shape[0], anchors.shape[0]
+    labels = torch.zeros(b, a, dtype=torch.int32, device=anchors.device)
+    regs = anchors.new_zeros(b, a, 7)
+    gtc = torch.zeros(b, a, dtype=torch.int32, device=anchors.device)
+    for i in range(b):
+        for ci, ccfg in enumerate(cfg.anchor_classes):
+            sel = cls_ids == ci
+            lab, reg, _ = assign_anchor_targets(
+                anchors, gt_boxes[i], gt_valid[i] & (gt_classes[i] == ci),
+                ccfg.matched_threshold, ccfg.unmatched_threshold, coder)
+            labels[i] = torch.where(sel, lab, labels[i])
+            regs[i] = torch.where(sel[:, None], reg, regs[i])
+            gtc[i] = torch.where(sel, torch.full_like(gtc[i], ci), gtc[i])
+    return {"labels": labels, "reg_targets": regs, "anchors": anchors,
+            "gt_classes_per_anchor": gtc}
+
+
+def voxel_rcnn_train_losses(cfg: VoxelRCNNConfig, preds: dict,
+                            rcnn_out: dict, targets_rpn: dict,
+                            rcnn_targets: dict):
+    """Both stages' losses: `anchor_head_loss` on the RPN's maps and
+    `rcnn_loss` on the head's outputs for the sampled RoIs. -> (total,
+    logs of both and "loss")."""
+    rpn_total, rpn_logs = anchor_head_loss(
+        preds["cls"], preds["box"], preds["dir"], targets_rpn["labels"],
+        targets_rpn["reg_targets"], targets_rpn["anchors"],
+        targets_rpn["gt_classes_per_anchor"],
+        num_classes=len(cfg.anchor_classes))
+    rcnn_total, rcnn_logs = rcnn_loss(rcnn_out["cls"], rcnn_out["reg"],
+                                      rcnn_targets, cfg.rcnn)
+    total = rpn_total + rcnn_total
+    return total, {**rpn_logs, **rcnn_logs, "loss": total}
+
+
+class VoxelRCNNTwoStage(nn.Module):
+    """Both stages of Voxel R-CNN as one module, for training: `rpn` (a
+    `VoxelRCNN`, or a `VoxelRCNN3DDF` first stage) and `rcnn` (the
+    `VoxelRCNNHead`), named as the JAX package's {"rpn", "rcnn"} trees so
+    that its variables carry across as they are."""
+
+    def __init__(self, rpn: nn.Module, rcnn: VoxelRCNNHead):
+        super().__init__()
+        self.rpn, self.rcnn = rpn, rcnn
+
+    @property
+    def anchors(self) -> torch.Tensor:
+        return getattr(self.rpn, "detector", self.rpn).anchors

@@ -1,8 +1,9 @@
 """Detection losses (port of df3d/models/losses.py): the CenterPoint head's
 (det3d centernet_loss.py: CornerNet focal loss with gaussian-weighted
-negatives, masked L1 at the peak indices) and TransFusion's (mmdet's
+negatives, masked L1 at the peak indices), TransFusion's (mmdet's
 sigmoid focal loss on the queries' classes, Gaussian focal loss on the
-dense heatmap; its L1 on the encoded boxes is written in the head's loss)."""
+dense heatmap; its L1 on the encoded boxes is written in the head's loss)
+and Voxel R-CNN's (pcdet's sigmoid focal loss and weighted smooth-L1)."""
 
 from __future__ import annotations
 
@@ -52,6 +53,24 @@ def sigmoid_focal_loss(logits: torch.Tensor, targets: torch.Tensor,
     bce = (logits.clamp_min(0) - logits * targets
            + torch.log1p(torch.exp(-logits.abs())))
     loss = alpha_w * pt ** gamma * bce
+    if weights.dim() == loss.dim() - 1:
+        weights = weights[..., None]
+    return loss * weights
+
+
+def weighted_smooth_l1(pred: torch.Tensor, target: torch.Tensor,
+                       weights: torch.Tensor, beta: float = 1.0 / 9.0,
+                       code_weights=None) -> torch.Tensor:
+    """Per-element smooth-L1 times `weights` (pcdet WeightedSmoothL1Loss):
+    the difference scaled by `code_weights` per code channel, quadratic
+    below `beta`; weights of one dim fewer than the loss broadcast over
+    the code dim."""
+    diff = pred - target
+    if code_weights is not None:
+        diff = diff * torch.tensor(code_weights, dtype=diff.dtype,
+                                   device=diff.device)
+    n = diff.abs()
+    loss = torch.where(n < beta, 0.5 * n ** 2 / beta, n - 0.5 * beta)
     if weights.dim() == loss.dim() - 1:
         weights = weights[..., None]
     return loss * weights

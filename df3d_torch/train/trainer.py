@@ -1,7 +1,7 @@
-"""The training steps of CenterPoint, TransFusion-L and their 3D-DF fused
-detectors (port of df3d/train/trainer.py:23-75,
-`make_transfusion_train_step` at :171 and `make_fused_train_step` at
-:277, aux off).
+"""The training steps of CenterPoint, TransFusion-L, Voxel R-CNN and their
+3D-DF fused detectors (port of df3d/train/trainer.py:23-75,
+`make_voxelrcnn_train_step` at :78, `make_transfusion_train_step` at :171
+and `make_fused_train_step` at :277, aux off).
 
 One step: voxelize -> (fused: the frozen image branch) -> forward in
 training mode (batch statistics, the running ones moved) -> the host
@@ -18,6 +18,13 @@ The state's parameters are the trainable ones: a frozen image branch is
 left out of the optimizer. optax's `adamw` in the JAX package decays every
 leaf, so there each step moves the "frozen" branch by lr * weight_decay *
 p; the port does not copy that (ROADMAP section 3).
+
+Voxel R-CNN's step adds the RPN's anchor targets, the proposals (NMS) and
+the proposal target layer between its two stages. The proposals carry no
+gradient, as in pcdet, whose proposal and proposal target layers run under
+`torch.no_grad()`; the JAX package's step differentiates through them, so
+the RCNN losses reach the RPN's box branch through the RoIs and the IoU
+targets there (ROADMAP section 3). The RoI features stay attached.
 """
 
 from __future__ import annotations
@@ -35,7 +42,12 @@ from df3d_torch.models.detectors.fused import (
 from df3d_torch.models.detectors.transfusion import (
     TransFusionConfig, TransFusionL, transfusion_loss,
 )
+from df3d_torch.models.detectors.voxel_rcnn import (
+    VoxelRCNNConfig, VoxelRCNNTwoStage, assign_rpn_targets, proposal_layer,
+    voxel_rcnn_train_losses,
+)
 from df3d_torch.models.fusion.actr import ACTR
+from df3d_torch.models.heads.voxelrcnn_head import sample_rois_for_training
 from df3d_torch.ops.voxelize import voxelize_batch
 from df3d_torch.train.schedules import AdamOneCycle, AdamState
 from df3d_torch.utils import stages
@@ -47,7 +59,8 @@ class TrainState:
     parameters and batch statistics), the optimizer and its moments, and the
     number of steps taken."""
 
-    model: CenterPoint | CenterPoint3DDF | TransFusionL | TransFusion3DDF
+    model: (CenterPoint | CenterPoint3DDF | TransFusionL | TransFusion3DDF
+            | VoxelRCNNTwoStage)
     tx: AdamOneCycle
     opt_state: AdamState
     step: int = 0
@@ -87,22 +100,33 @@ class CenterPointTrainStep:
     def __init__(self, cfg: CenterPointConfig):
         self.cfg = cfg
 
-    def grads(self, state: TrainState, batch: dict):
-        """Forward, loss and backward -> (logs, gradients in
-        `state.params` order)."""
-        cfg, model = self.cfg, state.model
-        model.train()
+    def voxelize(self, batch: dict):
+        cfg = self.cfg
         with torch.no_grad():
             res = voxelize_batch(batch["points"], batch["points_valid"],
                                  cfg.voxel_size, cfg.pc_range, cfg.grid_size,
                                  cfg.max_voxels, cfg.max_points_per_voxel)
         stages.mark("voxelize")
+        return res
+
+    def forward_loss(self, model, batch: dict):
+        """Voxelize, forward in training mode, loss -> (total, logs)."""
+        cfg = self.cfg
+        res = self.voxelize(batch)
         preds, _, overflow = model(res.features, res.coords,
                                    *self.model_inputs(batch))
         total, logs = self.loss(cfg, preds, batch["gt_boxes"],
                                 batch["gt_classes"], batch["gt_valid"])
         logs["cap_overflow"] = cap_overflow_total(overflow)
         stages.mark("loss")
+        return total, logs
+
+    def grads(self, state: TrainState, batch: dict, *args, **kwargs):
+        """Forward, loss and backward -> (logs, gradients in
+        `state.params` order). Further arguments go to `forward_loss`."""
+        model = state.model
+        model.train()
+        total, logs = self.forward_loss(model, batch, *args, **kwargs)
         unreached = self.unreached(model)
         grads = torch.autograd.grad(total, state.params,
                                     allow_unused=bool(unreached))
@@ -133,8 +157,8 @@ class CenterPointTrainStep:
         stages.mark("optimizer")
         return state
 
-    def __call__(self, state: TrainState, batch: dict):
-        logs, grads = self.grads(state, batch)
+    def __call__(self, state: TrainState, batch: dict, *args):
+        logs, grads = self.grads(state, batch, *args)
         return self.apply(state, grads), logs
 
 
@@ -185,3 +209,66 @@ class FusedTrainStep(CenterPointTrainStep):
 def make_fused_train_step(cfg: CenterPointConfig | TransFusionConfig
                           ) -> FusedTrainStep:
     return FusedTrainStep(cfg)
+
+
+class VoxelRCNNTrainStep(CenterPointTrainStep):
+    """Voxel R-CNN's two-stage step (or, `fused`, Voxel R-CNN + 3D-DF's),
+    `step(state, batch, generator) -> (state, logs)` on a state whose model
+    is a `VoxelRCNNTwoStage`: one clip and one AdamW over both stages'
+    trainable parameters.
+
+    batch: points (B, P, 4), points_valid (B, P), gt_boxes (B, M, 7 or
+    more; the first 7 are read), gt_classes (B, M) anchor class ids,
+    gt_valid (B, M); fused, also images (B, H, W, 3) normalized and proj
+    (B, 3, 4). `generator` (on the step's device) draws the proposal target
+    layer's tie-breaking noise, uniform in [0, 1e-3) per proposal (the JAX
+    package draws it from its step's key). logs: rpn_cls_loss,
+    rpn_loc_loss, rpn_dir_loss, rpn_loss, rcnn_cls_loss, rcnn_reg_loss,
+    rcnn_corner_loss, rcnn_loss, loss and cap_overflow."""
+
+    def __init__(self, cfg: VoxelRCNNConfig, fused: bool = False):
+        super().__init__(cfg)
+        self.fused = fused
+
+    def model_inputs(self, batch: dict) -> tuple:
+        return (batch["images"], batch["proj"]) if self.fused else ()
+
+    unreached = FusedTrainStep.unreached
+
+    def forward_loss(self, model: VoxelRCNNTwoStage, batch: dict,
+                     generator: torch.Generator | None = None,
+                     noise: torch.Tensor | None = None):
+        """As the base step's, with the two stages; `noise` (B, R0), when
+        given, stands for the generator's draw."""
+        cfg = self.cfg
+        res = self.voxelize(batch)
+        gt = batch["gt_boxes"][..., :7]
+        with torch.no_grad():
+            rpn_targets = assign_rpn_targets(cfg, model.anchors, gt,
+                                             batch["gt_classes"],
+                                             batch["gt_valid"])
+        stages.mark("rpn_targets")
+        preds, overflow = model.rpn(res.features, res.coords,
+                                    *self.model_inputs(batch))
+        with torch.no_grad():  # the proposals carry no gradient (pcdet)
+            rois, roi_scores, roi_mask = proposal_layer(
+                cfg, preds, model.anchors, train=True)
+            if noise is None:
+                noise = torch.rand(roi_scores.shape, generator=generator,
+                                   device=roi_scores.device) * 1e-3
+            targets = sample_rois_for_training(
+                rois, roi_scores, roi_mask, gt, batch["gt_valid"], noise,
+                cfg.rcnn)
+        stages.mark("roi_sample")
+        cls, reg = model.rcnn(targets["rois"], targets["mask"], preds["ms"])
+        stages.mark("roi_head")
+        total, logs = voxel_rcnn_train_losses(
+            cfg, preds, {"cls": cls, "reg": reg}, rpn_targets, targets)
+        logs["cap_overflow"] = cap_overflow_total(overflow)
+        stages.mark("loss")
+        return total, logs
+
+
+def make_voxelrcnn_train_step(cfg: VoxelRCNNConfig, fused: bool = False
+                              ) -> VoxelRCNNTrainStep:
+    return VoxelRCNNTrainStep(cfg, fused)

@@ -22,12 +22,13 @@ from __future__ import annotations
 import numpy as np
 
 _GROUND_Z = -1.8
+_N_CARS = 52  # the scene's first boxes
 
 
 def _scene(rng: np.random.RandomState):
     """Random urban-ish scene: oriented boxes, facades, poles."""
     # cars / trucks / pedestrians (oriented boxes); ~1/3 of cars move
-    n_car, n_trk, n_ped = 52, 9, 18
+    n_car, n_trk, n_ped = _N_CARS, 9, 18
     n = n_car + n_trk + n_ped
     r = 6.0 + 48.0 * rng.rand(n) ** 1.35
     th = rng.rand(n) * 2 * np.pi
@@ -239,11 +240,42 @@ def make_kitti_frame(rng: np.random.RandomState, n_azimuth: int = 2600,
     |y| < 40, -3 < z < 1) -> (P, 4) float32 x, y, z, intensity. About 20k
     points, as a KITTI frame has in the camera's field of view (12k-17k
     voxels at 0.05 m)."""
+    return _kitti_frame_and_cars(rng, n_azimuth, n_beams)[0]
+
+
+def make_kitti_sample(rng: np.random.RandomState, max_boxes: int = 40):
+    """A KITTI training sample: the frame `make_kitti_frame(rng)` casts and
+    the cars of its scene (class 0) whose centre lies in Voxel R-CNN's
+    range and in the front camera's image -> (points (P, 4), gt boxes
+    (max_boxes, 7) as (x, y, z gravity centre, dx, dy, dz, heading),
+    classes (max_boxes,) int32, valid (max_boxes,) bool), the boxes padded
+    with zeros to `max_boxes`."""
+    points, (c, dims, yaw) = _kitti_frame_and_cars(rng, 2600, 64)
+    proj = kitti_camera()
+    uvw = c @ proj[:, :3].T + proj[:, 3]
+    depth = uvw[:, 2]
+    u = uvw[:, 0] / np.maximum(depth, 1e-6)
+    v = uvw[:, 1] / np.maximum(depth, 1e-6)
+    h, w = KITTI_IMAGE
+    m = (depth > 0) & (u >= 0) & (u < w) & (v >= 0) & (v < h)
+    m &= ((c[:, 0] >= 0) & (c[:, 0] < 70.4) & (np.abs(c[:, 1]) < 40)
+          & (c[:, 2] > -3) & (c[:, 2] < 1))
+    cars = np.concatenate([c, dims, yaw[:, None]], 1)[m][:max_boxes]
+    boxes = np.zeros((max_boxes, 7), np.float32)
+    boxes[:len(cars)] = cars
+    valid = np.arange(max_boxes) < len(cars)
+    return points, boxes, np.zeros(max_boxes, np.int32), valid
+
+
+def _kitti_frame_and_cars(rng, n_azimuth, n_beams):
+    """`make_kitti_frame`'s points and the scene's cars left in it
+    (centres (N, 3), dims (N, 3), headings (N,))."""
     c, dims, yaw, _ = _scene(rng)
+    is_car = np.arange(len(c)) < _N_CARS
     # the road ahead is clear: nothing stands in the ego lane's 40 m (the
     # scene's ground lies 1.8 m below the lidar, the HDL-64E's 1.73 m)
     free = ~((c[:, 0] > 0) & (c[:, 0] < 40) & (np.abs(c[:, 1]) < 4))
-    c, dims, yaw = c[free], dims[free], yaw[free]
+    c, dims, yaw, is_car = c[free], dims[free], yaw[free], is_car[free]
     el = np.deg2rad(np.linspace(2.0, -24.8, n_beams))
     # only the azimuths the camera can see (+-41 degrees) are cast
     az = (np.arange(n_azimuth) + rng.rand()) * (2 * np.pi / n_azimuth)
@@ -265,4 +297,5 @@ def make_kitti_frame(rng: np.random.RandomState, n_azimuth: int = 2600,
     m &= ((p[:, 0] >= 0) & (p[:, 0] < 70.4) & (np.abs(p[:, 1]) < 40)
           & (p[:, 2] > -3) & (p[:, 2] < 1))
     p = p[m]
-    return np.concatenate([p, rng.rand(len(p), 1)], 1).astype(np.float32)
+    points = np.concatenate([p, rng.rand(len(p), 1)], 1).astype(np.float32)
+    return points, (c[is_car], dims[is_car], yaw[is_car])

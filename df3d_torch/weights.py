@@ -216,10 +216,12 @@ def train_state_from_flax(model: nn.Module, params, batch_stats, tx):
     """A flax `TrainState`'s params and batch_stats carried into `model`
     (CenterPoint or TransFusion-L, or their 3D-DF detectors with the image
     branch's and IFAT's batch statistics; TransFusion's head with those of
-    its heatmap branch, position embeddings and FFN branches), and a port
-    `TrainState` around it with the optimizer moments at zero (as
-    `TrainState.create` leaves them). A frozen image branch's parameters
-    are carried but are not in the state's `params`."""
+    its heatmap branch, position embeddings and FFN branches; Voxel R-CNN's
+    `VoxelRCNNTwoStage`, whose {"rpn": ..., "rcnn": ...} trees land in its
+    `rpn` and `rcnn` modules as they are), and a port `TrainState` around
+    it with the optimizer moments at zero (as `TrainState.create` leaves
+    them). A frozen image branch's parameters are carried but are not in
+    the state's `params`."""
     model.load_state_dict(state_dict_from_flax(
         model, {"params": params, "batch_stats": batch_stats}))
     return create_train_state(model, tx)

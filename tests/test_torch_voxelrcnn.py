@@ -65,11 +65,10 @@ TCFG = tvr.VoxelRCNNConfig(**GEOM, rcnn=trh.VoxelRCNNHeadCfg(
 NMS_GEOM = dict(grid_size=(24, 256, 256),
                 pc_range=(0.0, -4.0, -2.4, 8.0, 4.0, 2.4))
 KITTI_VS, KITTI_PCR = (0.05, 0.05, 0.1), (0.0, -40.0, -3.0, 70.4, 40.0, 1.0)
-CAR = dict(size=(3.9, 1.6, 1.56), bottom_height=-1.78)
-PED = dict(size=(0.8, 0.6, 1.73), bottom_height=-0.6)
-# the JAX classes also carry target assignment's thresholds (training)
-JCAR = dict(CAR, matched_threshold=0.6, unmatched_threshold=0.45)
-JPED = dict(PED, matched_threshold=0.5, unmatched_threshold=0.35)
+CAR = dict(size=(3.9, 1.6, 1.56), bottom_height=-1.78, matched_threshold=0.6,
+           unmatched_threshold=0.45)
+PED = dict(size=(0.8, 0.6, 1.73), bottom_height=-0.6, matched_threshold=0.5,
+           unmatched_threshold=0.35)
 
 
 def _close(got, want, rel, err_msg=""):
@@ -286,10 +285,10 @@ def _t(a):
 def test_anchors(two_classes):
     """Location-major (y, x, class, rotation), equal to the last bit; the
     class id of each, in the same order."""
-    classes = [jah.AnchorClassCfg("Car", **JCAR)]
+    classes = [jah.AnchorClassCfg("Car", **CAR)]
     tclasses = [tah.AnchorClassCfg("Car", **CAR)]
     if two_classes:
-        classes.append(jah.AnchorClassCfg("Pedestrian", **JPED))
+        classes.append(jah.AnchorClassCfg("Pedestrian", **PED))
         tclasses.append(tah.AnchorClassCfg("Pedestrian", **PED))
     jcfg = jvr.VoxelRCNNConfig(anchor_classes=tuple(classes))
     tcfg = tvr.VoxelRCNNConfig(anchor_classes=tuple(tclasses))
