@@ -4,7 +4,7 @@
 (LiDAR only) and TransFusion + 3D-DF (six cameras + LiDAR); then the
 training steps of the same four models; then KITTI's Voxel R-CNN and
 Voxel R-CNN + 3D-DF (one camera + LiDAR) serving paths and training
-steps.
+steps; then the training steps data parallel.
 
     python3 chip_smoke.py
 
@@ -210,6 +210,26 @@ any failure raises and the process exits non-zero:
    cases, times and bounds.
 33. Voxel R-CNN + 3D-DF train path: that trainer, as phase 19: K1 12 + 11,
    K2 1 + 1 launches a step.
+34. small data-parallel steps: each of the six small steps (phases 14,
+   17, 20, 22 and 29's configs and batches, the second sample's points and
+   gt boxes cut so that the samples differ) over 2 ranks that share the
+   card over gloo, one sample each (`train.trainer.DataParallelTrainStep`,
+   spawned processes), against the one-process batch-2 step on the card:
+   the ranks replay its decisions at near ties as the small phases do,
+   are held by those phases' tolerances for the kernels' run, and end
+   with the same bits.
+35. data-parallel fused step at full width: `centerpoint_3ddf_nusc` at
+   batch 4 (phase 18's batch and weights) as 2 ranks x 2 samples sharing
+   the card, against the one-process batch-4 step run first and freed:
+   every gradient leaf, updated parameter, batch statistic and log by
+   relative L2; each rank launches K1 16 + 15 and K2 1 + 1 in its step
+   (counts set to 0 just before and read just after), and rank 0 holds
+   every launch of its step against the plain version (phases 15 and 18's
+   helpers); per rank ms/step, the split with its `allreduce` stage, the
+   gradient bytes all-reduced and peak memory. Two ranks on one card are
+   not a two-card measurement.
+36. `entry.dryrun_multichip` over every card (one rank each, NCCL): a
+   CenterPoint and a CenterPoint + 3D-DF step, finite losses.
 
 TF32 is off for matmuls and cuDNN convs: the port serves in f32 (the JAX
 package's "exact" profile) and the comparisons need full f32. cuDNN picks
@@ -226,18 +246,21 @@ the TransFusion ones, under K1's "train" its CenterPoint training
 launches, backward times and dW's time, and under K2's "train" its
 CenterPoint + 3D-DF training launches and its backward's times and bound;
 "transfusion"'s "train" the same for the TransFusion training steps,
-"kitti" those of the KITTI paths, phases 25 and 27, and "kitti"'s "train"
-those of the KITTI training steps, phases 30 and 32) and the result line
+"kitti" those of the KITTI paths, phases 25 and 27, "kitti"'s "train"
+those of the KITTI training steps, phases 30 and 32, and "dp" phase 35's
+launches per rank and rank 0's kernel numbers) and the result line
 {"ok": true, "device": {...}}. With no CUDA device, or outside a checkout,
 the script exits non-zero without them.
 """
 
 import contextlib
 import dataclasses
+import functools
 import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -1124,19 +1147,6 @@ def full_transfusion_configs():
     return cfg, fused_config(preset)
 
 
-def mesh_cfg():
-    """The JAX package's `__graft_entry__._mesh_cfg()` (its multichip
-    dry-run's training config)."""
-    from df3d_torch.models.detectors.centerpoint import CenterPointConfig
-
-    return CenterPointConfig(
-        pc_range=(-16.0, -16.0, -2.4, 16.0, 16.0, 2.4),
-        voxel_size=(0.5, 0.5, 0.2), grid_size=(24, 64, 64),
-        max_voxels=256, num_point_features=5, stage_caps=(256, 128, 96, 64),
-        tasks=(1, 2), max_objs=8, nms_pre_max_size=32, nms_post_max_size=4,
-        post_center_range=(-20.0, -20.0, -4.0, 20.0, 20.0, 4.0))
-
-
 def scene_boxes(seed):
     """The object boxes (x, y, z, dx, dy, dz, yaw, vx, vy) of the scene that
     `make_raycast_frame(RandomState(seed))` casts (it draws its scene
@@ -1188,7 +1198,7 @@ def phase_small_train(dev):
     halves, ~22 bits) and cuDNN's f32 algorithms each round apart from the
     CPU's f32. Phase 15 holds every K1 launch of the backward at phase 4's
     tolerance."""
-    from df3d_torch.entry import build_centerpoint_trainer
+    from df3d_torch.entry import build_centerpoint_trainer, mesh_cfg
     from df3d_torch.ops import sparse as S
     from df3d_torch.ops import sparse_conv_kernel as K
 
@@ -1281,14 +1291,21 @@ def compare_train_step(label, ref, got, strict):
         "updated parameters and batch statistics")
 
 
+@functools.lru_cache(maxsize=None)
+def training_frame(seed):
+    """`utils.synth.make_raycast_frame(RandomState(seed), NUM_POINTS)`,
+    cast once a run (~10 s a frame on the host) for the five phases that
+    train on it."""
+    from df3d_torch.utils.synth import make_raycast_frame
+
+    return make_raycast_frame(np.random.RandomState(seed), NUM_POINTS)
+
+
 def full_train_batch(dev):
     """Four ray-cast frames (seeds 0-3, 260k points) with each scene's 79
     object boxes, as a training batch on `dev`."""
-    from df3d_torch.utils.synth import make_raycast_frame
-
     seeds = range(TRAIN_BATCH)
-    points = np.stack([make_raycast_frame(np.random.RandomState(s),
-                                          NUM_POINTS) for s in seeds])
+    points = np.stack([training_frame(s) for s in seeds])
     boxes = np.stack([scene_boxes(s) for s in seeds])
     classes = np.tile(np.asarray(SCENE_CLASSES, np.int64), (TRAIN_BATCH, 1))
     return train_batch(points, boxes, classes, dev)
@@ -1580,6 +1597,7 @@ def small_fused_train_configs():
     LiDAR config, 2 cameras of 32x48, DeepLabV3 taps on one-block ResNet
     stages, a tiny ACTRv2 (d_model 16, 2 heads, 2 levels, 2 points, LT of 8
     centres)."""
+    from df3d_torch.entry import mesh_cfg
     from df3d_torch.models.detectors.fused import FusedConfig
     from df3d_torch.models.fusion.actr import ACTRConfig
 
@@ -1909,12 +1927,13 @@ def phase_small_transfusion_fused_train(dev):
         k2_per_step=fcfg.actr.num_layers)
 
 
-def full_fused_train_setup(dev, transfusion=False):
+def full_fused_train_setup(dev, transfusion=False, with_batch=True):
     """CenterPoint + 3D-DF at the `centerpoint_3ddf_nusc` preset's full
     width with `CenterPointConfig()`'s training caps (or TransFusion +
     3D-DF at `transfusion_3ddf_nusc`'s with `TransFusionConfig()`'s), its
-    trainer from seed 0, and `full_train_batch` plus six random normalized
-    448x800 images per sample and the rig of `utils.synth.camera_rig`."""
+    trainer from seed 0, and (unless not `with_batch`: None)
+    `full_train_batch` plus six random normalized 448x800 images per sample
+    and the rig of `utils.synth.camera_rig`."""
     from df3d_torch.entry import (
         build_centerpoint3ddf_trainer, build_transfusion3ddf_trainer,
         centerpoint_3ddf_nusc, fused_config, transfusion_3ddf_nusc,
@@ -1926,6 +1945,8 @@ def full_fused_train_setup(dev, transfusion=False):
              else build_centerpoint3ddf_trainer)
     cfg, fcfg = preset["lidar"], fused_config(preset)
     state, step = build(cfg, fcfg, dev, seed=0)
+    if not with_batch:
+        return cfg, fcfg, state, step, None
     nc, hw = fcfg.num_cams, fcfg.image_shape
     batch = full_train_batch(dev)
     g = torch.Generator(device=dev).manual_seed(20)
@@ -2606,9 +2627,12 @@ def kitti_train_decisions(store, replay):
         check(torch.equal(got[2], want[2]), "the card's roi_mask differs")
         for g, w in zip(got[:2], want[:2]):
             tol = 1e-4 * w.abs().max().item() + 1e-5
-            check((g - w).abs().max().item() <= tol,
+            err = (g - w).abs()
+            at = np.unravel_index(int(err.argmax()), tuple(err.shape))
+            check(err.max().item() <= tol,
                   "the card's proposals differ from the CPU's beyond "
-                  f"{tol}")
+                  f"{tol}: {err.max().item()} at {at}, {g[at[:2]].tolist()}"
+                  f" against {w[at[:2]].tolist()}")
         return want
 
     with voxelrcnn_decisions(store[0], replay) as replays:
@@ -2706,20 +2730,9 @@ def phase_small_kitti_train(dev):
     from df3d_torch.entry import (
         build_voxelrcnn3ddf_trainer, build_voxelrcnn_trainer,
     )
-    from df3d_torch.utils.synth import kitti_camera
 
     lidar, fused, fcfg = small_kitti_train_configs()
-    rng = np.random.RandomState(0)
-    n, b = 300, KITTI_TRAIN_BATCH
-    points = np.concatenate([rng.uniform(0, 31, (b, n, 1)),
-                             rng.uniform(-15, 15, (b, n, 1)),
-                             rng.uniform(-1.8, 1.8, (b, n, 1)),
-                             rng.uniform(0, 1, (b, n, 1))], -1)
-    images = torch.from_numpy(rng.randn(b, *fcfg.image_shape, 3).astype(
-        np.float32))
-    proj = torch.from_numpy(np.broadcast_to(
-        kitti_camera(fcfg.image_shape[1] / KITTI_IMAGE[1]), (b, 3, 4)).copy())
-    noise = torch.rand(b, lidar.train_post_nms,
+    noise = torch.rand(KITTI_TRAIN_BATCH, lidar.train_post_nms,
                        generator=torch.Generator().manual_seed(5)) * 1e-3
     for label, build, k2 in (
             ("small KITTI train step",
@@ -2728,10 +2741,7 @@ def phase_small_kitti_train(dev):
              lambda d: flax_initial_attention(
                  build_voxelrcnn3ddf_trainer(fused, fcfg, d, seed=0)), 1)):
         state, step = build("cpu")
-        cpu = {"points": torch.from_numpy(points.astype(np.float32)),
-               "points_valid": torch.ones(b, n, dtype=torch.bool)}
-        if k2:
-            cpu.update(images=images, proj=proj)
+        cpu = small_kitti_train_batch(bool(k2), fcfg)
         boxes, classes, valid = gts_near_proposals(state, step, cpu)
         del state, step
         cpu.update(gt_boxes=torch.from_numpy(boxes),
@@ -2818,6 +2828,420 @@ def phase_kitti_train(dev):
     return k1, lidar, k2, fused
 
 
+# Data-parallel training (phases 34-36): two ranks share the one card over
+# gloo (NCCL refuses two ranks on one device); they exchange results with
+# this process through CPU tensors saved under build/dp/
+DP_WORLD = 2
+DP_DIR = Path(__file__).resolve().parent / "build" / "dp"
+DP_NOISE_SEED = 5
+DP_TIMED_STEPS = 3
+SMALL_DP_STEPS = ("CenterPoint", "CenterPoint + 3D-DF", "TransFusion-L",
+                  "TransFusion + 3D-DF", "Voxel R-CNN", "Voxel R-CNN + 3D-DF")
+
+
+def rank_rows(tree, rank, world):
+    """A recorded decision store (nested lists, tuples and dicts of
+    tensors) cut to one rank's rows: a tensor whose first dim the ranks
+    divide gives rank `rank`'s rows, any other (an input without a batch
+    dim, as TransFusion's positional embedding's) stays whole. A wrong cut
+    shows as a shape error or as replays past their bounds."""
+    if isinstance(tree, dict):
+        return {k: rank_rows(v, rank, world) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(rank_rows(v, rank, world) for v in tree)
+    if tree.dim() and tree.shape[0] > 1 and tree.shape[0] % world == 0:
+        n = tree.shape[0] // world
+        return tree[rank * n:(rank + 1) * n]
+    return tree
+
+
+def small_dp_case(name, dev):
+    """One of `SMALL_DP_STEPS` at the config and on the batch of its small
+    card-against-CPU phase (14, 17, 20, 22, 29), with the second sample's
+    last two gt boxes (KITTI: its third) and its points past the 3000th
+    (KITTI: the 200th, before the gts are placed near the proposals) made
+    invalid, so that the samples differ in valid rows and positives:
+    (state, step) on `dev`, the global batch on the CPU, the decisions to
+    replay, and the step's arguments (Voxel R-CNN: a generator on `dev`
+    for the RoI sampler's noise)."""
+    from df3d_torch import entry
+
+    decisions, args, kitti = transfusion_decisions, (), name.startswith("V")
+    if name.startswith("CenterPoint"):
+        arrays, rng = small_train_arrays(2)
+    elif name.startswith("TransFusion"):
+        arrays, rng = small_transfusion_train_arrays()
+    if name == "CenterPoint":
+        built = entry.build_centerpoint_trainer(entry.mesh_cfg(), dev,
+                                                seed=0)
+        batch = train_batch(*arrays, "cpu")
+    elif name == "CenterPoint + 3D-DF":
+        cfg, fcfg = small_fused_train_configs()
+        built = entry.build_centerpoint3ddf_trainer(cfg, fcfg, dev, seed=0)
+        batch = fused_batch_fn(arrays, rng, fcfg)("cpu")
+    elif name == "TransFusion-L":
+        cfg, _ = small_transfusion_train_configs()
+        built = entry.build_transfusion_trainer(cfg, dev, seed=0)
+        batch = train_batch(*arrays, "cpu")
+    elif name == "TransFusion + 3D-DF":
+        cfg, fcfg = small_transfusion_train_configs()
+        built = entry.build_transfusion3ddf_trainer(cfg, fcfg, dev, seed=0)
+        batch = fused_batch_fn(arrays, rng, fcfg)("cpu")
+    else:
+        lidar, fused, fcfg = small_kitti_train_configs()
+
+        def build(d):
+            if name == "Voxel R-CNN":
+                return entry.build_voxelrcnn_trainer(lidar, d, seed=0)
+            return flax_initial_attention(
+                entry.build_voxelrcnn3ddf_trainer(fused, fcfg, d, seed=0))
+
+        built, batch = build(dev), small_kitti_train_batch(name != "Voxel "
+                                                           "R-CNN", fcfg)
+        batch["points_valid"][1, 200:] = False
+        state, step = build("cpu")
+        boxes, classes, valid = gts_near_proposals(state, step, batch)
+        batch.update(gt_boxes=torch.from_numpy(boxes),
+                     gt_classes=torch.from_numpy(classes),
+                     gt_valid=torch.from_numpy(valid))
+        decisions = kitti_train_decisions
+        args = (torch.Generator(device=dev).manual_seed(DP_NOISE_SEED),)
+    if not kitti:
+        batch["points_valid"][1, 3000:] = False
+    batch["gt_valid"][1, 2 if kitti else -2:] = False
+    return built, batch, decisions, args
+
+
+def small_kitti_train_batch(fused, fcfg):
+    """Phase 29's points (and, `fused`, its image and camera) as a CPU
+    batch without gt boxes."""
+    from df3d_torch.utils.synth import kitti_camera
+
+    rng = np.random.RandomState(0)
+    n, b = 300, KITTI_TRAIN_BATCH
+    points = np.concatenate([rng.uniform(0, 31, (b, n, 1)),
+                             rng.uniform(-15, 15, (b, n, 1)),
+                             rng.uniform(-1.8, 1.8, (b, n, 1)),
+                             rng.uniform(0, 1, (b, n, 1))], -1)
+    batch = {"points": torch.from_numpy(points.astype(np.float32)),
+             "points_valid": torch.ones(b, n, dtype=torch.bool)}
+    if fused:
+        batch["images"] = torch.from_numpy(rng.randn(
+            b, *fcfg.image_shape, 3).astype(np.float32))
+        batch["proj"] = torch.from_numpy(np.broadcast_to(kitti_camera(
+            fcfg.image_shape[1] / KITTI_IMAGE[1]), (b, 3, 4)).copy())
+    return batch
+
+
+def step_record(state, logs, grads):
+    """(logs, gradients by name, state dict, lr0) on the CPU, as
+    `compare_train_step` takes them."""
+    def copy(tree):  # `to_cpu` alone would keep a CPU tensor's storage
+        return {k: v.detach().cpu().clone() for k, v in tree.items()}
+
+    return (copy(logs), copy(dict(zip(state.param_names, grads))),
+            copy(state.model.state_dict()), float(state.tx.lr(0)))
+
+
+def dp_small_rank(rank, world, init_method):
+    """A rank of phase 34: each small step over the ranks on this rank's
+    sample (`DataParallelTrainStep`), the one-process step's ReLU and path
+    decisions replayed on its rows; saves what it computed."""
+    from df3d_torch.parallel import ddp
+    from df3d_torch.train.trainer import DataParallelTrainStep
+
+    f32_backends()
+    dev = ddp.init_data_parallel(rank, world, backend="gloo",
+                                 init_method=init_method, device="cuda:0")
+    try:
+        for i, name in enumerate(SMALL_DP_STEPS):
+            (state, step), batch, decisions, args = small_dp_case(name, dev)
+            rec = torch.load(DP_DIR / f"small{i}.pt")
+            ddp.broadcast_state(state)
+            mine = {k: v.to(dev) for k, v in
+                    ddp.shard_batch(batch, rank, world).items()}
+            with relu_decisions(rank_rows(rec["relu"], rank, world),
+                                True) as flips, \
+                    decisions(rank_rows(rec["picks"], rank, world),
+                              True) as replays:
+                logs, grads = DataParallelTrainStep(step).grads(
+                    state, mine, *args)
+            step.apply(state, grads)
+            torch.save({"step": step_record(state, logs, grads),
+                        "flips": flips,
+                        "replays": replays},
+                       DP_DIR / f"small{i}_rank{rank}.pt")
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def spawn_ranks(fn):
+    """fn(rank, DP_WORLD, init_method) in `DP_WORLD` new processes, which
+    meet through a file under build/dp/."""
+    store = DP_DIR / "store"
+    store.unlink(missing_ok=True)
+    torch.multiprocessing.spawn(fn, nprocs=DP_WORLD,
+                                args=(DP_WORLD, f"file://{store}"))
+
+
+def phase_small_dp_train(dev):
+    """Each of the six small training steps (phases 14, 17, 20, 22 and 29's
+    configs and batches, the second sample's valid points and gt boxes
+    cut)
+    over 2 ranks sharing the card (gloo), one sample each, against the
+    one-process batch-2 step on the card: the ranks replay the one-process
+    step's ReLU decisions, queries, matches, NMS and neighbour decisions
+    and proposals at near ties, as the card replays the CPU's in the
+    small phases (at most 4 replays, each within 1e-4), and are held to
+    `compare_train_step`'s tolerances for K1, K2 and cuDNN (every gradient
+    leaf by L2, 5e-2; batch statistics 1e-4 * max + 1e-6, updated
+    parameters, logs rtol 1e-4, cap overflow equal): cuDNN times and
+    picks its f32 algorithms per shape and per run, so a rank's half batch
+    rounds apart from the whole one, by more on some runs (one run of
+    five saw the fused KITTI step's first-stage leaves 7x past the tight
+    tolerance, at 7e-4 of their largest entry). Both ranks end with the
+    same bits."""
+    DP_DIR.mkdir(parents=True, exist_ok=True)
+    refs = []
+    for i, name in enumerate(SMALL_DP_STEPS):
+        (state, step), batch, decisions, args = small_dp_case(name, dev)
+        masks, picks = [], []
+        with relu_decisions(masks, False), decisions(picks, False):
+            logs, grads = step.grads(state, {k: v.to(dev) for k, v in
+                                             batch.items()}, *args)
+        step.apply(state, grads)
+        refs.append(step_record(state, logs, grads))
+        torch.save({"relu": masks, "picks": picks}, DP_DIR / f"small{i}.pt")
+        del state, step
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    spawn_ranks(dp_small_rank)
+    log(f"small data-parallel steps: 2 ranks on one card over gloo, "
+        f"{time.perf_counter() - t0:.1f} s for the six steps with the ranks' "
+        "start")
+    for i, name in enumerate(SMALL_DP_STEPS):
+        got = [torch.load(DP_DIR / f"small{i}_rank{r}.pt")
+               for r in range(DP_WORLD)]
+        for r, g in enumerate(got):
+            check(sum(n for n, _ in g["flips"]) <= 4
+                  and all(z < 1e-4 for _, z in g["flips"]),
+                  f"{name} rank {r}: ReLU replays {g['flips']}")
+            check(sum(n for _, n, _ in g["replays"]) <= 4
+                  and all(gap < 1e-4 for *_, gap in g["replays"]),
+                  f"{name} rank {r}: decision replays {g['replays']}")
+        for key in got[0]["step"][2]:
+            check(torch.equal(got[0]["step"][2][key], got[1]["step"][2][key]),
+                  f"{name}: the ranks' {key} differ")
+        log(f"small {name} step, 2 ranks: ReLU replays "
+            f"{[g['flips'] for g in got]}, decision replays "
+            f"{[g['replays'] for g in got]}")
+        compare_train_step(f"small {name} step, 2 ranks against 1 process",
+                           refs[i], got[0]["step"], strict=False)
+
+
+def rel_l2(got, ref):
+    """||got - ref|| / ||ref|| (0 for two zero tensors)."""
+    err, norm = (got - ref).double().norm(), ref.double().norm()
+    return float(err / norm) if norm > 0 else float(err)
+
+
+def dp_full_rank(rank, world, init_method):
+    """A rank of phase 35: `full_fused_train_setup`'s step over the ranks
+    on its rows of the batch that phase 35 saved (two samples of four).
+    The step with the kernels' counts set to 0 just before and read just
+    after (what it computed saved for phase 35); rank 0 then holds every
+    K1 and K2 launch of its step against the plain versions (phases 15
+    and 18's helpers) while rank 1 takes the same steps; then timed
+    steps, a host-clock split with the all-reduces' stage, peak memory."""
+    from df3d_torch.ops import msda_kernel as K2
+    from df3d_torch.ops import sparse_conv_kernel as K1
+    from df3d_torch.parallel import ddp
+    from df3d_torch.train.trainer import DataParallelTrainStep
+    from df3d_torch.utils import stages
+
+    f32_backends()
+    dev = ddp.init_data_parallel(rank, world, backend="gloo",
+                                 init_method=init_method, device="cuda:0")
+    try:
+        _, _, state, step, _ = full_fused_train_setup(dev, with_batch=False)
+        ddp.broadcast_state(state)
+        mine = {k: v.to(dev) for k, v in ddp.shard_batch(
+            torch.load(DP_DIR / "full_batch.pt"), rank, world).items()}
+        dp = DataParallelTrainStep(step)
+        K1.launches = K1.bwd_launches = K2.launches = K2.bwd_launches = 0
+        logs, grads = dp.grads(state, mine)
+        counts = dict(k1_fwd=K1.launches, k1_bwd=K1.bwd_launches,
+                      k2_fwd=K2.launches, k2_bwd=K2.bwd_launches)
+        step.apply(state, grads)
+        out = {"counts": counts}
+        if rank == 0:
+            out["step"] = step_record(state, logs, grads)
+        del logs, grads
+        if rank == 0:
+            out["k1"] = phase_train_k1(state, dp, mine)
+            out["k2"] = phase_fused_train_k2(state, dp, mine)
+        else:
+            dp.grads(state, mine)
+            dp.grads(state, mine)
+        state, _ = dp(state, mine)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        per_step = []
+        for _ in range(DP_TIMED_STEPS):
+            t0 = time.perf_counter()
+            state, logs = dp(state, mine)
+            torch.cuda.synchronize()
+            per_step.append(1e3 * (time.perf_counter() - t0))
+            check(np.isfinite(logs["loss"].item()), f"rank {rank}: loss")
+        with stages.recording() as split:
+            dp(state, mine)
+        out.update(
+            ms=per_step, split=split,
+            grad_bytes=sum(p.numel() * p.element_size()
+                           for p in state.params),
+            peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        torch.save(out, DP_DIR / f"full_rank{rank}.pt")
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def phase_dp_fused_train(dev):
+    """The `centerpoint_3ddf_nusc` step at batch 4 (six 448x800 cameras a
+    sample, phase 18's batch and weights) as 2 ranks x 2 samples sharing
+    the card over gloo, against the one-process batch-4 step, run first
+    and freed before the ranks start. Every gradient leaf within 5e-2
+    relative L2 of the one process's (as the small steps' kernel runs),
+    plus 1e-6 of the step's largest gradient entry per element; updated
+    parameters (plus Adam's first-step jump, as in `compare_train_step`)
+    and batch statistics 1e-3; logs rtol 1e-4, cap overflow equal. No
+    decision is replayed at this width: a ReLU input within rounding of 0
+    moves the leaves upstream of it (1.1-1.2% relative L2 seen on
+    `conv_input`'s and `res1b`'s norms). Each rank must launch
+    K1 and K2 as often in its step as the one process (16 + 15 and 1 + 1);
+    rank 0 holds each launch against its plain version. Prints per rank
+    ms/step, the split (with `allreduce`: the gradients' and logs'
+    all-reduces and the norms' and normalizers' collectives, both ways),
+    the gradient bytes all-reduced and peak memory. Two ranks sharing one
+    card run one after the other on it: their ms/step is not a two-card
+    number. Returns what each rank measured: its launch counts and, rank
+    0's, K1's and K2's numbers."""
+    from df3d_torch.ops import msda_kernel as K2
+    from df3d_torch.ops import sparse_conv_kernel as K1
+    from df3d_torch.train.schedules import global_norm
+
+    DP_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    _, _, state, step, batch = full_fused_train_setup(dev)
+    torch.save({k: v.cpu() for k, v in batch.items()},
+               DP_DIR / "full_batch.pt")
+    K1.launches = K1.bwd_launches = K2.launches = K2.bwd_launches = 0
+    logs, grads = step.grads(state, batch)
+    one = dict(k1_fwd=K1.launches, k1_bwd=K1.bwd_launches,
+               k2_fwd=K2.launches, k2_bwd=K2.bwd_launches)
+    step.apply(state, grads)
+    ref = step_record(state, logs, grads)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"data-parallel fused step: the one-process batch-4 step launches "
+        f"{one}, peak {peak:.3f} GiB, {time.perf_counter() - t0:.1f} s with "
+        "its build and batch; freed before the ranks start")
+    del state, step, batch, logs, grads
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    spawn_ranks(dp_full_rank)
+    log(f"data-parallel fused step: 2 ranks, {time.perf_counter() - t0:.1f}"
+        " s with their start and build")
+    ranks = [torch.load(DP_DIR / f"full_rank{r}.pt")
+             for r in range(DP_WORLD)]
+    for r, got in enumerate(ranks):
+        check(got["counts"] == one,
+              f"rank {r} launched {got['counts']}, the one process {one}")
+        log(f"data-parallel fused step, rank {r} of 2 sharing one card "
+            f"(not a two-card number): ms/step "
+            f"{[round(x, 3) for x in got['ms']]}, mean "
+            f"{np.mean(got['ms']):.3f}; split (ms, host clock, "
+            "synchronised): " + ", ".join(f"{k} {v:.3f}" for k, v in
+                                          got["split"].items())
+            + f"; gradient bytes all-reduced {got['grad_bytes']}; peak "
+            f"memory {got['peak_gib']:.3f} GiB; launches in its step "
+            f"{got['counts']}")
+    g_logs, g_grads, g_sd, _ = ranks[0]["step"]
+    c_logs, c_grads, c_sd, lr0 = ref
+    check(int(g_logs["cap_overflow"]) == int(c_logs["cap_overflow"]),
+          "data-parallel fused step: cap overflow differs")
+    for k, v in c_logs.items():
+        check(abs(g_logs[k].item() - v.item()) <= 1e-4 * abs(v.item()),
+              f"data-parallel fused step: log {k} {g_logs[k].item()} "
+              f"against {v.item()}")
+    # a leaf whose exact gradient is 0 (a bias ahead of a training norm, an
+    # attention key's bias) holds rounding noise of the step's scale: the
+    # floor is 1e-6 of the step's largest gradient entry, per element.
+    # Adam's first update g / (|g| + eps) jumps by 2 where g crosses 0, so
+    # an updated parameter also gets lr * ||u(g + t) - u(g - t)||, t the L2
+    # gap of the two clipped gradients (it bounds every element's gap)
+    scale = max(g.abs().max().item() for g in c_grads.values())
+    clip_c, clip_g = (min(1.0, 10.0 / float(global_norm(list(g.values()))))
+                      for g in (c_grads, g_grads))
+    floor, slack = {}, {}
+    for k, c in c_grads.items():
+        floor[k] = 1e-6 * scale * c.numel() ** 0.5
+        cg = c * clip_c
+        t = (g_grads[k] * clip_g - cg).norm()
+        slack[k] = lr0 * ((cg + t) / ((cg + t).abs() + 1e-8)
+                          - (cg - t) / ((cg - t).abs() + 1e-8)).norm()
+    stats = {k: v for k, v in c_sd.items()
+             if k.endswith(("running_mean", "running_var"))}
+    worst, over = {}, []
+    for kind, want, have, tol, extra in (
+            ("gradient", c_grads, g_grads, 5e-2, floor),
+            ("parameter", {k: c_sd[k] for k in c_grads}, g_sd, 1e-3, slack),
+            ("statistic", stats, g_sd, 1e-3, {})):
+        for k, r in want.items():
+            err, norm = ((have[k] - r).double().norm().item(),
+                         r.double().norm().item())
+            bound = (tol * norm + 1e-6 * r.numel() ** 0.5
+                     + float(extra.get(k, 0.0)))
+            worst[kind] = max(worst.get(kind, (0.0,)),
+                              (err / bound, k, err, norm, bound))
+            if err > bound:
+                over.append(f"{kind} {k}: L2 gap {err:.4g}, L2 {norm:.4g}, "
+                            f"bound {bound:.4g}")
+    log(f"data-parallel fused step against the one process (largest "
+        f"gradient entry {scale:.4g}), the leaf nearest its bound: "
+        + "; ".join(f"{kind} {k} at {q:.3g} of it (L2 gap {e:.4g}, L2 "
+                    f"{n:.4g})" for kind, (q, k, e, n, _) in worst.items()))
+    check(not over, "data-parallel fused step: " + "; ".join(over[:10]))
+    log(f"data-parallel fused step: loss {g_logs['loss'].item():.6f} (one "
+        f"process {c_logs['loss'].item():.6f}), {len(c_grads)} gradient "
+        "leaves, updated parameters and batch statistics agree")
+    return ranks
+
+
+def phase_dryrun_multichip():
+    """`entry.dryrun_multichip` over every card there is (one rank each,
+    NCCL): a CenterPoint and a CenterPoint + 3D-DF training step, finite
+    losses."""
+    from df3d_torch.entry import dryrun_multichip
+
+    n = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    losses = dryrun_multichip(n)
+    check(all(np.isfinite(v) for v in losses.values()),
+          f"dryrun_multichip: {losses}")
+    log(f"dryrun_multichip({n}) over NCCL: {losses}, "
+        f"{time.perf_counter() - t0:.1f} s with the ranks' start")
+
+
+def f32_backends():
+    """TF32 off for matmuls and cuDNN convs, cuDNN's algorithms timed: the
+    settings of every process that runs a phase (a spawned rank too)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # the frame shapes are static, so cuDNN can time its f32 algorithms once
+    # in the warm-up; its default pick for the 180x180 BEV convs is an FFT
+    # algorithm that spends ~90 ms a frame in tens of thousands of gemv calls
+    torch.backends.cudnn.benchmark = True
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2832,12 +3256,7 @@ def main():
     from df3d_torch.ops import msda_kernel as K2
     from df3d_torch.ops import sparse_conv_kernel as K1
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    # the frame shapes are static, so cuDNN can time its f32 algorithms once
-    # in the warm-up; its default pick for the 180x180 BEV convs is an FFT
-    # algorithm that spends ~90 ms a frame in tens of thousands of gemv calls
-    torch.backends.cudnn.benchmark = True
+    f32_backends()
     dev = torch.device("cuda")
     card = card_line()
     log(f"card: {card}")
@@ -3018,6 +3437,27 @@ def main():
     k1["max_abs_err"] = max(k1["max_abs_err"], kk1_train["bwd_max_abs_err"])
     k2["max_abs_err"] = max(k2["max_abs_err"], kk2_train["bwd_max_abs_err"],
                             kk2_train["fwd_max_abs_err"])
+    torch.cuda.empty_cache()
+
+    phase_small_dp_train(dev)
+    dp_ranks = phase_dp_fused_train(dev)
+    phase_dryrun_multichip()
+    # phase 35's step, both ranks: counts set to 0 just before and read just
+    # after in each rank; "dp" holds the counts per rank and rank 0's K1
+    # and K2 numbers (phases 15 and 18's helpers on its step)
+    counts = [r["counts"] for r in dp_ranks]
+    for entry, kernel in ((k1, "k1"), (k2, "k2")):
+        entry["launches_by_path"]["dp_fused_train"] = sum(
+            c[f"{kernel}_fwd"] + c[f"{kernel}_bwd"] for c in counts)
+        entry["dp"] = dict(
+            ranks=DP_WORLD, fwd_launches_per_rank=[
+                c[f"{kernel}_fwd"] for c in counts],
+            bwd_launches_per_rank=[c[f"{kernel}_bwd"] for c in counts],
+            **dp_ranks[0][kernel])
+        entry["max_abs_err"] = max(entry["max_abs_err"],
+                                   dp_ranks[0][kernel]["bwd_max_abs_err"])
+    k2["max_abs_err"] = max(k2["max_abs_err"],
+                            dp_ranks[0]["k2"]["fwd_max_abs_err"])
     for entry in (k1, k2):
         entry["launches"] = sum(entry["launches_by_path"].values())
 

@@ -40,6 +40,11 @@
   `TrainState` and the step (`train.trainer.VoxelRCNNTrainStep`):
   `step(state, batch, generator) -> (state, logs)`, the generator drawing
   the RoI sampler's noise on the step's device.
+* `dryrun_multichip(n_devices, device)`: the counterpart of the JAX
+  package's `__graft_entry__.dryrun_multichip`: one CenterPoint and one
+  CenterPoint + 3D-DF training step over n ranks, one sample each
+  (`train.trainer.DataParallelTrainStep`), NCCL with one card a rank, or
+  gloo CPU processes with `device="cpu"`.
 * `voxel_rcnn_car_kitti()`, `voxel_rcnn_3ddf_kitti()`,
   `centerpoint_3ddf_nusc()`, `transfusion_l_nusc()` and
   `transfusion_3ddf_nusc()` are the port's copies of the JAX package's
@@ -52,8 +57,14 @@ no card, the default raises.
 
 from __future__ import annotations
 
+import json
+import math
+import os
+import tempfile
+
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from df3d_torch.models.detectors.centerpoint import (
     CenterPoint, CenterPointConfig, centerpoint_predict,
@@ -71,12 +82,13 @@ from df3d_torch.models.detectors.voxel_rcnn import (
 from df3d_torch.models.fusion.actr import ACTRConfig
 from df3d_torch.models.heads.voxelrcnn_head import VoxelRCNNHead
 from df3d_torch.ops.voxelize import voxelize_batch
+from df3d_torch.parallel import ddp
 from df3d_torch.train.schedules import adam_onecycle
 from df3d_torch.train.trainer import (
-    CenterPointTrainStep, FusedTrainStep, TrainState, TransFusionTrainStep,
-    VoxelRCNNTrainStep, create_train_state, make_centerpoint_train_step,
-    make_fused_train_step, make_transfusion_train_step,
-    make_voxelrcnn_train_step,
+    CenterPointTrainStep, DataParallelTrainStep, FusedTrainStep, TrainState,
+    TransFusionTrainStep, VoxelRCNNTrainStep, create_train_state,
+    make_centerpoint_train_step, make_fused_train_step,
+    make_transfusion_train_step, make_voxelrcnn_train_step,
 )
 from df3d_torch.utils import stages
 
@@ -443,3 +455,125 @@ def entry(device=None):
         return model(feats, coords)[0]
 
     return fn, (res.features, res.coords)
+
+
+def mesh_cfg() -> CenterPointConfig:
+    """The JAX package's `__graft_entry__._mesh_cfg()`: the multichip dry
+    run's config."""
+    return CenterPointConfig(
+        pc_range=(-16.0, -16.0, -2.4, 16.0, 16.0, 2.4),
+        voxel_size=(0.5, 0.5, 0.2), grid_size=(24, 64, 64),
+        max_voxels=256, num_point_features=5, stage_caps=(256, 128, 96, 64),
+        tasks=(1, 2), max_objs=8, nms_pre_max_size=32, nms_post_max_size=4,
+        post_center_range=(-20.0, -20.0, -4.0, 20.0, 20.0, 4.0))
+
+
+def dryrun_fused_config() -> FusedConfig:
+    """The fused config of the JAX package's `_dryrun_fused_step`: two
+    32x48 cameras, one-block ResNet stages, a tiny ACTR (no LT)."""
+    return FusedConfig(
+        image_shape=(32, 48), n_levels=2, num_cams=2,
+        image_layers=(1, 1, 1, 1),
+        actr=ACTRConfig(d_model=16, n_heads=2, n_points=2, n_levels=2,
+                        num_layers=1, dim_feedforward=32, model_name="ACTR"))
+
+
+def dryrun_batches(n: int) -> tuple[dict, dict]:
+    """The dry run's two global batches of n samples, numpy, as the JAX
+    package's `dryrun_multichip` draws them: 512 (LiDAR step) and 256
+    (fused step) points a sample over +-25 m, four equal boxes of class 0
+    and four padding slots; the fused batch adds two random 32x48 images
+    and random projections a sample."""
+    box = np.array([1.0, 2.0, 0.0, 4.0, 2.0, 1.5, 0.3, 0.0, 0.0], np.float32)
+    gt_valid = np.zeros((n, 8), bool)
+    gt_valid[:, :4] = True
+
+    def batch(points):
+        return {"points": points,
+                "points_valid": np.ones(points.shape[:2], bool),
+                "gt_boxes": np.tile(box, (n, 8, 1)),
+                "gt_classes": np.zeros((n, 8), np.int32),
+                "gt_valid": gt_valid}
+
+    lidar = batch(random_points(np.random.RandomState(0), n, 512))
+    rng = np.random.RandomState(1)
+    fused = batch(random_points(rng, n, 256))
+    fused["images"] = rng.rand(n, 2, 32, 48, 3).astype(np.float32)
+    fused["proj"] = rng.randn(n, 2, 3, 4).astype(np.float32)
+    return lidar, fused
+
+
+def _dryrun_step(state, step, batch, rank, n, dev) -> float:
+    """One data-parallel step of the global numpy `batch` on this rank's
+    sample; the summed loss, asserted finite."""
+    ddp.broadcast_state(state)
+    mine = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+            for k, v in ddp.shard_batch(batch, rank, n).items()}
+    _, logs = DataParallelTrainStep(step)(state, mine)
+    loss = float(logs["loss"])
+    if not math.isfinite(loss):
+        raise FloatingPointError(f"rank {rank}: non-finite loss {loss}")
+    return loss
+
+
+def _dryrun_rank(rank: int, n: int, device, init_method: str,
+                 out: str) -> None:
+    """One rank of `dryrun_multichip`."""
+    if device == "cpu":
+        torch.set_num_threads(1)
+    dev = ddp.init_data_parallel(rank, n, init_method=init_method,
+                                 device=device if device == "cpu" else None)
+    try:
+        lidar, fused = dryrun_batches(n)
+        cfg = mesh_cfg()
+        model = CenterPoint(cfg).init_weights(torch.Generator().manual_seed(0))
+        state = create_train_state(model.to(dev).train(),
+                                   adam_onecycle(1e-3, 100))
+        loss = _dryrun_step(state, make_centerpoint_train_step(cfg), lidar,
+                            rank, n, dev)
+        # constant weights, as the JAX dry run's fused state (finite, not
+        # meaningful)
+        fmodel = CenterPoint3DDF(cfg, dryrun_fused_config())
+        with torch.no_grad():
+            for t in list(fmodel.parameters()) + list(fmodel.buffers()):
+                if t.is_floating_point():
+                    t.fill_(0.01)
+        state = create_train_state(fmodel.to(dev).train(),
+                                   adam_onecycle(1e-3, 100))
+        fused_loss = _dryrun_step(state, make_fused_train_step(cfg), fused,
+                                  rank, n, dev)
+        if rank == 0:
+            with open(out, "w") as f:
+                json.dump({"loss": loss, "fused_loss": fused_loss}, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def dryrun_multichip(n_devices: int, device=None) -> dict:
+    """The twin of the JAX package's `__graft_entry__.dryrun_multichip`:
+    one CenterPoint training step (`mesh_cfg()`, random weights) and one
+    CenterPoint + 3D-DF step (`dryrun_fused_config()`, constant weights)
+    over `n_devices` ranks, one sample each (`dryrun_batches`), with
+    `DataParallelTrainStep`. The ranks are new processes: by default one
+    card each over NCCL (raises if fewer cards exist), with `device="cpu"`
+    gloo CPU processes. Each rank asserts finite losses; prints the summed
+    losses as the JAX dry run does and returns them."""
+    if device is None:
+        resolve_device()
+        if torch.cuda.device_count() < n_devices:
+            raise RuntimeError(
+                f"dryrun_multichip({n_devices}): {torch.cuda.device_count()}"
+                " CUDA devices")
+    elif torch.device(device).type != "cpu":
+        raise ValueError("dryrun_multichip runs one card a rank "
+                         "(device=None) or CPU processes (device='cpu')")
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "losses.json")
+        torch.multiprocessing.spawn(
+            _dryrun_rank, nprocs=n_devices,
+            args=(n_devices, device, f"file://{tmp}/store", out))
+        with open(out) as f:
+            losses = json.load(f)
+    print(f"dryrun_multichip({n_devices}): ok, loss={losses['loss']:.4f}, "
+          f"fused_loss={losses['fused_loss']:.4f}")
+    return losses

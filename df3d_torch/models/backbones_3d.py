@@ -26,6 +26,7 @@ from df3d_torch.ops.dense3d import (
 )
 from df3d_torch.ops.sparse import SparseTensor, build_conv_plan, build_subm_plan
 from df3d_torch.models.layers import SparseBasicBlock, SparseConvBNReLU
+from df3d_torch.parallel import ddp
 from df3d_torch.utils import stages
 
 
@@ -36,10 +37,13 @@ def _overflow(plan) -> torch.Tensor:
 
 def _fuse_dense_tail(x, n4: int, hook, fusion_kwargs, overflow: dict):
     """The stride-8 dense grid through the fusion hook: its overflow count
-    (summed over the batch, as the JAX package sows it), `sparsify` to the
-    stage-4 cap, the hook (only when it has inputs), `densify`."""
-    overflow["cap_overflow_dense_tail"] = (
-        x.mask.sum(dtype=torch.int32) - n4).clamp_min(0)
+    (the occupancy summed over the batch, the global one under data
+    parallelism, less one sample's cap, as the JAX package sows it;
+    rank 0's share of the log), `sparsify` to the stage-4 cap, the hook
+    (only when it has inputs), `densify`."""
+    occupied = ddp.global_sum(x.mask.sum(dtype=torch.int32))
+    overflow["cap_overflow_dense_tail"] = ddp.first_rank_share(
+        (occupied - n4).clamp_min(0))
     x_sp = sparsify(x, n4)
     stages.mark("backbone_3d")
     if fusion_kwargs:

@@ -25,6 +25,7 @@ from df3d_torch.core.box_coders import ResidualCoder
 from df3d_torch.core.boxes import limit_period
 from df3d_torch.core.iou import iou_nearest_bev
 from df3d_torch.models.losses import sigmoid_focal_loss, weighted_smooth_l1
+from df3d_torch.parallel import ddp
 
 
 # pcdet's direction classifier: two bins, headings offset by ~pi/4
@@ -152,9 +153,10 @@ def anchor_head_loss(cls_preds, box_preds, dir_preds, labels, reg_targets,
     on positives and negatives over each sample's positive count (at least
     1), smooth-L1 on the positives' residuals with the heading compared as
     sin(a - b), and the direction bins' cross entropy on the positives;
-    each summed and divided by B, weighted 1, 2 and 0.2. -> (total, logs:
+    each summed and divided by B (the global batch's, under
+    `parallel.ddp.data_parallel`), weighted 1, 2 and 0.2. -> (total, logs:
     rpn_cls_loss, rpn_loc_loss, rpn_dir_loss, rpn_loss)."""
-    b = labels.shape[0]
+    b = labels.shape[0] * ddp.world_size()  # the global batch
     pos = (labels == 1).to(cls_preds.dtype)
     neg = (labels == 0).to(cls_preds.dtype)
     num_pos = pos.sum(1, keepdim=True).clamp_min(1.0)

@@ -40,6 +40,7 @@ from df3d_torch.models.attention import LN_EPS, FlaxMultiHeadAttention
 from df3d_torch.models.layers import FlaxBatchNorm, FlaxBatchNorm2d
 from df3d_torch.models.losses import gaussian_focal_loss, sigmoid_focal_loss
 from df3d_torch.ops.assign import hungarian_match
+from df3d_torch.parallel import ddp
 from df3d_torch.utils import stages
 
 BN_EPS = 1e-5  # flax BatchNorm default
@@ -281,8 +282,9 @@ def transfusion_targets_and_loss(cfg: TransFusionHeadCfg, preds, gt_boxes,
     the classes and the code-weighted L1 on the encoded boxes (matched
     queries only) are divided by the matches over the batch (at least 1),
     the Gaussian focal loss on the dense heatmap by its peak cells (at
-    least 1). -> (total, logs: tf_cls_loss, tf_bbox_loss, tf_hm_loss,
-    tf_matched, loss)."""
+    least 1); both counts are over the global batch
+    (`parallel.ddp.global_sum`). -> (total, logs: tf_cls_loss,
+    tf_bbox_loss, tf_hm_loss, tf_matched, loss)."""
     coder = cfg.coder
     # the coder takes bottom-centre boxes
     gt_z = gt_boxes[..., 2] - 0.5 * gt_boxes[..., 5]
@@ -302,7 +304,8 @@ def transfusion_targets_and_loss(cfg: TransFusionHeadCfg, preds, gt_boxes,
     tgt_cls = gt_classes.long().gather(1, safe_gt)
     one_hot = (F.one_hot(tgt_cls, cfg.num_classes).to(pred_box.dtype)
                * pos_mask[..., None])
-    num_pos = pos_mask.sum().to(pred_box.dtype).clamp_min(1.0)
+    num_pos = ddp.global_sum(
+        pos_mask.sum().to(pred_box.dtype)).clamp_min(1.0)
     cls_loss = sigmoid_focal_loss(preds["cls"], one_hot,
                                   torch.ones_like(one_hot[..., 0])
                                   ).sum() / num_pos
@@ -316,8 +319,8 @@ def transfusion_targets_and_loss(cfg: TransFusionHeadCfg, preds, gt_boxes,
     gt_hm = gaussian_heatmap_targets(cfg, gt_boxes, gt_classes, gt_valid)
     pred_hm = torch.clamp(torch.sigmoid(preds["dense_heatmap"]).permute(
         0, 3, 1, 2), 1e-4, 1 - 1e-4)
-    hm_loss = gaussian_focal_loss(pred_hm, gt_hm).sum() / (
-        (gt_hm == 1).sum().to(pred_hm.dtype).clamp_min(1.0))
+    hm_loss = gaussian_focal_loss(pred_hm, gt_hm).sum() / ddp.global_sum(
+        (gt_hm == 1).sum().to(pred_hm.dtype)).clamp_min(1.0)
 
     total = (cfg.loss_cls_weight * cls_loss
              + cfg.loss_bbox_weight * bbox_loss

@@ -34,6 +34,7 @@ from df3d_torch.models.layers import MaskedBatchNorm
 from df3d_torch.ops.roi_ops import (
     collect_local_voxels, grid_ball_query, roi_grid_points,
 )
+from df3d_torch.parallel import ddp
 
 CODER = ResidualCoder()
 STAGE_CHANNELS = dict(zip(("conv1", "conv2", "conv3", "conv4"),
@@ -231,8 +232,9 @@ def rcnn_loss(cls_preds, reg_preds, targets: dict, cfg: VoxelRCNNHeadCfg):
     residuals against `canonical_reg_targets` and the corner loss (Huber at
     1 m on the mean corner distance of the decoded box to the gt or the gt
     turned by pi, whichever is nearer), both over the RoIs with a
-    regression target. -> (total, logs: rcnn_cls_loss, rcnn_reg_loss,
-    rcnn_corner_loss, rcnn_loss)."""
+    regression target; both counts over the global batch
+    (`parallel.ddp.global_sum`). -> (total, logs: rcnn_cls_loss,
+    rcnn_reg_loss, rcnn_corner_loss, rcnn_loss)."""
     mask = targets["mask"].to(cls_preds.dtype)
     cls = cls_preds[..., 0]
     # maximum, not clamp: a logit at 0 sends half its gradient each way, as
@@ -240,11 +242,12 @@ def rcnn_loss(cls_preds, reg_preds, targets: dict, cfg: VoxelRCNNHeadCfg):
     bce = (torch.maximum(cls, torch.zeros_like(cls))
            - cls * targets["cls_targets"]
            + torch.log1p(torch.exp(-cls.abs())))
-    cls_loss = (bce * mask).sum() / mask.sum().clamp_min(1.0)
+    cls_loss = (bce * mask).sum() / ddp.global_sum(
+        mask.sum()).clamp_min(1.0)
 
     reg_t = canonical_reg_targets(targets["rois"], targets["gt_of_roi"])
     reg_m = targets["reg_valid"].to(reg_preds.dtype)
-    n_reg = reg_m.sum().clamp_min(1.0)
+    n_reg = ddp.global_sum(reg_m.sum()).clamp_min(1.0)
     loc = weighted_smooth_l1(reg_preds, reg_t, reg_m,
                              code_weights=cfg.code_weights).sum() / n_reg
 

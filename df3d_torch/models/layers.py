@@ -5,7 +5,8 @@ ConvPlan runs the gather-GEMM body (the CUDA kernel on the card), a
 DenseTensor + DenseConvSpec runs a dense conv masked to the active set. The
 (K, Cin, Cout) tap weights are the same either way. BatchNorms on voxel
 features and BEV maps use eps=1e-3 (det3d/pcdet norm_cfg) and flax's
-momentum 0.99 in training.
+momentum 0.99 in training. Under `parallel.ddp.data_parallel` the training
+norms take their statistics over the global batch (SyncBN).
 
 The 2D blocks take NCHW tensors (PyTorch's layout); `BEVBackbone` and
 `CenterHead` convert at their boundary, where the layout is the JAX
@@ -21,6 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from df3d_torch.ops.dense3d import DenseTensor, dense_conv
+from df3d_torch.parallel import ddp
 from df3d_torch.ops.sparse import SparseTensor, apply_sparse_conv, _triple
 
 
@@ -65,9 +67,12 @@ class MaskedBatchNorm(_FlaxNorm):
         if self.training:
             m = mask[..., None].to(x.dtype)
             red = tuple(range(x.dim() - 1))
-            cnt = m.sum().clamp_min(1.0)
-            mean = (x * m).sum(red) / cnt
-            var = ((x - mean).square() * m).sum(red) / cnt
+            # over the global batch under `ddp.data_parallel`: the sum and
+            # the count, then the squared deviations from the global mean
+            total, cnt = ddp.global_sum((x * m).sum(red), m.sum())
+            cnt = cnt.clamp_min(1.0)
+            mean = total / cnt
+            var = ddp.global_sum(((x - mean).square() * m).sum(red)) / cnt
             _update_running(self, mean, var)
         else:
             mean, var = self.running_mean, self.running_var
@@ -102,8 +107,14 @@ class FlaxBatchNorm(_FlaxNorm):
                 self.running_var, self.weight, self.bias, False, 0.0,
                 self.eps).reshape(x.shape)
         red = tuple(d for d in range(x.dim()) if d != axis)
-        mean = x.mean(red)
-        var = (x.square().mean(red) - mean.square()).clamp_min(0.0)
+        if ddp.world_size() > 1:  # over the global batch: one all-reduce
+            total, sq, n = ddp.global_sum(
+                x.sum(red), x.square().sum(red),
+                x.new_full((1,), x.numel() // x.shape[axis]))
+            mean, sq_mean = total / n, sq / n
+        else:
+            mean, sq_mean = x.mean(red), x.square().mean(red)
+        var = (sq_mean - mean.square()).clamp_min(0.0)
         _update_running(self, mean, var)
         shape = [1] * x.dim()
         shape[axis] = -1

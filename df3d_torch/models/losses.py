@@ -3,11 +3,17 @@
 negatives, masked L1 at the peak indices), TransFusion's (mmdet's
 sigmoid focal loss on the queries' classes, Gaussian focal loss on the
 dense heatmap; its L1 on the encoded boxes is written in the head's loss)
-and Voxel R-CNN's (pcdet's sigmoid focal loss and weighted smooth-L1)."""
+and Voxel R-CNN's (pcdet's sigmoid focal loss and weighted smooth-L1).
+
+The normalizers that count over the batch are global sums
+(`parallel.ddp.global_sum`): under data parallelism each rank's loss is its
+share of the loss of the global batch."""
 
 from __future__ import annotations
 
 import torch
+
+from df3d_torch.parallel import ddp
 
 
 def clamped_sigmoid(x: torch.Tensor, eps: float = 1e-4) -> torch.Tensor:
@@ -19,12 +25,13 @@ def fast_focal_loss(pred: torch.Tensor, target: torch.Tensor,
                     cat: torch.Tensor) -> torch.Tensor:
     """pred (B, H*W, C) probabilities, target (B, H*W, C) gaussian heatmap,
     ind (B, M) flat peak indices, mask (B, M) bool, cat (B, M) class ids.
-    -> scalar: -(pos + neg) / num_pos, or -neg with no positive."""
+    -> scalar: -(pos + neg) / num_pos, or -neg with no positive; num_pos
+    over the global batch."""
     neg_loss = (torch.log(1 - pred) * pred ** 2 * (1 - target) ** 4).sum()
     at_peaks = torch.gather(pred, 1, ind[..., None].expand(
         -1, -1, pred.shape[2]))
     pos_pred = torch.gather(at_peaks, 2, cat[..., None])[..., 0]
-    num_pos = mask.sum().to(pred.dtype)
+    num_pos = ddp.global_sum(mask.sum().to(pred.dtype))
     pos_loss = (torch.log(pos_pred) * (1 - pos_pred) ** 2 * mask).sum()
     return torch.where(num_pos == 0, -neg_loss,
                        -(pos_loss + neg_loss) / num_pos.clamp_min(1.0))
@@ -33,11 +40,13 @@ def fast_focal_loss(pred: torch.Tensor, target: torch.Tensor,
 def reg_l1_loss(pred_map: torch.Tensor, ind: torch.Tensor, mask: torch.Tensor,
                 target: torch.Tensor) -> torch.Tensor:
     """Masked L1 at the peaks. pred_map (B, H*W, C), ind and mask (B, M),
-    target (B, M, C) -> per-channel sum / num_pos, (C,)."""
+    target (B, M, C) -> per-channel sum / num_pos (over the global batch),
+    (C,)."""
     pred = torch.gather(pred_map, 1, ind[..., None].expand(
         -1, -1, pred_map.shape[2]))
     m = mask.to(pred.dtype)[..., None]
-    loss = (pred * m - target * m).abs() / (m.sum() + 1e-4)
+    loss = (pred * m - target * m).abs() / (ddp.global_sum(m.sum())
+                                            + 1e-4)
     return loss.sum((0, 1))
 
 

@@ -25,6 +25,10 @@ gradient, as in pcdet, whose proposal and proposal target layers run under
 `torch.no_grad()`; the JAX package's step differentiates through them, so
 the RCNN losses reach the RPN's box branch through the RoIs and the IoU
 targets there (ROADMAP section 3). The RoI features stay attached.
+
+`DataParallelTrainStep` runs any of these steps over the ranks of a
+process group, each on its share of the global batch, and equals the
+one-process step on the global batch (`parallel.ddp`).
 """
 
 from __future__ import annotations
@@ -49,6 +53,7 @@ from df3d_torch.models.detectors.voxel_rcnn import (
 from df3d_torch.models.fusion.actr import ACTR
 from df3d_torch.models.heads.voxelrcnn_head import sample_rois_for_training
 from df3d_torch.ops.voxelize import voxelize_batch
+from df3d_torch.parallel import ddp
 from df3d_torch.train.schedules import AdamOneCycle, AdamState
 from df3d_torch.utils import stages
 
@@ -272,3 +277,46 @@ class VoxelRCNNTrainStep(CenterPointTrainStep):
 def make_voxelrcnn_train_step(cfg: VoxelRCNNConfig, fused: bool = False
                               ) -> VoxelRCNNTrainStep:
     return VoxelRCNNTrainStep(cfg, fused)
+
+
+class DataParallelTrainStep:
+    """One of the steps above over the ranks of the default process group:
+    `step(state, batch[, generator]) -> (state, logs)`, `batch` this
+    rank's rows of the global batch (`ddp.shard_batch`), every rank
+    holding the same state (`ddp.broadcast_state`).
+
+    The rank's forward and backward run under `ddp.data_parallel`, so the
+    norms' statistics and the losses' normalizers cover the global batch
+    and each rank's loss is its share of the global loss. Its gradients
+    are then summed over the ranks, in one all-reduce of their flattened
+    concatenation, and the sum goes to the optimizer, whose clip sees the
+    global norm; the logs are summed too. So every rank takes the
+    one-process step on the global batch. Voxel R-CNN's RoI sampler noise
+    is drawn for the global batch from `generator` (seeded alike on every
+    rank), as the one-process step draws it, and each rank takes its
+    rows."""
+
+    def __init__(self, step: CenterPointTrainStep):
+        self.step = step
+
+    def grads(self, state: TrainState, batch: dict, generator=None):
+        """The summed (logs, gradients) of the global batch."""
+        kwargs = {}
+        if isinstance(self.step, VoxelRCNNTrainStep):
+            world = torch.distributed.get_world_size()
+            rank = torch.distributed.get_rank()
+            b = batch["points"].shape[0]
+            noise = torch.rand((b * world, self.step.cfg.train_post_nms),
+                               generator=generator,
+                               device=batch["points"].device) * 1e-3
+            kwargs["noise"] = noise[rank * b:(rank + 1) * b]
+        with ddp.data_parallel():
+            logs, grads = self.step.grads(state, batch, **kwargs)
+        grads = ddp.sum_over_ranks(grads)
+        logs = ddp.sum_over_ranks(logs)
+        stages.mark("allreduce")
+        return logs, grads
+
+    def __call__(self, state: TrainState, batch: dict, *args):
+        logs, grads = self.grads(state, batch, *args)
+        return self.step.apply(state, grads), logs

@@ -42,6 +42,7 @@ from df3d_torch.train.trainer import make_centerpoint_train_step
 from df3d_torch.weights import (
     params_from_flax, state_dict_from_flax, train_state_from_flax,
 )
+import torch_parallel_ranks
 from torch_port_helpers import seeded_variables
 
 # __graft_entry__._mesh_cfg()
@@ -109,11 +110,14 @@ def step_run():
 
     cfg = CenterPointConfig(**CFG)
     model = CenterPoint(cfg)
-    state, step, logs, grads = _port_grads(model, variables, batch)
+    relus = []  # the port's ReLU decisions, for test_two_ranks_against_jax
+    with torch_parallel_ranks.relu_decisions(relus):
+        state, step, logs, grads = _port_grads(model, variables, batch)
     state = step.apply(state, list(grads.values()))
     return dict(model=model, state=state, logs=logs, grads=grads, new=new,
                 jlogs={k: np.asarray(v) for k, v in jlogs.items()},
-                jstep=jstep, jstate=jstate, variables=variables)
+                jstep=jstep, jstate=jstate, variables=variables,
+                relus=relus)
 
 
 def _port_grads(model, variables, batch):
@@ -236,3 +240,40 @@ def test_dry_run_spread(step_run):
     print(f"{len(jumps)} of {len(ref['x0'])} gradient leaves of the "
           "reference jump by more than the tolerance between x0 and x1 "
           "(over the leaf's max at x0):\n" + "\n".join(jumps))
+
+
+def test_two_ranks_against_jax(step_run, tmp_path):
+    """The port's `DataParallelTrainStep` over 2 gloo CPU ranks, one
+    sample each, from the same flax variables, against the jitted JAX step
+    on the global batch of two (one `jit` program over the whole batch,
+    as `dryrun_multichip` shards it): the logs, every gradient leaf, the
+    batch statistics and the updated parameters, with the checks above.
+    The ranks' statistics sum in another order, and a neck ReLU input
+    within ~1e-5 of 0 can take the other side on a rank (which moves
+    every gradient leaf upstream past its tolerance), so the ranks replay
+    the port's one-process decisions, which are JAX's here (the tests
+    above pass without replay): at most 4 elements a rank, each within
+    1e-4 of 0; the replays are printed. The decisions are those of
+    `step_run`'s port step (at another thread count a neck ReLU input
+    takes the other side from JAX's)."""
+    r = step_run
+    torch.save(r["relus"], tmp_path / "relus.pt")
+    torch_parallel_ranks.spawn(
+        torch_parallel_ranks.flax_state_rank, tmp_path, str(tmp_path), CFG,
+        r["variables"], _batch(), LR_MAX, TOTAL_STEPS)
+    got = torch.load(tmp_path / "flax_state.pt")
+    for flips in got["flips"]:
+        assert sum(n for n, _ in flips) <= 4
+        assert all(z < 1e-4 for _, z in flips)
+    model = CenterPoint(r["model"].cfg)
+    state = train_state_from_flax(model, r["variables"]["params"],
+                                  r["variables"]["batch_stats"],
+                                  adam_onecycle(LR_MAX, TOTAL_STEPS))
+    model.load_state_dict(got["state_dict"])
+    state.step = 1
+    dp = dict(r, model=model, state=state, logs=got["logs"],
+              grads=got["grads"])
+    for check in (test_logs, test_every_gradient_leaf,
+                  test_batch_stats_after_step, test_updated_parameters):
+        check(dp)
+    print(f"ReLU replays per rank: {got['flips']}")
