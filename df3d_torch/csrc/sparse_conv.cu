@@ -57,9 +57,21 @@
 //    tile could be laid out as; mma.sync keeps Cout = 16 on the tensor
 //    cores. On the H100 the 3xTF32 mma.sync products cost about as much as
 //    the rest of a 64-channel launch together (PERF.md, k1_ablate.py).
+//
+// The bf16 form (df3d_sparse_conv_bf16; the bf16 serving profile, the TPU
+// kernel's `table_dtype`): a bf16 table and bf16 weights, the same tiles,
+// schedule and compaction, and one mma.sync m16n8k16 bf16 -> f32 per
+// fragment where the f32 form takes three TF32 ones (a bf16 x bf16 product
+// is exact in f32). Cin is padded to a multiple of 16 in shared memory,
+// rows are staged at half the bytes (16-byte cp.async when Cin % 8 == 0,
+// else element by element), the W^T fragment is packed from two bf16 loads
+// per register, and the f32 accumulator tile is rounded to bf16 (to
+// nearest, ties to even) once, when it is written out.
+//
 // Limits: Cin <= 128 and at most 128 taps (refused beyond); any Cout, in
 // column blocks.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -71,6 +83,11 @@ constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kMaxSmem = 232448;  // bytes a block may opt in to (sm_90)
 constexpr int kTapWords = 4;      // taps per launch: at most 32 x this
+
+// A table element: f32, or bf16 held as its bits.
+using bf16_bits = uint16_t;
+template <typename E>
+constexpr bool kBf16 = std::is_same<E, bf16_bits>::value;
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -111,48 +128,70 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
+                                         const unsigned (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// two bf16 in one register, the lower k in the low half (mma's order)
+__device__ __forceinline__ unsigned pack(bf16_bits lo, bf16_bits hi) {
+  return static_cast<unsigned>(lo) | (static_cast<unsigned>(hi) << 16);
+}
+
+__device__ __forceinline__ float to_out(float x, float*) { return x; }
+__device__ __forceinline__ bf16_bits to_out(float x, bf16_bits*) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(x));
+}
+
 // Tile shape of one block: BM output rows (128 for the 16-channel launches,
 // whose work per (tile, tap) is smallest, else 64) x a BN-wide column
-// block, Cin padded to KP. A stage holds one hit tap's gathered rows and
-// W[t] block; two stages, so the next hit tap's copies fly while this one
-// computes (a third stage measured no faster on the H100).
-template <int KP, int BN>
+// block, Cin padded to KP (a multiple of the mma's k: 8 for TF32, 16 for
+// bf16). A stage holds one hit tap's gathered rows and W[t] block; two
+// stages, so the next hit tap's copies fly while this one computes (a
+// third stage measured no faster on the H100).
+template <typename E, int KP, int BN>
 struct Tile {
   static constexpr int kBM = BN == 16 && KP <= 64 ? 128 : 64;
   static constexpr int kStages = 2;
   // blocks per SM the register budget is set for: 4 where the narrow
   // channels leave registers to spare (more blocks hide more latency)
   static constexpr int kMinBlocks = KP * BN <= 1024 ? 4 : 2;
-  static constexpr int kAS = KP + 4;   // gathered row stride (floats)
-  static constexpr int kWS = BN + 8;   // W row stride
-  static constexpr int kCS = BN + 4;   // accumulator row stride
+  static constexpr int kVec = 16 / sizeof(E);  // elements per 16 bytes
+  static constexpr int kAS = KP + kVec;  // gathered row stride (elements)
+  static constexpr int kWS = BN + 8;     // W row stride (elements)
+  static constexpr int kCS = BN + 4;     // accumulator row stride (floats)
   // without the tile's indices and hit masks, k_taps * (kBM + kBM / 32)
   // ints
   static constexpr size_t kBytes =
-      sizeof(float) * (kStages * (kBM * kAS + KP * kWS) + kBM * kCS) +
-      sizeof(int) * 2 * kStages * kBM;
+      sizeof(E) * kStages * (kBM * kAS + KP * kWS) +
+      sizeof(float) * kBM * kCS + sizeof(int) * 2 * kStages * kBM;
 };
 
-template <int KP, int BN>
-__global__ void __launch_bounds__(kThreads, (Tile<KP, BN>::kMinBlocks))
-sparse_conv_kernel(const float* __restrict__ feat,   // (B, N_in, Cin)
+template <typename E, int KP, int BN>
+__global__ void __launch_bounds__(kThreads, (Tile<E, KP, BN>::kMinBlocks))
+sparse_conv_kernel(const E* __restrict__ feat,       // (B, N_in, Cin)
                    const int* __restrict__ idx,      // (B, K*N_out)
-                   const float* __restrict__ w,      // (K, Cin, Cout)
-                   float* __restrict__ out,          // (B, N_out, Cout)
+                   const E* __restrict__ w,          // (K, Cin, Cout)
+                   E* __restrict__ out,              // (B, N_out, Cout)
                    int n_in, int n_out, int k_taps, int cin, int cout,
                    int vec_idx, int vec_feat, int vec_w) {
-  using T = Tile<KP, BN>;
+  using T = Tile<E, KP, BN>;
   constexpr int BM = T::kBM;
   constexpr int S = T::kStages;
+  constexpr int V = T::kVec;
   constexpr int NW = BM / 32;           // index words (ballots) per tap
   constexpr int RPW = BM / kWarps;      // rows each warp gathers
   constexpr int NMT = BN / 16;          // m16 slices of the channel block
   constexpr int WG = kWarps / NMT;      // warps sharing one slice
   constexpr int CPW = (BM / 8) / WG;    // chunks of 8 slots per warp, at most
-  extern __shared__ __align__(16) float smem[];
-  float* a_s = smem;                               // [stage][slot][kAS]
-  float* w_s = a_s + S * BM * T::kAS;              // [stage][cin][kWS]
-  float* c_s = w_s + S * KP * T::kWS;              // [row][kCS]
+  extern __shared__ __align__(16) unsigned char smem[];
+  E* a_s = reinterpret_cast<E*>(smem);             // [stage][slot][kAS]
+  E* w_s = a_s + S * BM * T::kAS;                  // [stage][cin][kWS]
+  float* c_s = reinterpret_cast<float*>(w_s + S * KP * T::kWS);  // [row][kCS]
   int* slot_row = reinterpret_cast<int*>(c_s + BM * T::kCS);  // [stage][slot]
   int* slot_src = slot_row + S * BM;               // [stage][slot] -> input
   int* idx_s = slot_src + S * BM;                  // [tap][row]
@@ -175,7 +214,7 @@ sparse_conv_kernel(const float* __restrict__ feat,   // (B, N_in, Cin)
   const int lane0 = warp * RPW % 32;
   const unsigned own = ((1u << RPW) - 1u) << lane0;
 
-  const float* feat_b = feat + static_cast<long long>(b) * n_in * cin;
+  const E* feat_b = feat + static_cast<long long>(b) * n_in * cin;
   const int* idx_b = idx + static_cast<long long>(b) * k_taps * n_out;
 
   // The tile's indices for every tap, in one round trip; rows past N_out
@@ -208,10 +247,10 @@ sparse_conv_kernel(const float* __restrict__ feat,   // (B, N_in, Cin)
   for (int e = tid; e < BM * T::kCS; e += kThreads) c_s[e] = 0.f;
   const int pad = KP - cin;
   for (int e = tid; e < S * BM * pad; e += kThreads)
-    a_s[(e / pad) * T::kAS + cin + e % pad] = 0.f;
+    a_s[(e / pad) * T::kAS + cin + e % pad] = E(0);
   for (int e = tid; e < S * pad * T::kWS; e += kThreads)
     w_s[(e / (pad * T::kWS)) * KP * T::kWS + cin * T::kWS +
-        e % (pad * T::kWS)] = 0.f;
+        e % (pad * T::kWS)] = E(0);
   cp_async_wait_all();
   __syncthreads();
 
@@ -248,20 +287,23 @@ sparse_conv_kernel(const float* __restrict__ feat,   // (B, N_in, Cin)
   };
 
   // Copy `count` hit rows from slot `s_begin` on into stage `buf`, UNIT
-  // floats per cp.async.
+  // elements per copy: 16 bytes by cp.async, or one element (by cp.async
+  // for f32, by a plain load and store for bf16).
   auto gather_rows = [&](int s_begin, int count, int buf, auto unit) {
-    constexpr int UNIT = decltype(unit)::value;   // floats per copy
+    constexpr int UNIT = decltype(unit)::value;   // elements per copy
     constexpr int UPR = KP / UNIT;                // copies per row
     for (int e = lane; e < count * UPR; e += 32) {
       const int slot = s_begin + e / UPR;
       const int q = e % UPR;
       if (q * UNIT < cin) {
-        const float* src = feat_b + q * UNIT +
-                           static_cast<long long>(slot_src[buf * BM + slot]) *
-                               cin;
-        float* dst = a_s + (buf * BM + slot) * T::kAS + q * UNIT;
-        if (UNIT == 4)
+        const E* src = feat_b + q * UNIT +
+                       static_cast<long long>(slot_src[buf * BM + slot]) *
+                           cin;
+        E* dst = a_s + (buf * BM + slot) * T::kAS + q * UNIT;
+        if (UNIT == V)
           cp_async16(dst, src);
+        else if (kBf16<E>)
+          *dst = *src;
         else
           cp_async4(dst, src);
       }
@@ -288,7 +330,7 @@ sparse_conv_kernel(const float* __restrict__ feat,   // (B, N_in, Cin)
     const int s_begin = pw + __popc(mw & ((1u << lane0) - 1u));
     const int count = __popc(mw & own);
     if (vec_feat)
-      gather_rows(s_begin, count, buf, std::integral_constant<int, 4>());
+      gather_rows(s_begin, count, buf, std::integral_constant<int, V>());
     else
       gather_rows(s_begin, count, buf, std::integral_constant<int, 1>());
     return h;
@@ -296,12 +338,12 @@ sparse_conv_kernel(const float* __restrict__ feat,   // (B, N_in, Cin)
 
   // start copying W[t]'s column block into stage `buf`
   auto copy_w = [&](int t, int buf) {
-    const float* w_t = w + static_cast<long long>(t) * cin * cout + n0;
-    float* w_buf = w_s + buf * KP * T::kWS;
+    const E* w_t = w + static_cast<long long>(t) * cin * cout + n0;
+    E* w_buf = w_s + buf * KP * T::kWS;
     if (vec_w) {
-      for (int e = tid; e < KP * (BN / 4); e += kThreads) {
-        const int k = e / (BN / 4);
-        const int q = 4 * (e % (BN / 4));
+      for (int e = tid; e < KP * (BN / V); e += kThreads) {
+        const int k = e / (BN / V);
+        const int q = V * (e % (BN / V));
         if (k < cin && q < bn)
           cp_async16(w_buf + k * T::kWS + q,
                      w_t + static_cast<long long>(k) * cout + q);
@@ -310,9 +352,13 @@ sparse_conv_kernel(const float* __restrict__ feat,   // (B, N_in, Cin)
       for (int e = tid; e < KP * BN; e += kThreads) {
         const int k = e / BN;
         const int q = e % BN;
-        if (k < cin && q < bn)
-          cp_async4(w_buf + k * T::kWS + q,
-                    w_t + static_cast<long long>(k) * cout + q);
+        if (k < cin && q < bn) {
+          const E* src = w_t + static_cast<long long>(k) * cout + q;
+          if (kBf16<E>)
+            w_buf[k * T::kWS + q] = *src;
+          else
+            cp_async4(w_buf + k * T::kWS + q, src);
+        }
       }
     }
   };
@@ -322,33 +368,57 @@ sparse_conv_kernel(const float* __restrict__ feat,   // (B, N_in, Cin)
   auto compute = [&](int buf, int h) {
     const int nch = (h + 7) >> 3;
     if (sub >= nch) return;
-    const float* a_buf = a_s + buf * BM * T::kAS;
-    const float* w_buf = w_s + buf * KP * T::kWS + mt * 16;
+    const E* a_buf = a_s + buf * BM * T::kAS;
+    const E* w_buf = w_s + buf * KP * T::kWS + mt * 16;
     // hi*hi and the two small terms in separate sums: two shorter chains
     float d[CPW][4], e[CPW][4];
 #pragma unroll
     for (int i = 0; i < CPW; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) d[i][j] = e[i][j] = 0.f;
+    if constexpr (kBf16<E>) {
 #pragma unroll
-    for (int ks = 0; ks < KP / 8; ++ks) {
-      const float* wk = w_buf + (ks * 8 + t4) * T::kWS + g;
-      unsigned ah[4], al[4];
-      split(wk[0], ah[0], al[0]);
-      split(wk[8], ah[1], al[1]);
-      split(wk[4 * T::kWS], ah[2], al[2]);
-      split(wk[4 * T::kWS + 8], ah[3], al[3]);
+      for (int ks = 0; ks < KP / 16; ++ks) {
+        // W^T's fragment: channels g and g + 8, Cin pairs from 2 t4 and
+        // 2 t4 + 8
+        const E* wk = w_buf + (ks * 16 + 2 * t4) * T::kWS + g;
+        const unsigned a[4] = {pack(wk[0], wk[T::kWS]),
+                               pack(wk[8], wk[T::kWS + 8]),
+                               pack(wk[8 * T::kWS], wk[9 * T::kWS]),
+                               pack(wk[8 * T::kWS + 8], wk[9 * T::kWS + 8])};
 #pragma unroll
-      for (int i = 0; i < CPW; ++i) {
-        const int c = sub + i * WG;
-        if (c < nch) {
-          const float* ak = a_buf + (c * 8 + g) * T::kAS + ks * 8 + t4;
-          unsigned bh[2], bl[2];
-          split(ak[0], bh[0], bl[0]);
-          split(ak[4], bh[1], bl[1]);
-          mma_tf32(e[i], al, bh);
-          mma_tf32(e[i], ah, bl);
-          mma_tf32(d[i], ah, bh);
+        for (int i = 0; i < CPW; ++i) {
+          const int c = sub + i * WG;
+          if (c < nch) {
+            // slot c * 8 + g's Cin pairs from 2 t4 and 2 t4 + 8
+            const E* ak = a_buf + (c * 8 + g) * T::kAS + ks * 16 + 2 * t4;
+            const unsigned bb[2] = {*reinterpret_cast<const unsigned*>(ak),
+                                    *reinterpret_cast<const unsigned*>(ak + 8)};
+            mma_bf16(d[i], a, bb);
+          }
+        }
+      }
+    } else {
+#pragma unroll
+      for (int ks = 0; ks < KP / 8; ++ks) {
+        const float* wk = w_buf + (ks * 8 + t4) * T::kWS + g;
+        unsigned ah[4], al[4];
+        split(wk[0], ah[0], al[0]);
+        split(wk[8], ah[1], al[1]);
+        split(wk[4 * T::kWS], ah[2], al[2]);
+        split(wk[4 * T::kWS + 8], ah[3], al[3]);
+#pragma unroll
+        for (int i = 0; i < CPW; ++i) {
+          const int c = sub + i * WG;
+          if (c < nch) {
+            const float* ak = a_buf + (c * 8 + g) * T::kAS + ks * 8 + t4;
+            unsigned bh[2], bl[2];
+            split(ak[0], bh[0], bl[0]);
+            split(ak[4], bh[1], bl[1]);
+            mma_tf32(e[i], al, bh);
+            mma_tf32(e[i], ah, bl);
+            mma_tf32(d[i], ah, bh);
+          }
         }
       }
     }
@@ -385,8 +455,9 @@ sparse_conv_kernel(const float* __restrict__ feat,   // (B, N_in, Cin)
   cp_async_commit();
   for (int i = 0; cur < k_taps; ++i) {
     cp_async_wait_all();
-    // cur's stage is visible to all, and every warp is done with the
-    // previous tap's stage, which the copies below overwrite
+    // cur's stage is visible to all (the bf16 form's element copies too),
+    // and every warp is done with the previous tap's stage, which the
+    // copies below overwrite
     __syncthreads();
     const int nxt = next_hit_tap(cur + 1);
     int h_nxt = 0;
@@ -401,21 +472,21 @@ sparse_conv_kernel(const float* __restrict__ feat,   // (B, N_in, Cin)
   }
   __syncthreads();
 
-  float* out_b = out + static_cast<long long>(b) * n_out * cout + n0;
+  E* out_b = out + static_cast<long long>(b) * n_out * cout + n0;
   for (int e = tid; e < BM * BN; e += kThreads) {
     const int row = e / BN;
     const int c = e % BN;
     if (m0 + row < n_out && c < bn)
       out_b[static_cast<long long>(m0 + row) * cout + c] =
-          c_s[row * T::kCS + c];
+          to_out(c_s[row * T::kCS + c], out_b);
   }
 }
 
-template <int KP, int BN>
-cudaError_t launch(const float* feat, const int* idx, const float* w,
-                   float* out, int batch, int n_in, int n_out, int k_taps,
-                   int cin, int cout, cudaStream_t stream) {
-  using T = Tile<KP, BN>;
+template <typename E, int KP, int BN>
+cudaError_t launch(const E* feat, const int* idx, const E* w, E* out,
+                   int batch, int n_in, int n_out, int k_taps, int cin,
+                   int cout, cudaStream_t stream) {
+  using T = Tile<E, KP, BN>;
   const size_t smem =
       T::kBytes + sizeof(int) * k_taps * (T::kBM + T::kBM / 32);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
@@ -425,7 +496,7 @@ cudaError_t launch(const float* feat, const int* idx, const float* w,
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev >= 64 || !opted_in[dev]) {
-    err = cudaFuncSetAttribute(sparse_conv_kernel<KP, BN>,
+    err = cudaFuncSetAttribute(sparse_conv_kernel<E, KP, BN>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                kMaxSmem);
     if (err != cudaSuccess) return err;
@@ -434,53 +505,79 @@ cudaError_t launch(const float* feat, const int* idx, const float* w,
   const int vec_idx =
       n_out % 4 == 0 && reinterpret_cast<uintptr_t>(idx) % 16 == 0;
   const int vec_feat =
-      cin % 4 == 0 && reinterpret_cast<uintptr_t>(feat) % 16 == 0;
-  const int vec_w = cout % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+      cin % T::kVec == 0 && reinterpret_cast<uintptr_t>(feat) % 16 == 0;
+  const int vec_w =
+      cout % T::kVec == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
   const dim3 grid((n_out + T::kBM - 1) / T::kBM, (cout + BN - 1) / BN, batch);
-  sparse_conv_kernel<KP, BN><<<grid, kThreads, smem, stream>>>(
+  sparse_conv_kernel<E, KP, BN><<<grid, kThreads, smem, stream>>>(
       feat, idx, w, out, n_in, n_out, k_taps, cin, cout, vec_idx, vec_feat,
       vec_w);
   return cudaGetLastError();
 }
 
-template <int KP>
-cudaError_t launch_bn(const float* feat, const int* idx, const float* w,
-                      float* out, int batch, int n_in, int n_out, int k_taps,
-                      int cin, int cout, cudaStream_t s) {
+template <typename E, int KP>
+cudaError_t launch_bn(const E* feat, const int* idx, const E* w, E* out,
+                      int batch, int n_in, int n_out, int k_taps, int cin,
+                      int cout, cudaStream_t s) {
   if (cout <= 16)
-    return launch<KP, 16>(feat, idx, w, out, batch, n_in, n_out, k_taps, cin,
-                          cout, s);
+    return launch<E, KP, 16>(feat, idx, w, out, batch, n_in, n_out, k_taps,
+                             cin, cout, s);
   if (cout <= 32)
-    return launch<KP, 32>(feat, idx, w, out, batch, n_in, n_out, k_taps, cin,
-                          cout, s);
-  return launch<KP, 64>(feat, idx, w, out, batch, n_in, n_out, k_taps, cin,
-                        cout, s);
+    return launch<E, KP, 32>(feat, idx, w, out, batch, n_in, n_out, k_taps,
+                             cin, cout, s);
+  return launch<E, KP, 64>(feat, idx, w, out, batch, n_in, n_out, k_taps,
+                           cin, cout, s);
+}
+
+// Pick KP, Cin padded to the mma's k: {8,} 16, 32, 64, 128.
+template <typename E>
+int dispatch(const E* feat, const int* idx, const E* w, E* out, int batch,
+             int n_in, int n_out, int k_taps, int cin, int cout,
+             void* stream) {
+  if (batch <= 0 || n_out <= 0 || k_taps <= 0 || k_taps > 32 * kTapWords ||
+      cin <= 0 || cin > 128 || cout <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if constexpr (!kBf16<E>) {
+    if (cin <= 8)
+      return static_cast<int>(launch_bn<E, 8>(feat, idx, w, out, batch, n_in,
+                                               n_out, k_taps, cin, cout, s));
+  }
+  if (cin <= 16)
+    err = launch_bn<E, 16>(feat, idx, w, out, batch, n_in, n_out, k_taps,
+                           cin, cout, s);
+  else if (cin <= 32)
+    err = launch_bn<E, 32>(feat, idx, w, out, batch, n_in, n_out, k_taps,
+                           cin, cout, s);
+  else if (cin <= 64)
+    err = launch_bn<E, 64>(feat, idx, w, out, batch, n_in, n_out, k_taps,
+                           cin, cout, s);
+  else
+    err = launch_bn<E, 128>(feat, idx, w, out, batch, n_in, n_out, k_taps,
+                            cin, cout, s);
+  return static_cast<int>(err);
 }
 
 }  // namespace
 
-// Plain C interface (loaded with ctypes). Returns a cudaError_t value;
+// Plain C interface (loaded with ctypes). Each returns a cudaError_t value;
 // 0 means the launch was accepted.
 extern "C" int df3d_sparse_conv_f32(const float* feat, const int* idx,
                                     const float* w, float* out, int batch,
                                     int n_in, int n_out, int k_taps, int cin,
                                     int cout, void* stream) {
-  if (batch <= 0 || n_out <= 0 || k_taps <= 0 || k_taps > 32 * kTapWords ||
-      cin <= 0 || cin > 128 || cout <= 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (cin <= 8)
-    return launch_bn<8>(feat, idx, w, out, batch, n_in, n_out, k_taps, cin,
-                        cout, s);
-  if (cin <= 16)
-    return launch_bn<16>(feat, idx, w, out, batch, n_in, n_out, k_taps, cin,
-                         cout, s);
-  if (cin <= 32)
-    return launch_bn<32>(feat, idx, w, out, batch, n_in, n_out, k_taps, cin,
-                         cout, s);
-  if (cin <= 64)
-    return launch_bn<64>(feat, idx, w, out, batch, n_in, n_out, k_taps, cin,
-                         cout, s);
-  return launch_bn<128>(feat, idx, w, out, batch, n_in, n_out, k_taps, cin,
-                        cout, s);
+  return dispatch<float>(feat, idx, w, out, batch, n_in, n_out, k_taps, cin,
+                         cout, stream);
+}
+
+// The bf16 form: feat, w and out hold bf16 values (their bits).
+extern "C" int df3d_sparse_conv_bf16(const void* feat, const int* idx,
+                                     const void* w, void* out, int batch,
+                                     int n_in, int n_out, int k_taps, int cin,
+                                     int cout, void* stream) {
+  return dispatch<bf16_bits>(static_cast<const bf16_bits*>(feat), idx,
+                             static_cast<const bf16_bits*>(w),
+                             static_cast<bf16_bits*>(out), batch, n_in, n_out,
+                             k_taps, cin, cout, stream);
 }

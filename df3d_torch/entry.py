@@ -1,8 +1,9 @@
 """Entry points of the port: build a detector, run a serving path.
 
-* `build_centerpoint(cfg, device, seed)`: the model on `device`, with
-  random flax-like weights drawn from a seeded `torch.Generator`, in eval
-  mode.
+* `build_centerpoint(cfg, device, seed, profile)`: the model on `device`,
+  with random flax-like weights drawn from a seeded `torch.Generator`, in
+  eval mode, serving in the named profile (`serving.py`: "exact", the
+  default, or "tpu_v5e").
 * `infer(model, cfg, points, valid)`: voxelize -> model -> decode + NMS.
 * `entry(device)`: the counterpart of the JAX package's
   `__graft_entry__.entry()`: `(fn, args)` for a small CenterPoint forward.
@@ -83,6 +84,7 @@ from df3d_torch.models.fusion.actr import ACTRConfig
 from df3d_torch.models.heads.voxelrcnn_head import VoxelRCNNHead
 from df3d_torch.ops.voxelize import voxelize_batch
 from df3d_torch.parallel import ddp
+from df3d_torch.serving import apply_profile
 from df3d_torch.train.schedules import adam_onecycle
 from df3d_torch.train.trainer import (
     CenterPointTrainStep, DataParallelTrainStep, FusedTrainStep, TrainState,
@@ -104,10 +106,15 @@ def resolve_device(device=None) -> torch.device:
     return device
 
 
-def build_centerpoint(cfg: CenterPointConfig, device=None,
-                      seed: int = 0) -> CenterPoint:
+def build_centerpoint(cfg: CenterPointConfig, device=None, seed: int = 0,
+                      profile: str = "exact") -> CenterPoint:
+    """CenterPoint on `device` with random weights drawn from `seed`, in
+    eval mode, serving in the named profile (`serving.PROFILES`: "exact",
+    or "tpu_v5e" for bf16 sparse-conv bodies from 32 input channels and a
+    bf16-operand dense tail)."""
     device = resolve_device(device)
     model = CenterPoint(cfg).init_weights(torch.Generator().manual_seed(seed))
+    apply_profile(model, profile)
     return model.to(device).eval()
 
 
@@ -187,7 +194,9 @@ def _serve(model, cfg, predict, stage: str, points, valid, *model_inputs):
 def infer(model: CenterPoint, cfg: CenterPointConfig, points: torch.Tensor,
           valid: torch.Tensor):
     """points (B, P, F) xyz first, valid (B, P) -> (detections, cap
-    overflows). Detections: boxes (B, K, 9), scores, labels, valid (B, K)."""
+    overflows), in the serving profile the model was built with
+    (`build_centerpoint`'s `profile`). Detections: boxes (B, K, 9), scores,
+    labels, valid (B, K)."""
     return _serve(model, cfg, centerpoint_predict, "decode_nms", points,
                   valid)
 

@@ -77,7 +77,10 @@ class MaskedBatchNorm(_FlaxNorm):
         else:
             mean, var = self.running_mean, self.running_var
         inv = torch.rsqrt(var + self.eps) * self.weight
-        y = (x - mean) * inv + self.bias
+        # in x's dtype, as the JAX package casts: a bf16 x (the bf16 serving
+        # profile) stays bf16 where torch would promote it to f32
+        dt = x.dtype
+        y = (x - mean.to(dt)) * inv.to(dt) + self.bias.to(dt)
         return torch.where(mask[..., None], y, torch.zeros_like(y))
 
 
@@ -129,40 +132,47 @@ class FlaxBatchNorm2d(FlaxBatchNorm):
     channel_axis = 1
 
 
-class SubMConv3d(nn.Module):
-    """Submanifold conv; the plan (or dense spec) is supplied by the caller
-    so one plan serves every layer of a stage."""
+class _TapConv(nn.Module):
+    """(K, Cin, Cout) tap weights and the serving profile's numerics
+    (`serving.apply_profile`): `compute_dtype` None computes in the input's
+    dtype; bf16 takes bf16 operands with f32 accumulation, on a sparse body
+    only from `min_channels` input channels on, on the dense tail always."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size=3):
         super().__init__()
         k = _triple(kernel_size)
         self.weight = nn.Parameter(
             torch.zeros(k[0] * k[1] * k[2], in_channels, out_channels))
+        self.compute_dtype: torch.dtype | None = None
+        self.min_channels = 0
+
+    def _body(self, features, plan):
+        return apply_sparse_conv(features, plan, self.weight,
+                                 self.compute_dtype, self.min_channels)
+
+
+class SubMConv3d(_TapConv):
+    """Submanifold conv; the plan (or dense spec) is supplied by the caller
+    so one plan serves every layer of a stage."""
 
     def forward(self, st, plan):
         if isinstance(st, DenseTensor):
             return dense_conv(st, self.weight, plan.ksize, stride=1,
                               padding=tuple(k // 2 for k in plan.ksize),
-                              subm=True)
-        return st.with_features(
-            apply_sparse_conv(st.features, plan, self.weight))
+                              subm=True, compute_dtype=self.compute_dtype)
+        return st.with_features(self._body(st.features, plan))
 
 
-class SparseConv3d(nn.Module):
+class SparseConv3d(_TapConv):
     """Strided conv: a new coord set from plan.out_coords, or on the dense
     tail a DenseTensor whose mask is the exact dilation of the input's."""
-
-    def __init__(self, in_channels: int, out_channels: int, kernel_size=3):
-        super().__init__()
-        k = _triple(kernel_size)
-        self.weight = nn.Parameter(
-            torch.zeros(k[0] * k[1] * k[2], in_channels, out_channels))
 
     def forward(self, st, plan):
         if isinstance(st, DenseTensor):
             return dense_conv(st, self.weight, plan.ksize, stride=plan.stride,
-                              padding=plan.padding, subm=False)
-        feats = apply_sparse_conv(st.features, plan, self.weight)
+                              padding=plan.padding, subm=False,
+                              compute_dtype=self.compute_dtype)
+        feats = self._body(st.features, plan)
         return SparseTensor(feats, plan.out_coords, plan.out_spatial_shape)
 
 

@@ -42,8 +42,12 @@ class BEVBackbone(nn.Module):
                 self.blocks[f"deblock{k}"] = up
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x (B, H, W, C) -> (B, H', W', sum(num_upsample_filters))."""
-        x = x.permute(0, 3, 1, 2).contiguous()
+        """x (B, H, W, C) -> (B, H', W', sum(num_upsample_filters)). A bf16
+        map (the bf16 serving profile's backbone) is taken to the
+        parameters' dtype, exactly, as flax's convs promote it against their
+        f32 parameters."""
+        w = self.blocks["block0_in"].conv.weight
+        x = x.permute(0, 3, 1, 2).to(w.dtype).contiguous()
         ups = []
         for i, n in enumerate(self.layer_nums):
             x = self.blocks[f"block{i}_in"](x)

@@ -83,17 +83,27 @@ def sparsify(dt: DenseTensor, max_rows: int) -> SparseTensor:
 
 
 def dense_conv(dt: DenseTensor, w_taps: torch.Tensor, ksize, stride=1,
-               padding=1, subm: bool = True) -> DenseTensor:
+               padding=1, subm: bool = True,
+               compute_dtype: torch.dtype | None = None) -> DenseTensor:
     """Conv with sparse-layout weights (K, Cin, Cout) on the dense grid.
     subm=True: output masked to the input's active set. subm=False: the
-    active set becomes the dilated input mask."""
+    active set becomes the dilated input mask.
+
+    `compute_dtype` bf16 (the bf16 serving profile, whatever the channel
+    count): the input and the weights are rounded to bf16, the conv runs in
+    f32 on them (a bf16 x bf16 product is exact in f32, and so is its TF32
+    form) and the output takes the input's dtype, as the JAX package's
+    `preferred_element_type=f32` conv followed by `.astype`."""
     ksize, stride, padding = _triple(ksize), _triple(stride), _triple(padding)
     cin, cout = w_taps.shape[1:]
     # (K, Cin, Cout) -> (kz, ky, kx, Cin, Cout) -> (Cout, Cin, kz, ky, kx)
     w = w_taps.reshape(*ksize, cin, cout).permute(4, 3, 0, 1, 2)
     x = dt.features.permute(0, 4, 1, 2, 3).contiguous()
+    if compute_dtype is not None:
+        x = x.to(compute_dtype).float()
+        w = w.to(compute_dtype).float()
     out = F.conv3d(x, w, stride=stride, padding=padding)
-    out = out.permute(0, 2, 3, 4, 1)
+    out = out.permute(0, 2, 3, 4, 1).to(dt.features.dtype)
     if subm:
         assert stride == (1, 1, 1)
         mask = dt.mask

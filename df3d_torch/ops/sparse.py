@@ -13,7 +13,10 @@
   input gradient is the same gather-GEMM again: over the same plan with
   flipped, transposed taps for a submanifold plan, over the transposed plan
   for a strided one. The weight gradient re-gathers the inputs and takes
-  one matrix product over all rows.
+  one matrix product over all rows. With a bf16 compute dtype (the bf16
+  serving profile) a conv of at least `min_channels` input channels takes
+  a bf16 table and bf16 weights, accumulates in f32 and gives bf16
+  features (K1's bf16 kernel on the card); serving only, no gradient.
 """
 
 from __future__ import annotations
@@ -261,12 +264,17 @@ def build_conv_plan(st: SparseTensor, ksize, stride, padding,
 
 def _conv_body(features, gather_idx, weights, dx: bool = False):
     """K1 on a CUDA tensor (counted as a backward launch when `dx`), its
-    plain version on a CPU tensor."""
+    plain version on a CPU tensor; the bf16 kernel (or its plain version)
+    for a bf16 table."""
+    bf16 = features.dtype == torch.bfloat16
     if features.is_cuda:
+        if bf16:
+            return _k.sparse_conv_bf16_cuda(features, gather_idx, weights)
         launch = _k.sparse_conv_cuda_dx if dx else _k.sparse_conv_cuda
         return launch(features, gather_idx, weights)
     if features.device.type == "cpu":
-        return _k.sparse_conv_plain(features, gather_idx, weights)
+        plain = _k.sparse_conv_bf16_plain if bf16 else _k.sparse_conv_plain
+        return plain(features, gather_idx, weights)
     raise RuntimeError(f"apply_sparse_conv: no path for {features.device}")
 
 
@@ -320,11 +328,28 @@ class _SparseConv(torch.autograd.Function):
 
 
 def apply_sparse_conv(features: torch.Tensor, plan: ConvPlan,
-                      weights: torch.Tensor) -> torch.Tensor:
+                      weights: torch.Tensor,
+                      compute_dtype: torch.dtype | None = None,
+                      min_channels: int = 0) -> torch.Tensor:
     """Gather-GEMM conv body (pull formulation, no scatter).
 
     features (B, N_in, Cin); weights (K, Cin, Cout) with K taps in the
     plan's row-major (z, y, x) order. Returns (B, N_out, Cout).
     A CUDA tensor runs the hand-written kernel; a CPU tensor runs its plain
-    PyTorch version. Differentiable in features and weights."""
+    PyTorch version. Differentiable in features and weights.
+
+    `compute_dtype` (bf16, the one the profiles use) with Cin >=
+    `min_channels` (the JAX package's `set_compute_dtype` gate): features
+    and weights are rounded to bf16, the products accumulate in f32, and
+    the output is bf16. That path has no gradient and refuses inputs that
+    need one."""
+    if compute_dtype is not None and features.shape[-1] >= min_channels:
+        if torch.is_grad_enabled() and (features.requires_grad
+                                        or weights.requires_grad):
+            raise RuntimeError(
+                "apply_sparse_conv: the bf16 conv body serves only; run it "
+                "under torch.no_grad() (training runs the 'exact' profile)")
+        return _conv_body(features.to(compute_dtype).contiguous(),
+                          plan.gather_idx,
+                          weights.to(compute_dtype).contiguous())
     return _SparseConv.apply(features, weights, plan)

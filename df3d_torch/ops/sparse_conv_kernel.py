@@ -3,8 +3,9 @@
 Port of df3d/ops/pallas/sparse_conv_kernel.py (`_kernel_v2`). The kernel is
 `df3d_torch/csrc/sparse_conv.cu` (its header note gives the design and what
 bounds it: per 64-row tile and tap it compacts the hit rows into chunks of
-8 and runs them on the tensor cores as 3xTF32); this module holds its
-wrapper, its launch count and its plain PyTorch version:
+8 and runs them on the tensor cores, as 3xTF32 for an f32 table and as one
+bf16 product for a bf16 one); this module holds its wrappers, their launch
+counts and their plain PyTorch versions:
 
 * `sparse_conv_cuda` launches the kernel on CUDA tensors and raises on
   anything else. It never falls back. `sparse_conv_cuda_dx` is the same
@@ -14,6 +15,10 @@ wrapper, its launch count and its plain PyTorch version:
 * `sparse_conv_plain` computes the same function with `index_select` +
   `einsum`. `ops.sparse.apply_sparse_conv` and its backward use it for CPU
   tensors; the tests and `chip_smoke.py` hold the kernel against it.
+* `sparse_conv_bf16_cuda` launches the kernel's bf16 form (a bf16 table
+  and bf16 weights, f32 accumulation, bf16 output rounded once), counted in
+  `bf16_launches`; `sparse_conv_bf16_plain` is its plain version. The bf16
+  serving profile runs it (`serving.py`).
 """
 
 from __future__ import annotations
@@ -29,10 +34,12 @@ SOURCE = "sparse_conv.cu"
 # keeps a bit per tap
 MAX_CIN = 128
 MAX_TAPS = 128
-# kernel launches made by `sparse_conv_cuda` (forward) and
-# `sparse_conv_cuda_dx` (input gradients) since the last reset
+# kernel launches made by `sparse_conv_cuda` (forward),
+# `sparse_conv_cuda_dx` (input gradients) and `sparse_conv_bf16_cuda` (the
+# bf16 table) since the last reset
 launches = 0
 bwd_launches = 0
+bf16_launches = 0
 
 
 def sparse_conv_plain(features: torch.Tensor, gather_idx: torch.Tensor,
@@ -49,10 +56,25 @@ def sparse_conv_plain(features: torch.Tensor, gather_idx: torch.Tensor,
     return torch.einsum("bknc,kcd->bnd", g.view(b, k, n_out, cin), weights)
 
 
-def _launcher():
-    """The C entry point, built and loaded on first use. Pointers and the
-    stream go as c_void_p: ctypes would pass a bare int as 32 bits."""
-    fn = build.load(SOURCE).df3d_sparse_conv_f32
+def sparse_conv_bf16_plain(features: torch.Tensor, gather_idx: torch.Tensor,
+                           weights: torch.Tensor) -> torch.Tensor:
+    """The bf16 kernel's function: the table and the weights rounded to
+    bf16, the products (exact in f32) summed in f32, the sum rounded to
+    bf16 once. Same shapes as `sparse_conv_plain`; -> bf16."""
+    return sparse_conv_plain(features.bfloat16().float(), gather_idx,
+                             weights.bfloat16().float()).bfloat16()
+
+
+# the C entry point of each table dtype
+_ENTRIES = {torch.float32: "df3d_sparse_conv_f32",
+            torch.bfloat16: "df3d_sparse_conv_bf16"}
+
+
+def _launcher(dtype: torch.dtype):
+    """The C entry point for a `dtype` table, built and loaded on first
+    use. Pointers and the stream go as c_void_p: ctypes would pass a bare
+    int as 32 bits."""
+    fn = getattr(build.load(SOURCE), _ENTRIES[dtype])
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
         ctypes.c_void_p]
@@ -80,17 +102,30 @@ def sparse_conv_cuda_dx(features: torch.Tensor, gather_idx: torch.Tensor,
     return out
 
 
-def _launch(features, gather_idx, weights) -> tuple[torch.Tensor, int]:
-    """Check the inputs and launch K1; -> (output, 1 if it launched, else
-    0 for an empty output)."""
+def sparse_conv_bf16_cuda(features: torch.Tensor, gather_idx: torch.Tensor,
+                          weights: torch.Tensor) -> torch.Tensor:
+    """Launch K1's bf16 form on PyTorch's current stream; the contract of
+    `sparse_conv_bf16_plain`, but features and weights must be bf16 CUDA
+    tensors already. Raises otherwise; never falls back."""
+    global bf16_launches
+    out, launched = _launch(features, gather_idx, weights, torch.bfloat16)
+    bf16_launches += launched
+    return out
+
+
+def _launch(features, gather_idx, weights, dtype=torch.float32
+            ) -> tuple[torch.Tensor, int]:
+    """Check the inputs and launch K1 on a `dtype` table; -> (output of
+    that dtype, 1 if it launched, else 0 for an empty output)."""
     for name, t in (("features", features), ("gather_idx", gather_idx),
                     ("weights", weights)):
         if not t.is_cuda:
             raise RuntimeError(f"sparse_conv_cuda: {name} is not a CUDA tensor")
         if not t.is_contiguous():
             raise ValueError(f"sparse_conv_cuda: {name} is not contiguous")
-    if features.dtype != torch.float32 or weights.dtype != torch.float32:
-        raise TypeError("sparse_conv_cuda: features and weights must be f32")
+    if features.dtype != dtype or weights.dtype != dtype:
+        raise TypeError(f"sparse_conv_cuda: features and weights must be "
+                        f"{dtype}")
     if gather_idx.dtype != torch.int32:
         raise TypeError("sparse_conv_cuda: gather_idx must be int32")
     if features.dim() != 3 or weights.dim() != 3 or gather_idx.dim() != 2:
@@ -108,11 +143,10 @@ def _launch(features, gather_idx, weights) -> tuple[torch.Tensor, int]:
     if len({features.device, gather_idx.device, weights.device}) != 1:
         raise ValueError("sparse_conv_cuda: inputs on different devices")
     n_out = gather_idx.shape[1] // k
-    out = torch.empty(b, n_out, cout, device=features.device,
-                      dtype=torch.float32)
+    out = torch.empty(b, n_out, cout, device=features.device, dtype=dtype)
     if b == 0 or n_out == 0 or cout == 0:
         return out, 0
-    launch = _launcher()
+    launch = _launcher(dtype)
     with torch.cuda.device(features.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = launch(

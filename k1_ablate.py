@@ -36,9 +36,10 @@ OUT = ROOT / "build" / "k1_ablate"
 # one launch of each shape of the frame: conv_input, res1, down2, res2,
 # down3, res3, down4
 LAUNCHES = (0, 1, 5, 6, 10, 11, 15)
-PRODUCTS = ("          mma_tf32(e[i], al, bh);\n"
-            "          mma_tf32(e[i], ah, bl);\n")
-ROW_COPY = ("        if (UNIT == 4)\n          cp_async16(dst, src);\n"
+PRODUCTS = ("            mma_tf32(e[i], al, bh);\n"
+            "            mma_tf32(e[i], ah, bl);\n")
+ROW_COPY = ("        if (UNIT == V)\n          cp_async16(dst, src);\n"
+            "        else if (kBf16<E>)\n          *dst = *src;\n"
             "        else\n          cp_async4(dst, src);\n")
 COMPUTE = "    compute(i % S, h_cur);\n"
 MASK_SPLIT = ("  hi = __float_as_uint(x) & kTf32;\n"

@@ -25,6 +25,7 @@ from df3d_torch.models.necks import BEVBackbone
 from df3d_torch.ops import dense3d as tdense
 from df3d_torch.ops import sparse as tsp
 from torch_port_helpers import load_flax, seeded_variables, sparse_inputs
+from torch_port_helpers import one_torch_thread  # noqa: F401
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 KEY = jax.random.PRNGKey(0)

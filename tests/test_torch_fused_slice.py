@@ -32,6 +32,7 @@ from df3d_torch.models.fusion.actr import ACTRConfig
 from df3d_torch.ops.voxelize import voxelize_batch
 from df3d_torch.utils.synth import camera_rig
 from torch_port_helpers import load_flax, seeded_variables
+from torch_port_helpers import one_torch_thread  # noqa: F401
 
 # __graft_entry__._mesh_cfg()
 CFG = dict(

@@ -61,6 +61,7 @@ from df3d_torch.weights import (
     params_from_flax, state_dict_from_flax, train_state_from_flax,
 )
 from torch_port_helpers import seeded_variables
+from torch_port_helpers import one_torch_thread  # noqa: F401
 
 # tests/test_torch_fused_slice.py's config
 CFG = dict(

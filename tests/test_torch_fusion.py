@@ -58,6 +58,7 @@ from df3d_torch.ops import sparse as tsp
 from df3d_torch.utils.synth import camera_rig
 from df3d_torch.weights import params_from_flax, state_dict_from_flax
 from torch_port_helpers import load_flax, seeded_variables
+from torch_port_helpers import one_torch_thread  # noqa: F401
 
 KEY = jax.random.PRNGKey(0)
 

@@ -30,6 +30,7 @@ from df3d_torch.ops import msda as tmsda
 from torch_port_helpers import (
     k2_emulate, k2_schedule, load_flax, seeded_variables,
 )
+from torch_port_helpers import one_torch_thread  # noqa: F401
 
 SHAPES = ((6, 9), (3, 5))
 # the preset's head, level and point counts (8, 3, 4; D 16) on small maps

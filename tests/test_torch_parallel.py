@@ -15,6 +15,7 @@ import torch
 import torch_parallel_ranks as R
 from df3d_torch import entry
 from df3d_torch.parallel import ddp
+from torch_port_helpers import one_torch_thread  # noqa: F401
 
 
 def _close(got, ref):

@@ -25,6 +25,7 @@ import torch
 
 import torch_parallel_ranks as R
 from df3d_torch.train.schedules import global_norm
+from torch_port_helpers import one_torch_thread  # noqa: F401
 
 B2 = 0.999
 

@@ -20,6 +20,7 @@ from df3d_torch.ops import sparse as tsp
 from df3d_torch.ops import msda as tmsda
 from df3d_torch.ops import msda_kernel as k2
 from df3d_torch.ops import sparse_conv_kernel as k1
+from torch_port_helpers import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "df3d", "scipy")

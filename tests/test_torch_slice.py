@@ -22,6 +22,7 @@ from df3d_torch.models.detectors.centerpoint import (
 )
 from df3d_torch.ops.voxelize import voxelize_batch
 from torch_port_helpers import load_flax, seeded_variables
+from torch_port_helpers import one_torch_thread  # noqa: F401
 
 # __graft_entry__._mesh_cfg()
 CFG = dict(

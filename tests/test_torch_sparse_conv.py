@@ -14,6 +14,7 @@ from df3d.ops.pallas.sparse_conv_kernel import apply_sparse_conv_pallas_v2
 from df3d_torch.ops import sparse as tsp
 from df3d_torch.ops import sparse_conv_kernel as k1
 from torch_port_helpers import k1_emulate, sparse_inputs
+from torch_port_helpers import one_torch_thread  # noqa: F401
 
 # (name, spatial shape, valid rows, padded rows, plan kind and geometry)
 PLAN_CASES = [

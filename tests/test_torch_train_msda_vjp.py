@@ -36,6 +36,7 @@ from df3d_torch.ops import msda as tmsda
 from df3d_torch.ops import msda_kernel as K2
 from df3d_torch.weights import params_from_flax, state_dict_from_flax
 from torch_port_helpers import k2_bwd_emulate, seeded_variables
+from torch_port_helpers import one_torch_thread  # noqa: F401
 
 # power-of-two widths and heights: exact integer pixel positions
 LEVELS_3 = ((8, 16), (4, 8), (2, 4))

@@ -36,6 +36,7 @@ from df3d_torch.models.detectors.fused import FusedConfig
 from df3d_torch.models.fusion.actr import ACTRConfig
 from df3d_torch.train import schedules as tsched
 from df3d_torch.utils.synth import camera_rig
+from torch_port_helpers import one_torch_thread  # noqa: F401
 
 FEATURE_SIZE = (16, 20)       # (H, W)
 VOXEL, RANGE, STRIDE = (0.5, 0.4), (-4.0, -3.0), 2

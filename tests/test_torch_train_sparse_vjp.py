@@ -20,6 +20,7 @@ from df3d.ops import sparse as jsp
 from df3d_torch.ops import sparse as tsp
 from df3d_torch.ops import sparse_conv_kernel as k1
 from torch_port_helpers import sparse_inputs
+from torch_port_helpers import one_torch_thread  # noqa: F401
 
 # (name, spatial shape, valid rows, padded rows, plan geometry, Cin, Cout)
 CASES = [

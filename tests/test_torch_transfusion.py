@@ -30,6 +30,7 @@ from df3d_torch.models.heads import transfusion_head as thead
 from df3d_torch.models.image.resnet import ResNetFPN
 from df3d_torch.ops import sparse as tsp
 from torch_port_helpers import load_flax, seeded_variables, sparse_inputs
+from torch_port_helpers import one_torch_thread  # noqa: F401
 
 KEY = jax.random.PRNGKey(0)
 TOL = dict(atol=1e-5, rtol=1e-5)

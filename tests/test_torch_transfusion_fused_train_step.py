@@ -65,6 +65,7 @@ from df3d_torch.weights import (
 from torch_port_helpers import (
     recorded_jax_relus, replayed_relus, seeded_variables,
 )
+from torch_port_helpers import one_torch_thread  # noqa: F401
 
 # tests/test_torch_transfusion_slice.py's config
 HEAD = dict(num_classes=3, num_proposals=16, hidden_channel=32, num_heads=4,

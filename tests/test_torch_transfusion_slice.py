@@ -43,6 +43,7 @@ from df3d_torch.models.heads.transfusion_head import TransFusionHeadCfg
 from df3d_torch.ops.voxelize import voxelize_batch
 from df3d_torch.utils.synth import camera_rig
 from torch_port_helpers import load_flax, seeded_variables
+from torch_port_helpers import one_torch_thread  # noqa: F401
 
 HEAD = dict(num_classes=3, num_proposals=16, hidden_channel=32, num_heads=4,
             ffn_channel=64, small_classes=(2,), bev_size=(8, 8),

@@ -31,6 +31,7 @@ from df3d_torch.models import losses as tlosses
 from df3d_torch.models.heads import transfusion_head as thead
 from df3d_torch.models.layers import FlaxBatchNorm, FlaxBatchNorm2d
 from df3d_torch.ops.assign import hungarian_match
+from torch_port_helpers import one_torch_thread  # noqa: F401
 
 # tests/test_torch_transfusion.py's tiny head (8 x 8 BEV map over +-16 m)
 HEAD = dict(num_classes=3, num_proposals=16, hidden_channel=32, num_heads=4,

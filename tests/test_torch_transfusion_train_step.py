@@ -56,6 +56,7 @@ from df3d_torch.weights import (
 from torch_port_helpers import (
     recorded_jax_relus, replayed_relus, seeded_variables,
 )
+from torch_port_helpers import one_torch_thread  # noqa: F401
 
 # tests/test_train_steps.py's TransFusion config
 HEAD = dict(num_classes=3, num_proposals=8, hidden_channel=16, num_heads=2,

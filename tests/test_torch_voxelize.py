@@ -9,6 +9,7 @@ import torch
 from df3d.ops.voxelize import voxelize as jvoxelize
 from df3d.ops.voxelize import voxelize_batch as jvoxelize_batch
 from df3d_torch.ops.voxelize import voxelize, voxelize_batch
+from torch_port_helpers import one_torch_thread  # noqa: F401
 
 VS = (0.5, 0.5, 0.25)
 PCR = (-4.0, -4.0, -1.0, 4.0, 4.0, 1.0)

@@ -45,6 +45,7 @@ from df3d_torch.ops import roi_ops as troi
 from df3d_torch.ops import sparse as tsp
 from df3d_torch.utils.synth import kitti_camera
 from torch_port_helpers import load_flax, seeded_variables
+from torch_port_helpers import one_torch_thread  # noqa: F401
 
 KEY = jax.random.PRNGKey(0)
 # tests/test_import_voxelrcnn.py's tiny config, in both packages

@@ -56,6 +56,7 @@ from torch_port_helpers import (
     check_sampled, check_updated_parameters, gts_near_proposals,
     small_box_residuals, voxelrcnn_step_run, voxelrcnn_variables,
 )
+from torch_port_helpers import one_torch_thread  # noqa: F401
 
 # tests/test_fused_training.py:104-113
 HEAD = dict(grid_size=2, max_local=16, roi_per_image=8)

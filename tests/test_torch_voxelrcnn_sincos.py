@@ -23,6 +23,7 @@ from df3d_torch.core import boxes as tboxes
 from df3d_torch.core.calib import voxel_centers_fma
 from df3d_torch.ops import roi_ops as troi
 import torch_parallel_ranks
+from torch_port_helpers import one_torch_thread  # noqa: F401
 
 KITTI_VS, KITTI_PCR = (0.05, 0.05, 0.1), (0.0, -40.0, -3.0, 70.4, 40.0, 1.0)
 GRID, COARSE, MAX_LOCAL, RADIUS, NSAMPLE = 6, 4.0, 256, 0.4, 16

@@ -21,7 +21,6 @@ match exactly (a JAX index is the one candidate box of the port's that its
 box matches); the backbone's stage features, the RPN maps, RoIs, RCNN cls
 and reg, final boxes and scores to 1e-4 * max|ref| + 1e-5."""
 
-import contextlib
 from types import SimpleNamespace
 
 import jax
@@ -52,7 +51,8 @@ from df3d_torch.models.heads import anchor_head as tah
 from df3d_torch.models.heads import voxelrcnn_head as trh
 from df3d_torch.ops.voxelize import voxelize_batch
 from df3d_torch.utils.synth import kitti_camera
-from torch_port_helpers import seeded_variables
+from torch_port_helpers import recorded_plans, seeded_variables
+from torch_port_helpers import one_torch_thread  # noqa: F401
 from df3d_torch.weights import load_voxelrcnn
 
 KEY = jax.random.PRNGKey(0)
@@ -132,29 +132,6 @@ def _match(candidates, picked, tol):
     return idx
 
 
-@contextlib.contextmanager
-def _recorded_plans(module, plans: list):
-    """Appends the gather index of every plan `module`'s backbones build
-    while the block runs."""
-    names = ("build_subm_plan", "build_conv_plan")
-    builders = {n: getattr(module, n) for n in names}
-
-    def recording(build):
-        def wrapped(*args, **kwargs):
-            plan = build(*args, **kwargs)
-            plans.append(plan.gather_idx)
-            return plan
-        return wrapped
-
-    for n, build in builders.items():
-        setattr(module, n, recording(build))
-    try:
-        yield plans
-    finally:
-        for n, build in builders.items():
-            setattr(module, n, build)
-
-
 class _Recorded:
     """A flax module whose `apply`, as the eval step calls it, also keeps
     what the test reads: the cap overflows the model sows and its
@@ -202,7 +179,7 @@ def slices():
         outs = {}
         for k in models:
             # the eval step reads the TrainState's two fields
-            with _recorded_plans(jbackbones, plans[k]):
+            with recorded_plans(jbackbones, plans[k]):
                 out = steps[k](SimpleNamespace(**states[k]), batch)
             preds, inter = seen[k, "rpn"]
             (cls, reg), _ = seen[k, "rcnn"]
@@ -229,7 +206,7 @@ def slices():
                        states[k]["batch_stats"])
         rpn.eval(), head_t.eval()
         extra = (t["images"], t["proj"]) if k == "fused" else ()
-        with torch.no_grad(), _recorded_plans(tbackbones, []) as t_plans:
+        with torch.no_grad(), recorded_plans(tbackbones, []) as t_plans:
             preds, overflow = rpn(tres.features, tres.coords, *extra)
         with torch.no_grad():
             infer = infer_voxelrcnn_fused if extra else infer_voxelrcnn

@@ -40,6 +40,7 @@ from df3d_torch.models.heads import voxelrcnn_head as trh
 from df3d_torch.ops import sparse as tsp
 from df3d_torch.weights import params_from_flax, state_dict_from_flax
 from torch_port_helpers import seeded_variables
+from torch_port_helpers import one_torch_thread  # noqa: F401
 
 KEY = jax.random.PRNGKey(0)
 # tests/test_train_steps.py's Voxel R-CNN geometry (an 8 x 8 BEV map, 128

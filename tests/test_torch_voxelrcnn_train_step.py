@@ -56,6 +56,7 @@ from torch_port_helpers import (
     gts_near_proposals, small_box_residuals, voxelrcnn_step_run,
     voxelrcnn_variables,
 )
+from torch_port_helpers import one_torch_thread  # noqa: F401
 
 # tests/test_train_steps.py's Voxel R-CNN config
 GEOM = dict(pc_range=(0.0, -16.0, -2.4, 32.0, 16.0, 2.4),

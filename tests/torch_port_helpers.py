@@ -3,15 +3,37 @@
 Inputs and weights are made once with seeded numpy and handed to both
 packages: flax variables are filled leaf by leaf (no flax init run) and
 carried to the torch modules by `df3d_torch.weights.state_dict_from_flax`.
+
+Every port test module but tests/test_torch_train_step.py imports
+`one_torch_thread`, an autouse fixture: its tests run torch's CPU ops on
+one thread, as the data-parallel ranks do
+(`torch_parallel_ranks.one_thread`), so that several test workers on the
+machine's cores do not park each other's intra-op threads. The CenterPoint
+step test compares the port's step with JAX's without replaying ReLU
+decisions, and at one thread a neck ReLU input of the port's step lands
+on the other side of 0 from JAX's; it runs at torch's default.
 """
 
 import contextlib
 
 import jax
 import numpy as np
+import pytest
 import torch
 
 from df3d_torch.weights import state_dict_from_flax
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """torch's intra-op threads at one for the module that imports this
+    fixture, restored after it."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
 
 
 def seeded_variables(shapes, rng: np.random.RandomState, out_scale=None):
@@ -110,6 +132,29 @@ def replayed_relus(jax_inputs, skip: torch.nn.Module | None = None):
         for h in hooks:
             h.remove()
     assert next(calls, None) is None, "JAX made more ReLU calls"
+
+
+@contextlib.contextmanager
+def recorded_plans(module, plans: list):
+    """Appends the gather index of every plan `module`'s backbones build
+    while the block runs."""
+    names = ("build_subm_plan", "build_conv_plan")
+    builders = {n: getattr(module, n) for n in names}
+
+    def recording(build):
+        def wrapped(*args, **kwargs):
+            plan = build(*args, **kwargs)
+            plans.append(plan.gather_idx)
+            return plan
+        return wrapped
+
+    for n, build in builders.items():
+        setattr(module, n, recording(build))
+    try:
+        yield plans
+    finally:
+        for n, build in builders.items():
+            setattr(module, n, build)
 
 
 def load_flax(module: torch.nn.Module, variables) -> torch.nn.Module:
