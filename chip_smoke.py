@@ -122,10 +122,11 @@ any failure raises and the process exits non-zero:
    for bit on a repeat launch); the inputs and incoming gradient of the
    step's K2 backward launch are captured; dvalue, dloc and dattn are held against autograd of the plain
    version (max|err| <= 1e-4 * max|ref| + 1e-5 each), a repeat launch
-   gives the same dloc and dattn bits and dvalue (f32 atomics) within the
-   tolerance; so do small inputs at its edge cases on both paths (corners
-   off the map and on its last row and column, exact integer pixel
-   positions, L 1 and 3, D 8, zero weights, a zero cotangent). Prints the
+   gives the same bits in all three; so do small inputs at its edge cases
+   on both paths (corners off the map and on its last row and column,
+   exact integer pixel positions, L 1 and 3, D 8, zero weights, a zero
+   cotangent, a pixel 4400 samples of one head hit, an all-zero
+   cotangent, whose dvalue must be all zeros). Prints the
    launch's back-to-back and device time, the plain version's time and
    the bound (bytes of g, dloc, dattn and dvalue once, and of the
    locations and weights of the queries with g != 0 and the value rows
@@ -2049,9 +2050,9 @@ def full_fused_train_setup(dev, transfusion=False, with_batch=True):
 
 def k2_bwd_check(label, launch, plain, value, shapes, locs, attn, grad):
     """One K2 backward launch against autograd of the plain version, and a
-    repeat launch: dloc and dattn must give the same bits, dvalue (f32
-    atomics) agree within the tolerance. Returns (max abs err, worst err /
-    tolerance) over the three gradients."""
+    repeat launch that must give the same bits in dvalue, dloc and dattn.
+    Returns (max abs err, worst err / tolerance) over the three
+    gradients."""
     got = launch(value, shapes, locs, attn, grad)
     again = launch(value, shapes, locs, attn, grad)
     want = plain(value, shapes, locs, attn, grad)
@@ -2062,12 +2063,8 @@ def k2_bwd_check(label, launch, plain, value, shapes, locs, attn, grad):
         tol = 1e-4 * w.abs().max().item() + 1e-5
         check(bool(torch.isfinite(g).all()), f"{label}: non-finite {name}")
         check(err <= tol, f"{label}: {name} max abs err {err} > {tol}")
-        rep = (a - g).abs().max().item()
-        check(rep <= tol, f"{label}: a repeat launch's {name} is off by "
-              f"{rep} > {tol}")
+        check(torch.equal(g, a), f"{label}: a repeat launch's {name} differs")
         max_err, worst = max(max_err, err), max(worst, err / tol)
-    check(torch.equal(got[1], again[1]) and torch.equal(got[2], again[2]),
-          f"{label}: a repeat launch's dloc or dattn differs")
     return max_err, worst
 
 
@@ -2097,6 +2094,39 @@ K2_KITTI_BWD_EDGE_CASES = (
     "B 1 and 2, an unaligned table")
 
 
+# the hot pixel case: queries whose every level-0 sample lands on one
+# point, so each of its four corner rows (per head) gathers Q x P records
+K2_HOT_QUERIES = 1100
+
+
+def k2_bwd_hot_and_zero_cases(launch, plain, warp_path, d):
+    """Two cases of K2's backward on both paths (nH 8, D `d`, P 4, L 3;
+    the general path through an unaligned table, and always at D != 16):
+    every level-0 sample of K2_HOT_QUERIES queries on one point (each of
+    its corner rows summed from 4400 records of one head), and an all-zero
+    cotangent (every gradient, dvalue included, must be exactly 0). Each
+    against autograd of the plain version, bit for bit on repeat."""
+    g = torch.Generator(device="cuda").manual_seed(5)
+    h, w = K2_LEVELS[0]
+    for offset, warp in ((0, d == 16), (1, False)):
+        value, locs, attn = k2_inputs(g, 1, K2_HOT_QUERIES, 8, d, K2_LEVELS,
+                                      4, (), offset)
+        locs[:, :, :, 0] = torch.tensor([2.3 / w, 3.6 / h])
+        path = "warp" if warp else "general"
+        check(warp_path(value, K2_LEVELS, locs) == warp,
+              f"K2 backward hot pixel: expected the {path} path")
+        grad = torch.randn(1, K2_HOT_QUERIES, 8 * d, device="cuda",
+                           generator=g)
+        k2_bwd_check(f"K2 backward hot pixel, {path} path, D {d}", launch,
+                     plain, value, K2_LEVELS, locs, attn, grad)
+        zero = torch.zeros_like(grad)
+        k2_bwd_check(f"K2 backward all-zero g, {path} path, D {d}", launch,
+                     plain, value, K2_LEVELS, locs, attn, zero)
+        check(not any(t.any() for t in launch(value, K2_LEVELS, locs, attn,
+                                              zero)),
+              f"K2 backward all-zero g, {path} path: a non-zero gradient")
+
+
 def k2_bwd_edge_cases(launch, plain, warp_path, cases=K2_BWD_EDGE_CASES):
     """K2's backward against autograd of its plain version on small inputs,
     `cases` a (list of (B, Q, nH, D, levels, P, value offset, warp path),
@@ -2107,7 +2137,8 @@ def k2_bwd_edge_cases(launch, plain, warp_path, cases=K2_BWD_EDGE_CASES):
     samples on the last pixel centre, at -0.5 px and far off the map
     (`k2_inputs`), a query wholly off the map, every point of query 3 on
     an exact integer pixel position, zero weights on query 4, and a zero
-    cotangent on query 5 (a masked query: its dloc and dattn must be 0)."""
+    cotangent on query 5 (a masked query: its dloc and dattn must be 0).
+    Then `k2_bwd_hot_and_zero_cases` at the cases' head width."""
     g = torch.Generator(device="cuda").manual_seed(4)
     cases, summary = cases
     for b, q, nh, d, shapes, p, offset, warp in cases:
@@ -2132,10 +2163,13 @@ def k2_bwd_edge_cases(launch, plain, warp_path, cases=K2_BWD_EDGE_CASES):
         for i in (q - 1, 5 % q):
             check(not dloc[:, i].any() and not dattn[:, i].any(),
                   f"{label}: query {i} (off the map or g = 0) has a gradient")
+    k2_bwd_hot_and_zero_cases(launch, plain, warp_path, cases[0][3])
     log(f"K2 backward edge cases ({summary}; samples on the last pixel "
         "centre, at -0.5 px, on exact integer pixel positions, far off the "
-        "map, zero weights, a zero cotangent): agree with autograd of the "
-        "plain version, repeat launches give the same dloc and dattn bits")
+        "map, zero weights, a zero cotangent; then on both paths "
+        f"{K2_HOT_QUERIES} queries' level-0 samples on one point, and an "
+        "all-zero cotangent): agree with autograd of the plain version, "
+        "repeat launches give the same dvalue, dloc and dattn bits")
 
 
 def phase_fused_train_k2(state, step, batch, per_step=1, warp=True,

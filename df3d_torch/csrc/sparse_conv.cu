@@ -59,14 +59,37 @@
 //    the rest of a 64-channel launch together (PERF.md, k1_ablate.py).
 //
 // The bf16 form (df3d_sparse_conv_bf16; the bf16 serving profile, the TPU
-// kernel's `table_dtype`): a bf16 table and bf16 weights, the same tiles,
-// schedule and compaction, and one mma.sync m16n8k16 bf16 -> f32 per
-// fragment where the f32 form takes three TF32 ones (a bf16 x bf16 product
-// is exact in f32). Cin is padded to a multiple of 16 in shared memory,
-// rows are staged at half the bytes (16-byte cp.async when Cin % 8 == 0,
-// else element by element), the W^T fragment is packed from two bf16 loads
-// per register, and the f32 accumulator tile is rounded to bf16 (to
-// nearest, ties to even) once, when it is written out.
+// kernel's `table_dtype`; a bf16 table and bf16 weights, bf16 out) is a
+// kernel of its own, wg::sparse_conv_bf16_kernel. What bounds it: bytes, as
+// the f32 form (a "tpu_v5e" frame's 10 launches need 110.6 MB, 0.033 ms at
+// 3.35 TB/s; 14 GFLOP, 0.014 ms at the dense bf16 peak). Its first form, the
+// f32 template with one mma.sync bf16 product a fragment, spent 45% of its
+// time in the tap walk (a barrier a hit tap, two stages, the compaction)
+// and 40% in the products (k1_ablate.py). The design:
+//  * one warpgroup a block over 128 output rows (64 where Cout's block is
+//    128 wide); the tile's indices for every tap copied to shared memory
+//    once, the list of taps with any hit built from them by ballots; every
+//    row runs at a listed tap, no compaction;
+//  * per listed tap, each row's Cin gathered by 16-byte cp.async straight
+//    into wgmma's A layout (8-row x 16-byte core matrices, K-major, no
+//    swizzle), a missed row zero-filled by the same copy (src-size 0);
+//    W[t]'s column block by one bulk copy (the TMA engine, completion on an
+//    mbarrier) from an image of W in wgmma's B layout that the small
+//    w_images kernel writes first; 2-4 stages, the next taps' copies in
+//    flight while one computes; one barrier of the warpgroup a tap;
+//  * per tap wgmma m64nNk16 bf16 -> f32 over Cin/16 k-steps into fresh
+//    registers, added into the f32 sums in registers in IEEE f32 (chained
+//    through the tensor cores over all taps, sums of cancelling terms
+//    drifted by several bf16 ulps: their adds truncate); rounded to bf16
+//    once at the end. No atomics: a repeat launch gives the same bits.
+// Measured (k1_ablate.py, NVIDIA H100 80GB HBM3, 700 W, device time of one
+// launch each of res2, down3, res3 and down4, summed): 0.115-0.118 ms
+// against the first form's 0.209 in the same process; without the products
+// 0.110, without the products and the row gathers 0.074 (the tap walk and
+// the W copies: most of what is left). Instantiated for KP and N in 16,
+// 32, 64, 128 (Cin padded, Cout in blocks). The f32 kernel's template
+// below still has the first form's bf16 branches; nothing instantiates
+// them.
 //
 // Limits: Cin <= 128 and at most 128 taps (refused beyond); any Cout, in
 // column blocks.
@@ -559,6 +582,489 @@ int dispatch(const E* feat, const int* idx, const E* w, E* out, int batch,
   return static_cast<int>(err);
 }
 
+// ---------------------------------------------------------------------------
+// The bf16 form: a kernel of its own, on warpgroup wgmma (sm_90a).
+
+namespace wg {
+
+constexpr int kThreads = 128;  // one warpgroup
+constexpr int kMaxTaps = 32 * kTapWords;
+constexpr int kSmemTarget = 110 * 1024;  // two blocks an SM
+
+// A block's tile: kBM output rows x a column block of N channels, Cin
+// padded to KP (a multiple of wgmma's k of 16). A stage holds one tap's
+// gathered rows (the A operand, kBM x KP) and W[t]'s column block (the B
+// operand, N x KP), both K-major in wgmma's layout without swizzle: 8-row
+// x 16-byte core matrices, 128 bytes each, the K chunks of an 8-row group
+// next to each other.
+template <int KP, int N>
+struct Tile {
+  // m64 tiles a block: two (128 rows, a row a thread), or one for N = 128,
+  // whose tap and sum accumulators together take 128 registers a thread
+  static constexpr int kMT = N == 128 ? 1 : 2;
+  static constexpr int kBM = 64 * kMT;
+  static constexpr int kTPR = kThreads / kBM;       // threads a row
+  static constexpr int kKC = KP / 8;                // 16-byte chunks a row
+  static constexpr int kABytes = kBM * KP * 2;
+  static constexpr int kWBytes = KP * N * 2;
+  static constexpr int kStageBytes = kABytes + kWBytes;
+  static constexpr int kStages = 4 * kStageBytes <= kSmemTarget   ? 4
+                                 : 3 * kStageBytes <= kSmemTarget ? 3
+                                                                  : 2;
+  static constexpr int kBytes = kStages * kStageBytes;
+};
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// A 16-byte row chunk, zero-filled past `bytes` (0 for a missed row or
+// the Cin padding: nothing is read then).
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src,
+                                                 int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(bytes));
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+      smem_addr(bar)));
+}
+
+// W[t]'s block by the bulk-copy engine (TMA), completion on `bar`.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          int bytes, uint64_t* bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  unsigned done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// wgmma's shared-memory matrix descriptor, no swizzle: start address,
+// leading byte offset (the next core matrix along K), stride byte offset
+// (the next 8-row group), each in 16-byte units.
+__device__ __forceinline__ uint64_t desc(const void* p, int lbo, int sbo) {
+  return static_cast<uint64_t>((smem_addr(p) & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>(lbo >> 4) << 16 |
+         static_cast<uint64_t>(sbo >> 4) << 32;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// m64nNk16, bf16 x bf16 -> f32, A and B from shared memory, both K-major:
+// d = A . B, plus d where scale_d is not 0.
+__device__ __forceinline__ void wgmma_n16(float (&d)[8], uint64_t a,
+                                           uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "%8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_n32(float (&d)[16], uint64_t a,
+                                           uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t a,
+                                           uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t a,
+                                           uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma(float (&d)[N / 2], uint64_t a,
+                                      uint64_t b, int scale_d) {
+  if constexpr (N == 16) wgmma_n16(d, a, b, scale_d);
+  if constexpr (N == 32) wgmma_n32(d, a, b, scale_d);
+  if constexpr (N == 64) wgmma_n64(d, a, b, scale_d);
+  if constexpr (N == 128) wgmma_n128(d, a, b, scale_d);
+}
+
+// The registers of an accumulator, ordered after the wgmmas that write
+// them: nothing reads them before the wait.
+template <int R>
+__device__ __forceinline__ void fence_operands(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// W (K, Cin, Cout) as the B operand's shared-memory image of each (tap,
+// column block): N x KP, K-major core matrices, zero past Cin and Cout, so
+// a hit tap's block is one bulk copy of KP x N x 2 bytes.
+__global__ void __launch_bounds__(256)
+w_images(const bf16_bits* __restrict__ w, bf16_bits* __restrict__ images,
+         int k_taps, int cin, int cout, int kp, int n, int n_blocks) {
+  const long long total =
+      static_cast<long long>(k_taps) * n_blocks * kp * n;
+  const long long e = static_cast<long long>(blockIdx.x) * 256 + threadIdx.x;
+  if (e >= total) return;
+  const int per = kp * n;
+  const int t = static_cast<int>(e / (static_cast<long long>(n_blocks) * per));
+  const int nb = static_cast<int>(e / per % n_blocks);
+  const int i = static_cast<int>(e % per);
+  const int kc_n = kp / 8;
+  // i = ((n8 * kc_n + kc) * 8 + nr) * 8 + kr
+  const int kr = i % 8, nr = i / 8 % 8, kc = i / 64 % kc_n, n8 = i / 64 / kc_n;
+  const int k = kc * 8 + kr;
+  const int col = nb * n + n8 * 8 + nr;
+  images[e] = k < cin && col < cout
+                  ? w[(static_cast<long long>(t) * cin + k) * cout + col]
+                  : bf16_bits(0);
+}
+
+// out[b, m0 + r, n0 + c] = bf16(sum over hit taps t of x[idx[t, m0 + r]] .
+// W[t][:, n0 + c]). One warpgroup a block over kBM rows (kTPR threads a
+// row for the gathers); each hit tap's products in fresh m64nNk16
+// accumulators, added into the f32 sums in registers, IEEE, tap by tap.
+template <int KP, int N>
+__global__ void __launch_bounds__(kThreads)
+sparse_conv_bf16_kernel(const bf16_bits* __restrict__ feat,  // (B, N_in, Cin)
+                        const int* __restrict__ idx,         // (B, K*N_out)
+                        const bf16_bits* __restrict__ w_img,  // w_images
+                        bf16_bits* __restrict__ out,  // (B, N_out, Cout)
+                        int n_in, int n_out, int k_taps, int cin, int cout,
+                        int vec_idx, int vec_feat) {
+  using T = Tile<KP, N>;
+  constexpr int S = T::kStages;
+  constexpr int KC = T::kKC;
+  constexpr int MT = T::kMT;
+  constexpr int BM = T::kBM;
+  constexpr int TPR = T::kTPR;
+  // both operands: the next core matrix along K 128 bytes on, the next
+  // 8-row group a row of chunks on
+  constexpr int kLbo = 128, kSbo = KC * 128;
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ uint64_t full[S];       // a stage's W block landed
+  __shared__ int taps[kMaxTaps];     // the taps with a hit in the tile
+  __shared__ unsigned char tap_hit[kMaxTaps];
+  __shared__ int n_hit;
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int r = tid / TPR;    // this thread's row of the tile
+  const int sub = tid % TPR;  // and its share of the row's chunks
+  const int m0 = blockIdx.x * BM;
+  const int n_blk = blockIdx.y;
+  const int b = blockIdx.z;
+  const bf16_bits* feat_b = feat + static_cast<long long>(b) * n_in * cin;
+  const int* idx_b = idx + static_cast<long long>(b) * k_taps * n_out;
+  const bf16_bits* w_blk =
+      w_img + static_cast<long long>(n_blk) * KP * N;  // tap 0's block
+  const long long w_tap = static_cast<long long>(gridDim.y) * KP * N;
+
+  // The tile's indices for every tap, in one round trip (rows past N_out
+  // miss), behind the stages; which taps hit any row of the tile; the list
+  // of those taps, in order.
+  int* idx_s = reinterpret_cast<int*>(smem + T::kBytes);  // [tap][row]
+  {
+    const int rows = min(BM, n_out - m0);
+    if (vec_idx && rows == BM) {
+      for (int e = tid; e < k_taps * (BM / 4); e += kThreads) {
+        const int t = e / (BM / 4);
+        const int q = 4 * (e % (BM / 4));
+        cp_async16(idx_s + t * BM + q,
+                   idx_b + static_cast<long long>(t) * n_out + m0 + q);
+      }
+    } else {
+      for (int e = tid; e < k_taps * BM; e += kThreads) {
+        const int t = e / BM;
+        const int q = e % BM;
+        if (q < rows)
+          cp_async4(idx_s + e,
+                    idx_b + static_cast<long long>(t) * n_out + m0 + q);
+        else
+          idx_s[e] = n_in;
+      }
+    }
+    cp_async_commit();
+  }
+  for (int t = tid; t < k_taps; t += kThreads) tap_hit[t] = 0;
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < S; ++s) mbar_init(&full[s]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  cp_async_wait_all();
+  __syncthreads();
+  auto source = [&](int t) -> int {  // this row's input row at tap t, or -1
+    const int src = idx_s[t * BM + r];
+    return src >= 0 && src < n_in ? src : -1;
+  };
+  for (int t = 0; t < k_taps; ++t) {
+    const unsigned hit =
+        __ballot_sync(0xffffffffu, sub == 0 && source(t) >= 0);
+    if (lane == 0 && hit) tap_hit[t] = 1;
+  }
+  __syncthreads();
+  if (tid < 32) {
+    int base = 0;
+    for (int c = 0; c < kTapWords; ++c) {
+      const int t = 32 * c + lane;
+      const bool f = t < k_taps && tap_hit[t];
+      const unsigned bits = __ballot_sync(0xffffffffu, f);
+      if (f) taps[base + __popc(bits & ((1u << lane) - 1u))] = t;
+      base += __popc(bits);
+    }
+    if (lane == 0) n_hit = base;
+  }
+  __syncthreads();
+  const int n = n_hit;
+
+  // Stage j % S of tap j: this row's Cin (16 bytes a copy, zero-filled for
+  // a miss and the padding; element by element where Cin % 8 != 0), and by
+  // thread 0 W[t]'s block (one bulk copy).
+  auto stage = [&](int s) { return smem + s * T::kStageBytes; };
+  auto issue = [&](int j, int src) {
+    unsigned char* a = stage(j % S) + (r / 8) * KC * 128 + (r % 8) * 16;
+    const bf16_bits* x = feat_b + static_cast<long long>(src < 0 ? 0 : src) *
+                                      cin;
+    if (vec_feat) {
+#pragma unroll
+      for (int kc = sub; kc < KC; kc += TPR)
+        cp_async16_zfill(a + kc * 128, x + kc * 8,
+                         src >= 0 && kc * 8 < cin ? 16 : 0);
+    } else {
+      for (int kc = sub; kc < KC; kc += TPR)
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          *reinterpret_cast<bf16_bits*>(a + kc * 128 + e * 2) =
+              src >= 0 && kc * 8 + e < cin ? x[kc * 8 + e] : bf16_bits(0);
+    }
+    if (tid == 0)
+      bulk_copy(stage(j % S) + T::kABytes, w_blk + taps[j] * w_tap,
+                T::kWBytes, &full[j % S]);
+  };
+
+  float acc[MT][N / 2];   // the sums over the taps so far
+  float part[MT][N / 2];  // one tap's products
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) acc[m][i] = part[m][i] = 0.f;
+
+#pragma unroll
+  for (int j = 0; j < S - 1; ++j) {
+    if (j < n) issue(j, source(taps[j]));
+    cp_async_commit();
+  }
+  int next = S - 1 < n ? source(taps[S - 1]) : -1;
+  for (int i = 0; i < n; ++i) {
+    // tap i's rows (this thread's, then everyone's) and its W block
+    cp_async_wait<S - 2>();
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    mbar_wait(&full[i % S], (i / S) & 1);
+    const unsigned char* st = stage(i % S);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < KP / 16; ++ks) {  // 2 core matrices of K a step
+      const uint64_t bd = desc(st + T::kABytes + ks * 256, kLbo, kSbo);
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+        wgmma<N>(part[m], desc(st + m * 64 * KP * 2 + ks * 256, kLbo, kSbo),
+                 bd, ks);
+    }
+    wgmma_commit();
+    // tap i + S - 1 into the stage tap i - 1 used: every warp finished that
+    // tap's products before the barrier above
+    const int j = i + S - 1;
+    if (j < n) {
+      issue(j, next);
+      next = j + 1 < n ? source(taps[j + 1]) : -1;
+    }
+    cp_async_commit();
+    wgmma_wait_all();
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      fence_operands(part[m]);
+#pragma unroll
+      for (int q = 0; q < N / 2; ++q) acc[m][q] += part[m][q];
+    }
+  }
+
+  // The accumulator fragment: warp w of the warpgroup holds rows 16w + g
+  // and 16w + g + 8 of each m64 tile, columns 8j + 2 t4 and + 1 of each n8
+  // block j, in registers 4j .. 4j + 3.
+  const int warp = tid >> 5, g = lane >> 2, t4 = lane & 3;
+  const int n0 = n_blk * N;
+  bf16_bits* out_b = out + static_cast<long long>(b) * n_out * cout;
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int o = m0 + m * 64 + warp * 16 + g + 8 * h;
+      if (o >= n_out) continue;
+      bf16_bits* out_r = out_b + static_cast<long long>(o) * cout;
+#pragma unroll
+      for (int jn = 0; jn < N / 8; ++jn) {
+        const int c = n0 + jn * 8 + 2 * t4;
+        const bf16_bits lo = to_out(acc[m][4 * jn + 2 * h], out_r);
+        const bf16_bits hi = to_out(acc[m][4 * jn + 2 * h + 1], out_r);
+        if (c + 1 < cout && cout % 2 == 0) {
+          *reinterpret_cast<unsigned*>(out_r + c) = pack(lo, hi);
+        } else {
+          if (c < cout) out_r[c] = lo;
+          if (c + 1 < cout) out_r[c + 1] = hi;
+        }
+      }
+    }
+}
+
+template <int KP, int N>
+cudaError_t launch(const bf16_bits* feat, const int* idx,
+                   const bf16_bits* w_img, bf16_bits* out, int batch,
+                   int n_in, int n_out, int k_taps, int cin, int cout,
+                   cudaStream_t stream) {
+  using T = Tile<KP, N>;
+  // the stages and the tile's indices; the static shared memory (the tap
+  // list, the barriers) takes under 1 KB of the block's share
+  constexpr int kMaxDynamic = kMaxSmem - 1024;
+  const size_t smem = T::kBytes + sizeof(int) * k_taps * T::kBM;
+  if (smem > kMaxDynamic) return cudaErrorInvalidValue;
+  static bool opted_in[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= 64 || !opted_in[dev]) {
+    err = cudaFuncSetAttribute(sparse_conv_bf16_kernel<KP, N>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kMaxDynamic);
+    if (err != cudaSuccess) return err;
+    if (dev < 64) opted_in[dev] = true;
+  }
+  const int vec_idx =
+      n_out % 4 == 0 && reinterpret_cast<uintptr_t>(idx) % 16 == 0;
+  const int vec_feat =
+      cin % 8 == 0 && reinterpret_cast<uintptr_t>(feat) % 16 == 0;
+  const dim3 grid((n_out + T::kBM - 1) / T::kBM, (cout + N - 1) / N, batch);
+  sparse_conv_bf16_kernel<KP, N><<<grid, kThreads, smem, stream>>>(
+      feat, idx, w_img, out, n_in, n_out, k_taps, cin, cout, vec_idx,
+      vec_feat);
+  return cudaGetLastError();
+}
+
+// KP: Cin padded to 16, 32, 64 or 128; N: Cout's column block, 16, 32, 64
+// or 128 (in blocks of 128 beyond).
+int width(int c) { return c <= 16 ? 16 : c <= 32 ? 32 : c <= 64 ? 64 : 128; }
+
+template <int KP>
+cudaError_t launch_n(const bf16_bits* feat, const int* idx,
+                     const bf16_bits* w_img, bf16_bits* out, int batch,
+                     int n_in, int n_out, int k_taps, int cin, int cout,
+                     cudaStream_t s) {
+  switch (width(cout)) {
+    case 16:
+      return launch<KP, 16>(feat, idx, w_img, out, batch, n_in, n_out,
+                            k_taps, cin, cout, s);
+    case 32:
+      return launch<KP, 32>(feat, idx, w_img, out, batch, n_in, n_out,
+                            k_taps, cin, cout, s);
+    case 64:
+      return launch<KP, 64>(feat, idx, w_img, out, batch, n_in, n_out,
+                            k_taps, cin, cout, s);
+    default:
+      return launch<KP, 128>(feat, idx, w_img, out, batch, n_in, n_out,
+                             k_taps, cin, cout, s);
+  }
+}
+
+}  // namespace wg
+
 }  // namespace
 
 // Plain C interface (loaded with ctypes). Each returns a cudaError_t value;
@@ -571,13 +1077,55 @@ extern "C" int df3d_sparse_conv_f32(const float* feat, const int* idx,
                          cout, stream);
 }
 
-// The bf16 form: feat, w and out hold bf16 values (their bits).
+// The bf16 form: feat, w and out hold bf16 values (their bits). `w_img`
+// (w_img_elems bf16) receives W as the kernel's B images
+// (df3d_sparse_conv_bf16_image_elems gives the size).
+extern "C" long long df3d_sparse_conv_bf16_image_elems(int k_taps, int cin,
+                                                       int cout) {
+  const int n = wg::width(cout);
+  return static_cast<long long>(k_taps) * ((cout + n - 1) / n) *
+         wg::width(cin) * n;
+}
+
 extern "C" int df3d_sparse_conv_bf16(const void* feat, const int* idx,
-                                     const void* w, void* out, int batch,
-                                     int n_in, int n_out, int k_taps, int cin,
-                                     int cout, void* stream) {
-  return dispatch<bf16_bits>(static_cast<const bf16_bits*>(feat), idx,
-                             static_cast<const bf16_bits*>(w),
-                             static_cast<bf16_bits*>(out), batch, n_in, n_out,
-                             k_taps, cin, cout, stream);
+                                     const void* w, void* w_img,
+                                     long long w_img_elems, void* out,
+                                     int batch, int n_in, int n_out,
+                                     int k_taps, int cin, int cout,
+                                     void* stream) {
+  if (batch <= 0 || n_out <= 0 || k_taps <= 0 || k_taps > wg::kMaxTaps ||
+      cin <= 0 || cin > 128 || cout <= 0 ||
+      w_img_elems < df3d_sparse_conv_bf16_image_elems(k_taps, cin, cout) ||
+      reinterpret_cast<uintptr_t>(w_img) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int kp = wg::width(cin), n = wg::width(cout);
+  const int n_blocks = (cout + n - 1) / n;
+  const long long total = static_cast<long long>(k_taps) * n_blocks * kp * n;
+  wg::w_images<<<static_cast<unsigned>((total + 255) / 256), 256, 0, s>>>(
+      static_cast<const bf16_bits*>(w), static_cast<bf16_bits*>(w_img),
+      k_taps, cin, cout, kp, n, n_blocks);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const auto* f = static_cast<const bf16_bits*>(feat);
+  const auto* wi = static_cast<const bf16_bits*>(w_img);
+  auto* o = static_cast<bf16_bits*>(out);
+  switch (kp) {
+    case 16:
+      err = wg::launch_n<16>(f, idx, wi, o, batch, n_in, n_out, k_taps, cin,
+                             cout, s);
+      break;
+    case 32:
+      err = wg::launch_n<32>(f, idx, wi, o, batch, n_in, n_out, k_taps, cin,
+                             cout, s);
+      break;
+    case 64:
+      err = wg::launch_n<64>(f, idx, wi, o, batch, n_in, n_out, k_taps, cin,
+                             cout, s);
+      break;
+    default:
+      err = wg::launch_n<128>(f, idx, wi, o, batch, n_in, n_out, k_taps, cin,
+                              cout, s);
+  }
+  return static_cast<int>(err);
 }

@@ -81,23 +81,32 @@ def build_all(names: list[str] | None = None) -> dict[str, Path]:
     return {name: library_path(name) for name in names}
 
 
+def apply_edits(text: str, edits: list[tuple[str, str]], name: str) -> str:
+    """`text` with each (old, new) edit made; raises unless every `old` is
+    found exactly once."""
+    for old, new in edits:
+        if text.count(old) != 1:
+            raise RuntimeError(f"{name}: the edit no longer applies")
+        text = text.replace(old, new)
+    return text
+
+
 def build_variants(source: str, variants: dict[str, list[tuple[str, str]]],
-                   out_dir: Path, extra: dict[str, Path] | None = None
+                   out_dir: Path, extra: dict[str, Path] | None = None,
+                   bases: dict[str, Path] | None = None
                    ) -> dict[str, tuple[ctypes.CDLL, str]]:
     """Builds for measurement: for each variant a copy of `csrc/<source>`
-    with its (old, new) edits made, each `old` found exactly once, and each
-    file of `extra` as it is, compiled into `out_dir`, one nvcc each, all
-    started together. Returns each build's loaded library and nvcc's ptxas
-    report, `extra` first. Raises when an edit no longer applies or a
-    compile fails."""
-    text = (CSRC / source).read_text()
+    (or of its file in `bases`, e.g. an earlier commit's source) with its
+    (old, new) edits made, each `old` found exactly once, and each file of
+    `extra` as it is, compiled into `out_dir`, one nvcc each, all started
+    together. Returns each build's loaded library and nvcc's ptxas report,
+    `extra` first. Raises when an edit no longer applies or a compile
+    fails."""
+    bases = bases or {}
     texts = {name: path.read_text() for name, path in (extra or {}).items()}
     for name, edits in variants.items():
-        texts[name] = text
-        for old, new in edits:
-            if texts[name].count(old) != 1:
-                raise RuntimeError(f"{name}: the edit no longer applies")
-            texts[name] = texts[name].replace(old, new)
+        texts[name] = apply_edits(
+            bases.get(name, CSRC / source).read_text(), edits, name)
     out_dir.mkdir(parents=True, exist_ok=True)
     jobs = {}
     for name, body in texts.items():

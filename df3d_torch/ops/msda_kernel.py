@@ -17,9 +17,11 @@ version. Both take the reference layout:
   gather. `ops.msda.ms_deform_attn` uses it for CPU tensors; the tests and
   `chip_smoke.py` hold the kernel against it.
 * `msda_bwd_cuda` launches the kernel's backward (dvalue, dloc, dattn from
-  dL/dout), counted apart in `bwd_launches`; `msda_bwd_plain` is autograd
-  of `msda_plain`, used only by the tests and `chip_smoke.py` (on CPU
-  tensors autograd runs through `msda_plain` itself).
+  dL/dout; no float atomics, so a repeat launch gives the same bits),
+  counted apart in `bwd_launches`, with the scratch `bwd_scratch` sizes
+  from the shapes; `msda_bwd_plain` is autograd of `msda_plain`, used
+  only by the tests and `chip_smoke.py` (on CPU tensors autograd runs
+  through `msda_plain` itself).
 """
 
 from __future__ import annotations
@@ -32,6 +34,11 @@ from df3d_torch.ops import build
 
 SOURCE = "msda.cu"
 MAX_LEVELS = 8  # kMaxLevels in csrc/msda.cu
+# the backward's scratch layout (kHeader, kScanTile in csrc/msda.cu);
+# rows, samples and record positions are ints there
+BWD_HEADER = 4
+BWD_SCAN_TILE = 4096
+INT_MAX = 2**31 - 1
 # kernel launches made by `msda_cuda` (forward) and `msda_bwd_cuda`
 # (backward) since the last reset
 launches = 0
@@ -79,7 +86,9 @@ ENTRY_POINTS = {
     "df3d_msda_f32": ([ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_int)]
                       + [ctypes.c_int] * 7 + [ctypes.c_void_p]),
     "df3d_msda_warp_path": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7,
-    "df3d_msda_bwd_f32": ([ctypes.c_void_p] * 7 + [ctypes.POINTER(ctypes.c_int)]
+    "df3d_msda_bwd_f32": ([ctypes.c_void_p] * 7
+                          + [ctypes.c_void_p, ctypes.c_longlong] * 2
+                          + [ctypes.POINTER(ctypes.c_int)]
                           + [ctypes.c_int] * 7 + [ctypes.c_void_p]),
 }
 
@@ -196,15 +205,35 @@ def msda_bwd_plain(value: torch.Tensor, spatial_shapes,
         return torch.autograd.grad(out, inputs, grad_output)
 
 
+def bwd_scratch(b: int, len_v: int, q: int, nh: int, nl: int,
+                npnt: int) -> tuple[int, int]:
+    """(ints, records) of scratch K2's backward needs at these shapes, as
+    `df3d_msda_bwd_f32` checks them (`scratch_ints_for` in csrc/msda.cu):
+    a header, a counter per dvalue row (B x LenV x nH), a live bit per
+    (query, head) unit, the scan tiles' sums, the live units' list and a
+    largest |g| per live unit; and the records of two ints, one per
+    possible in-bounds corner (4 per sample, every query live at worst).
+    Raises ValueError where the rows or records would not fit an int."""
+    n_rows, n_units = b * len_v * nh, b * q * nh
+    max_recs = 4 * n_units * nl * npnt
+    if n_rows >= INT_MAX or max_recs >= INT_MAX:
+        raise ValueError(f"msda_bwd_cuda: {n_rows} dvalue rows or "
+                         f"{max_recs} records do not fit an int")
+    n_tiles = -(-n_rows // BWD_SCAN_TILE)
+    return (BWD_HEADER + n_rows + -(-n_units // 32) + n_tiles
+            + 2 * n_units, max_recs)
+
+
 def msda_bwd_cuda(value: torch.Tensor, spatial_shapes,
                   sampling_locations: torch.Tensor,
                   attention_weights: torch.Tensor,
                   grad_output: torch.Tensor) -> tuple:
     """Launch K2's backward on PyTorch's current stream: (dvalue,
-    dlocations, dweights) as `msda_bwd_plain` gives them, dvalue summed
-    with atomics (its last bits vary between launches). Raises unless every
-    input, grad_output (B, Q, nH * D) included, is a contiguous f32 CUDA
-    tensor of the expected shape; the caller makes grad_output contiguous."""
+    dlocations, dweights) as `msda_bwd_plain` gives them, each summed in a
+    fixed order (a repeat launch gives the same bits), with scratch of
+    `bwd_scratch`'s sizes. Raises unless every input, grad_output (B, Q,
+    nH * D) included, is a contiguous f32 CUDA tensor of the expected
+    shape; the caller makes grad_output contiguous."""
     global bwd_launches
     shapes, b, len_v, nh, d, q, nl, npnt = _checked(
         "msda_bwd_cuda", value, spatial_shapes, sampling_locations,
@@ -217,12 +246,16 @@ def msda_bwd_cuda(value: torch.Tensor, spatial_shapes,
     dattn = torch.empty_like(attention_weights)
     if dloc.numel() == 0 or dvalue.numel() == 0:
         return dvalue.zero_(), dloc.zero_(), dattn.zero_()
+    n_ints, n_recs = bwd_scratch(b, len_v, q, nh, nl, npnt)
+    scratch = torch.empty(n_ints, dtype=torch.int32, device=value.device)
+    records = torch.empty(2 * n_recs, dtype=torch.int32, device=value.device)
     launch = _library().df3d_msda_bwd_f32
     with torch.cuda.device(value.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = launch(value.data_ptr(), sampling_locations.data_ptr(),
                      attention_weights.data_ptr(), grad_output.data_ptr(),
                      dvalue.data_ptr(), dloc.data_ptr(), dattn.data_ptr(),
+                     scratch.data_ptr(), n_ints, records.data_ptr(), n_recs,
                      _flat(shapes), nl, b, len_v, q, nh, d, npnt, stream)
     if err != 0:
         raise RuntimeError(f"msda_bwd_cuda: launch failed, cudaError {err}")

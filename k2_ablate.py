@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Where K2's device time goes: its kernel against copies with one part
-taken out, on the K2 launch of one full-width fused frame.
+taken out, on the K2 launch of one full-width fused frame, or (--bwd) on
+the backward launches of three full-width fused training steps.
 
     python3 k2_ablate.py [PARENT_TREE]
+    python3 k2_ablate.py --bwd [PARENT_TREE]
 
 Run from the root of a checkout on a machine with a CUDA card (an H100)
 and the CUDA toolkit. It captures the K2 launch of one full-width
@@ -35,10 +37,27 @@ P, twice, all in one process: the kernel's effect on ms/frame apart from
 which tree or process runs. Every build but no_gather computes
 the full function and is held against the plain version; no_gather
 computes a wrong result and exists only in build/ to be timed.
+
+With --bwd it captures the K2 backward launches of one training step of
+`centerpoint_3ddf_nusc` (chip_smoke.py's phase 18: L 3, the warp path),
+`transfusion_3ddf_nusc` (phase 23: L 1, two launches) and
+`voxel_rcnn_3ddf_kitti` (phase 32: the general path at D 8), each step
+built as its phase builds it, and times, per step, the sum of its
+launches for every build of BWD_VARIANTS (edits to the current
+`msda.cu`) and, with a parent, the parent's `msda.cu` as it is and
+PARENT_BWD_VARIANTS (edits to that source: its f32 atomics as plain
+stores, its memset of dvalue taken out, its zero writes for queries
+whose g is 0 taken out), in turns, in order then reversed, through each
+tree's own wrapper. bwd_kernel and parent compute the full function and
+are held against autograd of the plain version once per step (and
+bwd_kernel against itself on a repeat launch, bit for bit; a failure is
+raised after the timings); the other builds compute wrong results and
+exist only in build/ to be timed.
 Exits non-zero without a CUDA device.
 """
 
 import ctypes
+import importlib.util
 import os
 import sys
 import time
@@ -69,6 +88,63 @@ VARIANTS = {
 }
 EXACT = ("kernel", "general", "no_exit", "l2_only", "interleaved", "parent")
 PATH_FRAMES = 5
+
+# The backward (--bwd): edits to the current msda.cu (each build still
+# launches every pass and stays in bounds) ...
+WARP_ROW_READS = (
+    "        if (c & 1) s00 = dot4(g4, __ldg(rows + off));\n"
+    "        if (c & 2) s01 = dot4(g4, __ldg(rows + off + kRow4));\n"
+    "        if (c & 4) s10 = dot4(g4, __ldg(rows + off + down));\n"
+    "        if (c & 8) s11 = dot4(g4, __ldg(rows + off + down + kRow4));\n")
+BWD_VARIANTS = {
+    "bwd_kernel": [],
+    # dead queries' dloc and dattn left unwritten
+    "no_dead_writes": [
+        ("      const int i = static_cast<int>(e % (n4 + a4));\n"
+         "      if (is_live(sc.live_bits, u)) continue;\n",
+         "      const int i = static_cast<int>(e % (n4 + a4));\n"
+         "      if (true) continue;\n"),
+        ("      const int i = static_cast<int>(e % (3 * per_unit));\n"
+         "      if (is_live(sc.live_bits, u)) continue;\n",
+         "      const int i = static_cast<int>(e % (3 * per_unit));\n"
+         "      if (true) continue;\n")],
+    # pass A2 without the value rows (g . v_c = 0)
+    "no_value_reads": [
+        (WARP_ROW_READS, "        (void)off;\n        (void)down;\n"),
+        ("            for (int d = 0; d < head_dim; ++d) "
+         "acc = fmaf(g[d], v[d], acc);\n", "            (void)v;\n")],
+    # pass C writes zeros without reading a record
+    "no_dvalue_sum": [("  int k = begin;\n", "  int k = end;\n")],
+}
+# ... and to the parent's (an msda.cu whose dvalue is zeroed by a memset,
+# then summed into with f32 atomics)
+PARENT_SCATTER = ("  atomicAdd(row, g.x * w);\n"
+                  "  atomicAdd(row + 1, g.y * w);\n"
+                  "  atomicAdd(row + 2, g.z * w);\n"
+                  "  atomicAdd(row + 3, g.w * w);\n")
+PARENT_BWD_VARIANTS = {
+    "parent_no_atomics": [
+        (PARENT_SCATTER, "  row[0] = g.x * w;\n  row[1] = g.y * w;\n"
+                         "  row[2] = g.z * w;\n  row[3] = g.w * w;\n"),
+        ("            atomicAdd(dv + d, g[d] * w[k]);\n",
+         "            dv[d] = g[d] * w[k];\n")],
+    "parent_no_memset": [(
+        "  cudaError_t err = cudaMemsetAsync(dvalue, 0, value_bytes, s);\n"
+        "  if (err != cudaSuccess) return static_cast<int>(err);\n",
+        "  (void)value_bytes;\n")],
+    "parent_no_dead_writes": [
+        ("  if (!__any_sync(kFull, live)) {\n"
+         "    zero_query<L, P>(dloc_q, dattn_q, head, point);\n"
+         "    return;\n  }\n",
+         "  if (!__any_sync(kFull, live)) return;\n"),
+        ("  if (!live) {\n    for (int s = 0; s < lp; ++s) {\n"
+         "      dattn_t[s] = 0.f;\n"
+         "      dloc_t[2 * s] = dloc_t[2 * s + 1] = 0.f;\n    }\n"
+         "    return;\n  }\n",
+         "  if (!live) return;\n")],
+}
+BWD_EXACT = ("bwd_kernel", "parent")
+BWD_REPS = 10
 
 
 def build_libraries(parent):
@@ -134,6 +210,148 @@ def path_turns(libs, run_frame):
         K2._lib = own
 
 
+def parent_module(parent, name):
+    """The parent tree's wrapper module `df3d_torch/ops/<name>.py`, loaded
+    under another name beside the current one (it imports the current
+    package's `build`, which it uses only to load its library)."""
+    path = parent / "df3d_torch" / "ops" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"parent_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def record_bwd(step, state, batch, *step_args):
+    """Clones of the (value, shapes, locations, weights, grad) of every K2
+    backward launch of one `step.grads` call."""
+    from df3d_torch.ops import msda_kernel as K2
+
+    captured, launch = [], K2.msda_bwd_cuda
+
+    def recording(value, shapes, locs, attn, grad):
+        captured.append((value.clone(), tuple(shapes), locs.clone(),
+                         attn.clone(), grad.clone()))
+        return launch(value, shapes, locs, attn, grad)
+
+    K2.msda_bwd_cuda = recording
+    try:
+        step.grads(state, batch, *step_args)
+    finally:
+        K2.msda_bwd_cuda = launch
+    torch.cuda.synchronize()
+    return captured
+
+
+def capture_bwd_launches():
+    """{step: its K2 backward launches}: one step each of the three fused
+    trainers, built as chip_smoke.py's phases 18, 23 and 32 build them."""
+    import chip_smoke
+    from df3d_torch.entry import (
+        build_voxelrcnn3ddf_trainer, fused_config, voxel_rcnn_3ddf_kitti,
+    )
+
+    sets = {}
+    for label, transfusion in (("phase 18 step (L 3, warp path)", False),
+                               ("phase 23 step (L 1, warp path)", True)):
+        _, _, state, step, batch = chip_smoke.full_fused_train_setup(
+            "cuda", transfusion=transfusion)
+        sets[label] = record_bwd(step, state, batch)
+        del state, step, batch
+        torch.cuda.empty_cache()
+    preset = voxel_rcnn_3ddf_kitti()
+    state, step = build_voxelrcnn3ddf_trainer(
+        preset["lidar"], fused_config(preset), "cuda", seed=0)
+    batch = chip_smoke.kitti_train_batch("cuda", fused=True)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    sets["phase 32 step (KITTI, general path, D 8)"] = record_bwd(
+        step, state, batch, gen)
+    del state, step, batch
+    torch.cuda.empty_cache()
+    return sets
+
+
+def bwd_main(parent, chip_smoke):
+    """The backward's builds on the captured launches of three steps."""
+    from df3d_torch.ops import build
+    from df3d_torch.ops import msda_kernel as K2
+
+    extra, bases, variants = {}, {}, dict(BWD_VARIANTS)
+    if parent is not None:
+        src = parent / "df3d_torch" / "csrc" / "msda.cu"
+        extra["parent"] = src
+        for name, edits in PARENT_BWD_VARIANTS.items():
+            variants[name] = edits
+            bases[name] = src
+    built = build.build_variants(K2.SOURCE, variants, OUT / "bwd", extra,
+                                 bases)
+    for name in ("parent", "bwd_kernel"):
+        for line in built.get(name, (None, ""))[1].splitlines():
+            if "bwd" in line and ("entry function" in line
+                                  or "registers" in line or "spill" in line):
+                print(f"  ptxas {name}: {line.strip()}")
+    mods = {}
+    for name, (lib, _) in built.items():
+        mod = K2 if name in BWD_VARIANTS else parent_module(parent,
+                                                            "msda_kernel")
+        mods[name] = (mod, mod.bind(lib))
+    sets = capture_bwd_launches()
+    order = list(built) + list(built)[::-1]
+    failures = []
+    for label, launches in sets.items():
+        v, shapes, locs, attn, grad = launches[0]
+        print(f"{label}: {len(launches)} launch(es), value "
+              f"{tuple(v.shape)}, locations {tuple(locs.shape)}, levels "
+              f"{list(shapes)}", flush=True)
+
+        def caller(name):
+            mod, lib = mods[name]
+
+            def call():
+                own = mod._lib
+                mod._lib = lib
+                try:
+                    return [mod.msda_bwd_cuda(*args) for args in launches]
+                finally:
+                    mod._lib = own
+            return call
+
+        wants = [K2.msda_bwd_plain(*args) for args in launches]
+        failed = []
+        for name in BWD_EXACT:
+            if name not in built:
+                continue
+            got = caller(name)()
+            again = caller(name)()
+            torch.cuda.synchronize()
+            worst = 0.0
+            for gs, ags, ws in zip(got, again, wants):
+                for g, a, w in zip(gs, ags, ws):
+                    tol = 1e-4 * w.abs().max().item() + 1e-5
+                    err = (g - w).abs().max().item()
+                    worst = max(worst, err / tol)
+                    if name == "bwd_kernel" and not torch.equal(g, a):
+                        failed.append(f"{label}: {name}: a repeat launch "
+                                      "differs")
+            if not worst <= 1.0:
+                failed.append(f"{label}: {name}: max abs err {worst:.3g} "
+                              "tolerances")
+            print(f"  {name:<22} worst err / tolerance {worst:.3g}",
+                  flush=True)
+        del wants
+        print("  ms per step (its launches summed), turns in order then "
+              "reversed: back-to-back (stream) / device")
+        for name in order:
+            call = caller(name)
+            ms = chip_smoke.cuda_ms(call, BWD_REPS)
+            dev = chip_smoke.device_ms(call, BWD_REPS)
+            print(f"  {name:<22} {ms:.4f} / {dev:.4f}", flush=True)
+        del launches
+        torch.cuda.empty_cache()
+        failures.extend(failed)
+    if failures:  # after the timings, which a wrong build does not stop
+        raise RuntimeError("\n".join(failures))
+
+
 def main():
     if not torch.cuda.is_available():
         print("k2_ablate: no CUDA device; nothing was run", file=sys.stderr)
@@ -142,11 +360,16 @@ def main():
     import chip_smoke
     from df3d_torch.ops import msda_kernel as K2
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cudnn.benchmark = True
-    parent = Path(sys.argv[1]).resolve() if len(sys.argv) > 1 else None
+    chip_smoke.f32_backends()
+    args = sys.argv[1:]
+    bwd = "--bwd" in args
+    args = [a for a in args if a != "--bwd"]
+    parent = Path(args[0]).resolve() if args else None
     print(f"card: {chip_smoke.card_line()}", flush=True)
+    if bwd:
+        bwd_main(parent, chip_smoke)
+        print(f"card: {chip_smoke.card_line()}")
+        return 0
     libs = build_libraries(parent)
     (value, shapes, locs, attn), run_frame = capture_launch()
     b, len_v, nh, d = value.shape

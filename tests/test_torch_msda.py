@@ -27,8 +27,10 @@ from df3d_torch.models.fusion.msda_module import (
     MSDeformAttnModule, offset_bias_grid,
 )
 from df3d_torch.ops import msda as tmsda
+from df3d_torch.ops import msda_kernel as k2
 from torch_port_helpers import (
-    k2_emulate, k2_schedule, load_flax, seeded_variables,
+    k2_bwd_dvalue_by_rows, k2_emulate, k2_schedule, load_flax,
+    seeded_variables,
 )
 from torch_port_helpers import one_torch_thread  # noqa: F401
 
@@ -205,3 +207,79 @@ def test_offset_bias_grid():
     want = _offset_bias_init(8, 3, 4)(jax.random.PRNGKey(0), (192,))
     np.testing.assert_allclose(offset_bias_grid(8, 3, 4).numpy(),
                                np.asarray(want), atol=1e-7)
+
+
+def _hot_bwd_inputs(seed, b=2, q=40):
+    """`_preset_inputs` with every level-0 sample of queries 10.. on one
+    point (four rows of each head gather 4 (Q - 10) records), and g = 0 on
+    query 5 and on head 3 of query 6."""
+    value, shapes, locs, w = _preset_inputs(seed, b, q)
+    h, wd = shapes[0]
+    locs[:, 10:, :, 0] = [2.3 / wd, 3.6 / h]
+    rng = np.random.RandomState(seed + 100)
+    grad = rng.randn(b, q, PRESET["nh"] * PRESET["d"]).astype(np.float32)
+    grad[:, 5] = 0.0
+    grad[:, 6, 3 * PRESET["d"]:4 * PRESET["d"]] = 0.0
+    return tuple(torch.from_numpy(a) if isinstance(a, np.ndarray) else a
+                 for a in (value, shapes, locs, w, grad))
+
+
+@pytest.mark.parametrize("seed", [11, 12])
+def test_k2_bwd_row_sums_match_plain(seed):
+    """K2's backward forms dvalue without float atomics: per-corner
+    records grouped by dvalue row, each row's products summed exactly as
+    scaled 64-bit integers (`k2_bwd_dvalue_by_rows`). That gives autograd
+    of the plain version's dvalue (f32 sums in another order: atol 1e-5 of
+    values ~1), a hot row of 120 records included."""
+    value, shapes, locs, w, grad = _hot_bwd_inputs(seed)
+    got, most = k2_bwd_dvalue_by_rows(value, shapes, locs, w, grad)
+    want = k2.msda_bwd_plain(value, shapes, locs, w, grad)[0]
+    assert most >= 4 * 30
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5)
+
+
+def test_k2_bwd_row_sums_do_not_depend_on_order():
+    """Whatever order the integer atomics place a row's records in, the
+    exact sum gives the same bits; and it stays within the f32 rounding of
+    its products (atol 1e-6 of values ~1) of the plain version in f64."""
+    args = _hot_bwd_inputs(13)
+    runs = [k2_bwd_dvalue_by_rows(*args, torch.Generator().manual_seed(s))[0]
+            for s in (0, 1)]
+    assert torch.equal(runs[0], runs[1])
+    assert torch.equal(runs[0], k2_bwd_dvalue_by_rows(*args)[0])
+    value, shapes, locs, w, grad = args
+    exact = k2.msda_bwd_plain(value.double(), shapes, locs.double(),
+                              w.double(), grad.double())[0]
+    np.testing.assert_allclose(runs[0].numpy(), exact.numpy(), rtol=0,
+                               atol=1e-6)
+
+
+# (B, LenV, Q, nH, L, P): the phase 18, 23 and 32 steps' launches (L 3,
+# L 1, KITTI's D-8 general path) and a small one
+SCRATCH_CASES = [(24, 33600, 30000, 8, 3, 4), (24, 22400, 30000, 8, 1, 4),
+                 (2, 46080, 4000, 8, 3, 4), (2, 12, 3, 2, 2, 1)]
+
+
+@pytest.mark.parametrize("case", SCRATCH_CASES, ids=str)
+def test_k2_bwd_scratch_sizes(case):
+    """The backward's scratch, sized from the shapes: a header, a counter
+    per dvalue row, a live bit per (query, head) unit, a sum per scan tile,
+    the live list and its units' largest |g|, and 4 records per sample
+    (every query live at worst)."""
+    b, len_v, q, nh, nl, npnt = case
+    n_ints, n_recs = k2.bwd_scratch(b, len_v, q, nh, nl, npnt)
+    rows, units = b * len_v * nh, b * q * nh
+    assert n_recs == 4 * units * nl * npnt
+    tiles = -(-rows // k2.BWD_SCAN_TILE)
+    assert n_ints == k2.BWD_HEADER + rows + -(-units // 32) + tiles + 2 * units
+    # ~2.3 GB at the L 3 step, the largest: the records
+    assert 4 * n_ints + 8 * n_recs < 2.5e9
+
+
+def test_k2_bwd_scratch_refuses_int_overflow():
+    """Rows and records are ints in the kernel: larger shapes are refused
+    before any allocation."""
+    with pytest.raises(ValueError, match="fit an int"):
+        k2.bwd_scratch(64, 33600, 120000, 8, 3, 4)
+    with pytest.raises(ValueError, match="fit an int"):
+        k2.bwd_scratch(2**16, 2**12, 1, 8, 1, 1)

@@ -154,3 +154,59 @@ def test_k1_schedule_matches_plain_xla_and_pallas(case):
                                    rtol=1e-5)
         np.testing.assert_allclose(got.numpy(), want_pallas, atol=1e-5,
                                    rtol=1e-5)
+
+
+# (Cin, Cout) -> (KP, N, column blocks): the main path's four bf16 shapes,
+# phase 37's edge cases' odd widths, and Cout past one column block
+BF16_WIDTH_CASES = [((32, 32), (32, 32, 1)), ((32, 64), (32, 64, 1)),
+                    ((64, 64), (64, 64, 1)), ((64, 128), (64, 128, 1)),
+                    ((5, 6), (16, 16, 1)), ((12, 8), (16, 16, 1)),
+                    ((72, 128), (128, 128, 1)), ((128, 16), (128, 16, 1)),
+                    ((96, 300), (128, 128, 3))]
+
+
+@pytest.mark.parametrize("case", BF16_WIDTH_CASES, ids=str)
+def test_k1_bf16_widths(case):
+    """Which instantiation of the bf16 kernel a conv takes, and the size
+    of W's images the wrapper allocates for it."""
+    (cin, cout), want = case
+    assert k1.bf16_widths(cin, cout) == want
+    kp, n, blocks = want
+    assert k1.bf16_image_elems(27, cin, cout) == 27 * blocks * kp * n
+
+
+def test_k1_bf16_widths_refuse():
+    for cin, cout in ((0, 16), (129, 16), (32, 0)):
+        with pytest.raises(ValueError):
+            k1.bf16_widths(cin, cout)
+
+
+def test_k1_bf16_w_images_layout():
+    """W's images as the kernel's `w_images` writes them (image index
+    ((n8 * KP/8 + kc) * 8 + nr) * 8 + kr for each tap and column block),
+    read back as wgmma reads its B operand without swizzle: core matrices
+    of 8 output channels x 8 input channels (16 bytes a channel), the next
+    one along K 128 bytes on, the next 8 channels KP/8 x 128 bytes on. It
+    must give W[t][:, block] transposed, zero past Cin and Cout."""
+    rng = np.random.RandomState(3)
+    k, cin, cout = 3, 12, 150
+    w = torch.from_numpy(rng.randn(k, cin, cout).astype(np.float32))
+    kp, n, blocks = k1.bf16_widths(cin, cout)
+    e = torch.arange(k1.bf16_image_elems(k, cin, cout))
+    per, kc_n = kp * n, kp // 8
+    t, nb, i = e // (blocks * per), e // per % blocks, e % per
+    kr, nr, kc, n8 = i % 8, i // 8 % 8, i // 64 % kc_n, i // 64 // kc_n
+    kk, col = kc * 8 + kr, nb * n + n8 * 8 + nr
+    ok = (kk < cin) & (col < cout)
+    images = torch.where(ok, w[t, kk.clamp(max=cin - 1),
+                               col.clamp(max=cout - 1)], 0.0)
+    for tap in range(k):
+        for blk in range(blocks):
+            img = images[(tap * blocks + blk) * per:][:per]
+            # byte offset (n8 * kc_n + kc) * 128 + nr * 16 + kr * 2
+            got = img.view(n // 8, kc_n, 8, 8).permute(0, 2, 1, 3).reshape(
+                n, kp)
+            want = torch.zeros(n, kp)
+            cols = w[tap, :, blk * n:(blk + 1) * n].t()
+            want[:cols.shape[0], :cin] = cols
+            assert torch.equal(got, want)

@@ -345,6 +345,72 @@ def k2_bwd_emulate(value, spatial_shapes, sampling_locations,
     return dvalue.view_as(value), dloc, dattn
 
 
+def k2_bwd_dvalue_by_rows(value, spatial_shapes, sampling_locations,
+                          attention_weights, grad_output, placement=None):
+    """dvalue as K2's backward forms it without float atomics
+    (df3d_torch/csrc/msda.cu, passes A1 to C): one record (dvalue row,
+    (query, head) unit, attention x bilinear weight w) per in-bounds corner
+    of each sample of a unit whose g is not 0, each row's bound M = (its
+    largest |w|) x (the largest |g|); the records placed by row in the
+    order of `placement` (a torch.Generator standing in for the order the
+    kernel's integer atomics happen to take; else emission order); each
+    row's sum of the f32 products g[unit, c] * w taken exactly: each scaled
+    by 2^e, e = 61 - exponent(M) - ceil(log2(records)) within [-126, 126],
+    rounded to an integer (half to even), the integers summed, the total
+    scaled back and rounded to f32. Returns (dvalue, the most records of
+    one row)."""
+    b, len_v, nh, d = value.shape
+    q, nl, npnt = sampling_locations.shape[1], *sampling_locations.shape[3:5]
+    g = grad_output.reshape(b * q * nh, d)
+    g_max = g.abs().amax(-1)
+    live = (g_max > 0).view(b, q, nh)
+    unit = torch.arange(b * q * nh).view(b, q, nh, 1)
+    batch = torch.arange(b).view(b, 1, 1, 1)
+    heads = torch.arange(nh).view(1, 1, nh, 1)
+    rows, units, weights, start = [], [], [], 0
+    for lid, (h, w) in enumerate(spatial_shapes):
+        loc = sampling_locations[:, :, :, lid]
+        a = attention_weights[:, :, :, lid]
+        px, py = loc[..., 0] * w - 0.5, loc[..., 1] * h - 0.5
+        x0, y0 = torch.floor(px), torch.floor(py)
+        near = (x0 >= -1) & (x0 < w) & (y0 >= -1) & (y0 < h)
+        dx, dy = px - x0, py - y0
+        for (ox, oy), bil in (((0, 0), (1 - dx) * (1 - dy)),
+                              ((1, 0), dx * (1 - dy)),
+                              ((0, 1), (1 - dx) * dy), ((1, 1), dx * dy)):
+            cx, cy = x0 + ox, y0 + oy
+            inb = (near & (cx >= 0) & (cx < w) & (cy >= 0) & (cy < h)
+                   & live[..., None])
+            pix = start + (torch.where(inb, cy, 0) * w
+                           + torch.where(inb, cx, 0)).long()
+            rows.append(((batch * len_v + pix) * nh + heads)[inb])
+            units.append(unit.expand(b, q, nh, npnt)[inb])
+            weights.append((a * bil)[inb])
+        start += h * w
+    rows, units, weights = torch.cat(rows), torch.cat(units), torch.cat(weights)
+    if placement is not None:
+        perm = torch.randperm(len(rows), generator=placement)
+        rows, units, weights = rows[perm], units[perm], weights[perm]
+    n_rows = b * len_v * nh
+    counts = torch.bincount(rows, minlength=n_rows)
+    def finite_abs(x):
+        return torch.where(torch.isfinite(x), x.abs(), 0.0)
+
+    w_max = torch.zeros(n_rows).scatter_reduce(0, rows, finite_abs(weights),
+                                               "amax")
+    bound = (w_max * finite_abs(g).max()).clamp(max=3.4e38)
+    exp = torch.frexp(bound)[1]
+    log2n = torch.ceil(torch.log2(counts.clamp(min=1).double())).long()
+    e = (61 - exp - log2n).clamp(-126, 126).double()
+    prods = (g[units] * weights[:, None]).double()  # f32 products
+    scaled = torch.round(prods * torch.exp2(e[rows])[:, None]).long()
+    sums = torch.zeros(n_rows, d, dtype=torch.long).index_add_(0, rows,
+                                                                scaled)
+    dvalue = (sums.double() * torch.exp2(-e)[:, None]).float()
+    dvalue[counts == 0] = 0.0
+    return dvalue.view_as(value), int(counts.max()) if len(rows) else 0
+
+
 def record_grads():
     """An optax transform that passes the gradients through and keeps them
     as its state (chain it ahead of the optimizer to read a step's raw
