@@ -5,7 +5,9 @@
 training steps of the same four models; then KITTI's Voxel R-CNN and
 Voxel R-CNN + 3D-DF (one camera + LiDAR) serving paths and training
 steps; then the training steps data parallel; then CenterPoint in the
-bf16 "tpu_v5e" serving profile beside "exact".
+bf16 "tpu_v5e" serving profile beside "exact"; then the evaluation path:
+reference checkpoints imported, double-flip TTA, recalibration and the
+metrics.
 
     python3 chip_smoke.py
 
@@ -251,6 +253,37 @@ any failure raises and the process exits non-zero:
    profile and peak memory: K1 16 f32 launches a frame
    in "exact", 6 f32 and 10 bf16 in "tpu_v5e", K2 none; then the two
    profiles' head maps of one frame against each other.
+40. imported weights: synthetic reference checkpoints at the full widths
+   of `centerpoint_nusc` (det3d's names, spconv v1, {'state_dict': ...}),
+   `transfusion_l_nusc` (mmdet3d's, DDP's 'module.' prefix) and
+   `voxel_rcnn_car_kitti` (pcdet's, spconv v2, {'model_state': ...}),
+   written with torch.save from seeded random port weights
+   (`det3d_state_dict`, `mmdet3d_state_dict`, `pcdet_state_dict`) and
+   built on the card by `entry.build_*(checkpoint=...)`: every entry must
+   equal its source (the import is strict both ways), and each serves one
+   full-width frame (K1 16, 16 and 12 launches). Then each family at a
+   small config from a small checkpoint, card against CPU as phases 3, 9
+   and 24.
+41. double-flip TTA, LiDAR: phase 3's small config card against CPU with
+   `entry.infer_double_flip` (kept boxes, near ties replayed, and the
+   merged head maps to atol = rtol = 1e-3); then `centerpoint_nusc` at
+   full width, each 260k-point frame as its four flips in one batch-4
+   forward at the serving caps: every K1 launch of one TTA frame against
+   the plain version and a repeat launch (phase 4's tolerance), timed with
+   its bound; TTA frames timed as phase 5 (K1 16 launches a frame).
+42. double-flip TTA, fused: `centerpoint_3ddf_nusc`, six 448x800 cameras
+   repeated for the four flips, each variant's reflection composed into
+   its projections: K2's launch on its warp path at B = 4 against the
+   plain version as in phase 7, K1 16 launches; TTA frames timed (K1 16,
+   K2 1 a frame).
+43. recalibration and the metrics: `recalibrate_batch_stats` on the small
+   CenterPoint, card against CPU; nuScenes mAP/NDS of phase 41's TTA
+   frames against their scenes' boxes and KITTI's APs, AOS and recall of
+   phase 40's KITTI frame against its cars (random weights: no accuracy);
+   the ground truth scored as its own detections must give what
+   tests/test_nuscenes_eval.py::test_perfect_detections and
+   tests/test_kitti_eval.py::test_perfect_detection_ap_high assert, and
+   KITTI's frame of cars the exact R40 AP of each difficulty's count.
 
 TF32 is off for matmuls and cuDNN convs: the port serves in f32 (the JAX
 package's "exact" profile) and the comparisons need full f32; the
@@ -271,7 +304,9 @@ CenterPoint + 3D-DF training launches and its backward's times and bound;
 "kitti" those of the KITTI paths, phases 25 and 27, "kitti"'s "train"
 those of the KITTI training steps, phases 30 and 32, and "dp" phase 35's
 launches per rank and rank 0's kernel numbers; the third entry, K1_bf16,
-is K1's bf16 form: phase 37's numbers, phase 39's "tpu_v5e" launches) and
+is K1's bf16 form: phase 37's numbers, phase 39's "tpu_v5e" launches;
+"tta" holds phases 41's (K1) and 42's (K2) numbers at the TTA's batch-4
+shapes, and "launches" adds phases 40-42's) and
 the result line
 {"ok": true, "device": {...}}. With no CUDA device, or outside a checkout,
 the script exits non-zero without them.
@@ -3511,6 +3546,643 @@ def phase_profile_paths(cfg, frames, dev):
     return counts
 
 
+# --- the evaluation path (phases 40-43): reference checkpoints imported,
+# double-flip TTA at batch 4, recalibration and the metrics ---------------
+
+K1_PER_TTA_FRAME = K1_PER_FRAME  # one batch-4 forward
+K2_PER_TTA_FRAME = 1
+TTA_TIMED_FRAMES = 5
+BN_SUFFIXES = ("weight", "bias", "running_mean", "running_var")
+
+
+def _taps_5d(w, layout):
+    """Port taps (K, Cin, Cout) -> an spconv weight: v1 (kz, ky, kx, Cin,
+    Cout) or v2 (Cout, kz, ky, kx, Cin); K is 27 (3x3x3) or 3 (3x1x1)."""
+    kyx = 3 if w.shape[0] == 27 else 1
+    w = w.reshape(3, kyx, kyx, *w.shape[1:])
+    return w if layout == "v1" else w.permute(4, 0, 1, 2, 3).contiguous()
+
+
+def _renamer(sd):
+    """(out, bn, linear) helpers that copy port entries of `sd` into the
+    reference dict `out` under reference names."""
+    out = {}
+
+    def bn(dst, src):
+        for s in BN_SUFFIXES:
+            out[f"{dst}.{s}"] = sd[f"{src}.{s}"]
+
+    def copy(dst, src, suffixes=("weight", "bias"), fn=lambda w: w):
+        for s in suffixes:
+            if f"{src}.{s}" in sd:
+                out[f"{dst}.{s}"] = fn(sd[f"{src}.{s}"]) if s == "weight" \
+                    else sd[f"{src}.{s}"]
+
+    return out, bn, copy
+
+
+def _bev_neck(sd, out, bn, copy, src, dst_blocks, dst_deblocks, first,
+              deblock0):
+    """A BEVBackbone's blocks (conv at index `first`, bn after it, then
+    every 3) and deblocks under reference names; `deblock0` maps the
+    stride-1 deblock's port weight to the reference's layout."""
+    for i in range(2):
+        copy(f"{dst_blocks}.{i}.{first}", f"{src}.block{i}_in.conv")
+        bn(f"{dst_blocks}.{i}.{first + 1}", f"{src}.block{i}_in.bn")
+        for j in range(5):
+            copy(f"{dst_blocks}.{i}.{first + 3 + 3 * j}",
+                 f"{src}.block{i}_conv{j}.conv")
+            bn(f"{dst_blocks}.{i}.{first + 4 + 3 * j}",
+               f"{src}.block{i}_conv{j}.bn")
+    copy(f"{dst_deblocks}.0.0", f"{src}.deblock0.conv", fn=deblock0)
+    bn(f"{dst_deblocks}.0.1", f"{src}.deblock0.bn")
+    copy(f"{dst_deblocks}.1.0", f"{src}.deblock1.deconv")
+    bn(f"{dst_deblocks}.1.1", f"{src}.deblock1.bn")
+
+
+def det3d_state_dict(sd):
+    """A port CenterPoint's state dict under det3d's names, spconv v1: the
+    reference checkpoint it would import from."""
+    out, bn, copy = _renamer(sd)
+
+    def cbr(dst, src):
+        out[f"{dst}.0.weight"] = _taps_5d(sd[f"{src}.conv.weight"], "v1")
+        bn(f"{dst}.1", f"{src}.bn")
+
+    def block(dst, src):
+        for c in ("conv1", "conv2"):
+            out[f"{dst}.{c}.weight"] = _taps_5d(sd[f"{src}.{c}.weight"], "v1")
+        bn(f"{dst}.bn1", f"{src}.bn1")
+        bn(f"{dst}.bn2", f"{src}.bn2")
+
+    cbr("backbone.conv_input", "backbone.conv_input")
+    block("backbone.conv1.0", "backbone.res1a")
+    block("backbone.conv1.1", "backbone.res1b")
+    for s in (2, 3, 4):
+        cbr(f"backbone.conv{s}", f"backbone.down{s}")
+        block(f"backbone.conv{s}.3", f"backbone.res{s}a")
+        block(f"backbone.conv{s}.4", f"backbone.res{s}b")
+    cbr("backbone.extra_conv", "backbone.extra_conv")
+    _bev_neck(sd, out, bn, copy, "neck.blocks", "neck.blocks",
+              "neck.deblocks", 1, lambda w: w)
+    copy("bbox_head.shared_conv.0", "head.shared_conv")
+    bn("bbox_head.shared_conv.1", "head.shared_bn")
+    t = 0
+    while f"head.tasks.{t}.hm.out.weight" in sd:
+        for name in ("reg", "height", "dim", "rot", "vel", "hm"):
+            src, dst = f"head.tasks.{t}.{name}", f"bbox_head.tasks.{t}.{name}"
+            copy(f"{dst}.0", f"{src}.convs.0")
+            bn(f"{dst}.1", f"{src}.bns.0")
+            copy(f"{dst}.3", f"{src}.out")
+        t += 1
+    return out
+
+
+def mmdet3d_state_dict(sd):
+    """A port TransFusion-L's state dict under mmdet3d's names (spconv v1,
+    Conv1d weights (out, in, 1), the attention's packed in_proj)."""
+    out, bn, copy = _renamer(sd)
+    conv1d = lambda w: w[..., None]  # noqa: E731
+    enc, me = "pts_middle_encoder", "middle_encoder"
+
+    def cbr(dst, src):
+        out[f"{dst}.0.weight"] = _taps_5d(sd[f"{src}.conv.weight"], "v1")
+        bn(f"{dst}.1", f"{src}.bn")
+
+    cbr(f"{enc}.conv_input", f"{me}.conv_input")
+    for i, n in enumerate((3, 3, 3, 2)):
+        t = f"{enc}.encoder_layers.encoder_layer{i + 1}"
+        for j in range(n):
+            if j == n - 1 and i != 3:
+                cbr(f"{t}.{j}", f"{me}.stage{i}_down")
+                continue
+            for c in ("conv1", "conv2"):
+                out[f"{t}.{j}.{c}.weight"] = _taps_5d(
+                    sd[f"{me}.stage{i}_block{j}.{c}.weight"], "v1")
+            for c in ("bn1", "bn2"):
+                bn(f"{t}.{j}.{c}", f"{me}.stage{i}_block{j}.{c}")
+    cbr(f"{enc}.conv_out", f"{me}.conv_out")
+    _bev_neck(sd, out, bn, copy, "pts_backbone.blocks", "pts_backbone.blocks",
+              "pts_neck.deblocks", 0, lambda w: w)
+    h, src = "pts_bbox_head", "bbox_head"
+    copy(f"{h}.shared_conv", f"{src}.shared_conv")
+    copy(f"{h}.heatmap_head.0.conv", f"{src}.hm_conv0")
+    bn(f"{h}.heatmap_head.0.bn", f"{src}.hm_bn")
+    copy(f"{h}.heatmap_head.1", f"{src}.hm_conv1")
+    copy(f"{h}.class_encoding", f"{src}.class_encoding", fn=conv1d)
+    for dst, name in (("self_posembed", "query_pos_embed"),
+                      ("cross_posembed", "key_pos_embed")):
+        t = f"{h}.decoder.0.{dst}.position_embedding_head"
+        copy(f"{t}.0", f"{src}.{name}.fc0", fn=conv1d)
+        bn(f"{t}.1", f"{src}.{name}.bn")
+        copy(f"{t}.3", f"{src}.{name}.fc1", fn=conv1d)
+    for dst, name in (("self_attn", "self_attn"),
+                      ("multihead_attn", "cross_attn")):
+        a = f"{src}.decoder0.{name}"
+        for s in ("weight", "bias"):
+            out[f"{h}.decoder.0.{dst}.in_proj_{s}"] = torch.cat(
+                [sd[f"{a}.{p}.{s}"] for p in ("query", "key", "value")])
+        copy(f"{h}.decoder.0.{dst}.out_proj", f"{a}.out")
+    for i in (1, 2, 3):
+        copy(f"{h}.decoder.0.norm{i}", f"{src}.decoder0.norm{i}")
+    for i in (1, 2):
+        copy(f"{h}.decoder.0.linear{i}", f"{src}.decoder0.ff{i}")
+    for dst, name in (("center", "center"), ("height", "height"),
+                      ("dim", "dim"), ("rot", "rot"), ("vel", "vel"),
+                      ("heatmap", "cls")):
+        t = f"{h}.prediction_heads.0.{dst}"
+        copy(f"{t}.0.conv", f"{src}.{name}_fc0", fn=conv1d)
+        bn(f"{t}.0.bn", f"{src}.{name}_bn0")
+        copy(f"{t}.1", f"{src}.{name}_fc1", fn=conv1d)
+    return out
+
+
+def pcdet_state_dict(rpn_sd, head_sd):
+    """A port Voxel R-CNN's two state dicts under pcdet's names, spconv v2,
+    the RoI head's FC stacks with dropout between layers (voxel_rcnn_car's
+    DP_RATIO 0.3: the next Linear 4 indices on)."""
+    out, bn, copy = _renamer(rpn_sd)
+
+    def cbr(dst, src):
+        out[f"{dst}.0.weight"] = _taps_5d(rpn_sd[f"{src}.conv.weight"], "v2")
+        bn(f"{dst}.1", f"{src}.bn")
+
+    b3 = "backbone_3d"
+    cbr(f"{b3}.conv_input", "backbone.conv_input")
+    cbr(f"{b3}.conv1.0", "backbone.conv1")
+    for s in (2, 3, 4):
+        cbr(f"{b3}.conv{s}.0", f"backbone.down{s}")
+        cbr(f"{b3}.conv{s}.1", f"backbone.conv{s}a")
+        cbr(f"{b3}.conv{s}.2", f"backbone.conv{s}b")
+    cbr(f"{b3}.conv_out", "backbone.conv_out")
+    # pcdet's stride-1 deblock is a ConvTranspose2d (in, out, 1, 1)
+    _bev_neck(rpn_sd, out, bn, copy, "neck.blocks", "backbone_2d.blocks",
+              "backbone_2d.deblocks", 1, lambda w: w.permute(1, 0, 2, 3))
+    for dst, src in (("conv_cls", "conv_cls"), ("conv_box", "conv_box"),
+                     ("conv_dir_cls", "conv_dir")):
+        copy(f"dense_head.{dst}", f"dense_head.{src}",
+             fn=lambda w: w[..., None, None])
+    head, hbn, hcopy = _renamer(head_sd)
+    for k, key in enumerate(("conv2", "conv3", "conv4")):
+        t = f"roi_head.roi_grid_pool_layers.{k}"
+        hcopy(f"{t}.mlps_in.0.0", f"{key}_mlp_in", fn=lambda w: w[..., None])
+        hbn(f"{t}.mlps_in.0.1", f"{key}_bn_in")
+        hcopy(f"{t}.mlps_pos.0.0", f"{key}_mlp_pos",
+              fn=lambda w: w[..., None, None])
+        hbn(f"{t}.mlps_pos.0.1", f"{key}_bn_pos")
+        hcopy(f"{t}.mlps_out.0.0", f"{key}_mlp_out", fn=lambda w: w[..., None])
+        hbn(f"{t}.mlps_out.0.1", f"{key}_bn_out")
+    for name, dst in (("shared", "shared_fc_layer"), ("cls", "cls_fc_layers"),
+                      ("reg", "reg_fc_layers")):
+        i = 0
+        while f"{name}_fc{i}.weight" in head_sd:
+            hcopy(f"roi_head.{dst}.{4 * i}", f"{name}_fc{i}")
+            hbn(f"roi_head.{dst}.{4 * i + 1}", f"{name}_bn{i}")
+            i += 1
+    hcopy("roi_head.cls_pred_layer", "cls_pred")
+    hcopy("roi_head.reg_pred_layer", "reg_pred")
+    return {**out, **head}
+
+
+def _source_models(family, cfg, seed):
+    """The port modules a synthetic reference checkpoint is written from:
+    random weights drawn from `seed`, on the CPU."""
+    from df3d_torch.models.detectors.centerpoint import CenterPoint
+    from df3d_torch.models.detectors.transfusion import TransFusionL
+    from df3d_torch.models.detectors.voxel_rcnn import (
+        VoxelRCNN, init_head_weights,
+    )
+    from df3d_torch.models.heads.voxelrcnn_head import VoxelRCNNHead
+
+    g = torch.Generator().manual_seed(seed)
+    if family == "det3d":
+        return (CenterPoint(cfg).init_weights(g),)
+    if family == "mmdet3d":
+        return (TransFusionL(cfg).init_weights(g),)
+    head = VoxelRCNNHead(cfg.rcnn, cfg.voxel_size, cfg.pc_range)
+    return VoxelRCNN(cfg).init_weights(g), init_head_weights(head, g)
+
+
+def write_reference_checkpoint(path, family, cfg, seed):
+    """A synthetic reference .pth in `family`'s naming and wrapper (det3d:
+    {'state_dict': ...}, spconv v1; mmdet3d: {'state_dict': ...} with DDP's
+    'module.' prefix; pcdet: {'model_state': ...}, spconv v2), made from
+    seeded random port weights. Returns the source modules' state dicts
+    and the number of reference keys."""
+    sources = [m.state_dict() for m in _source_models(family, cfg, seed)]
+    if family == "det3d":
+        ref = det3d_state_dict(*sources)
+        ckpt = {"state_dict": ref, "meta": {"epoch": 20}}
+    elif family == "mmdet3d":
+        ref = mmdet3d_state_dict(*sources)
+        ckpt = {"state_dict": {f"module.{k}": v for k, v in ref.items()}}
+    else:
+        ref = pcdet_state_dict(*sources)
+        ckpt = {"model_state": ref, "epoch": 80}
+    torch.save(ckpt, path)
+    return sources, len(ref)
+
+
+def check_imported(label, modules, sources):
+    """Every entry of the built modules equals the source weights: the
+    import filled each entry from its reference key (and, strict both
+    ways, read every key)."""
+    for module, src in zip(modules, sources):
+        got = module.state_dict()
+        check(sorted(got) == sorted(src), f"{label}: entries differ")
+        for k, v in src.items():
+            check(torch.equal(got[k].cpu(), v), f"{label}: {k} differs")
+
+
+def phase_imported_weights(dev, frames, kitti_frame):
+    """Phase 40: synthetic det3d, mmdet3d and pcdet checkpoints at the full
+    widths of `centerpoint_nusc`, `transfusion_l_nusc` and
+    `voxel_rcnn_car_kitti`, written with torch.save and built on the card
+    through `entry.build_*(checkpoint=...)` (`load_torch_checkpoint` and
+    the importers); each serves one full-width frame (K1 16, 16 and 12
+    launches). Then each family at a small config from a small checkpoint,
+    card against CPU as phases 3, 9 and 24. Returns K1's launches and the
+    KITTI frame's detections."""
+    import tempfile
+
+    from df3d_torch.entry import (
+        build_centerpoint, build_transfusion, build_voxelrcnn, infer,
+        infer_transfusion, infer_voxelrcnn, random_points, small_cfg,
+        transfusion_l_nusc, voxel_rcnn_car_kitti,
+    )
+    from df3d_torch.models.detectors.centerpoint import CenterPointConfig
+    from df3d_torch.ops import msda_kernel as K2
+    from df3d_torch.ops import sparse_conv_kernel as K1
+
+    serve = {
+        "det3d": (CenterPointConfig(max_voxels=REALISTIC_STAGE_CAPS[0],
+                                    stage_caps=REALISTIC_STAGE_CAPS),
+                  lambda cfg, d, p: (build_centerpoint(cfg, d, checkpoint=p),),
+                  lambda ms, cfg, *a: infer(ms[0], cfg, *a), frames[0],
+                  K1_PER_FRAME),
+        "mmdet3d": (dataclasses.replace(transfusion_l_nusc(),
+                                        max_voxels=REALISTIC_STAGE_CAPS[0],
+                                        stage_caps=REALISTIC_STAGE_CAPS),
+                    lambda cfg, d, p: (build_transfusion(cfg, d,
+                                                         checkpoint=p),),
+                    lambda ms, cfg, *a: infer_transfusion(ms[0], cfg, *a),
+                    frames[0], K1_PER_FRAME),
+        "pcdet": (voxel_rcnn_car_kitti(),
+                  lambda cfg, d, p: build_voxelrcnn(cfg, d, checkpoint=p),
+                  lambda ms, cfg, *a: infer_voxelrcnn(*ms, cfg, *a),
+                  kitti_frame, K1_PER_KITTI_FRAME),
+    }
+    launches, dets = 0, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, (family, (cfg, build, run, frame, k1_want)) in enumerate(
+                serve.items()):
+            path = f"{tmp}/{family}.pth"
+            t0 = time.perf_counter()
+            sources, n_keys = write_reference_checkpoint(path, family, cfg,
+                                                         40 + i)
+            t1 = time.perf_counter()
+            modules = build(cfg, dev, path)
+            t2 = time.perf_counter()
+            check_imported(f"imported {family}", modules, sources)
+            pts = torch.from_numpy(frame[None]).to(dev)
+            valid = torch.ones(pts.shape[:2], dtype=torch.bool, device=dev)
+            K1.launches, K2.launches = 0, 0
+            det, _ = run(modules, cfg, pts, valid)
+            torch.cuda.synchronize()
+            check(K1.launches == k1_want and K2.launches == 0,
+                  f"imported {family}: K1 {K1.launches} launches (expected "
+                  f"{k1_want}), K2 {K2.launches}")
+            launches += K1.launches
+            for k, t in det.items():
+                check(not t.is_floating_point() or bool(torch.isfinite(t).all()),
+                      f"imported {family}: non-finite {k}")
+            dets[family] = to_cpu(det)
+            log(f"imported {family} checkpoint ({n_keys} reference keys, "
+                f"{Path(path).stat().st_size / 2**20:.1f} MiB): written in "
+                f"{t1 - t0:.2f} s, loaded and imported onto the card in "
+                f"{t2 - t1:.2f} s; every entry equals its source; one "
+                f"full-width frame served with {K1.launches} K1 launches")
+
+        # small configs, card against the CPU's plain path
+        cfg = small_cfg()
+        path = f"{tmp}/det3d_small.pth"
+        write_reference_checkpoint(path, "det3d", cfg, 50)
+        pts = torch.from_numpy(random_points(np.random.RandomState(0), 1,
+                                             2000))
+        valid = torch.ones(pts.shape[:2], dtype=torch.bool)
+        card_vs_cpu("small input, imported det3d weights",
+                    lambda d: build_centerpoint(cfg, d, checkpoint=path), cfg,
+                    [pts, valid], infer, dev)
+        tcfg = small_transfusion_config()
+        tpath = f"{tmp}/mmdet3d_small.pth"
+        write_reference_checkpoint(tpath, "mmdet3d", tcfg, 51)
+        tpts = torch.from_numpy(random_points(np.random.RandomState(2), 1,
+                                              2000))
+        transfusion_card_vs_cpu(
+            "small TransFusion-L input, imported mmdet3d weights",
+            lambda d: build_transfusion(tcfg, d, checkpoint=tpath), tcfg,
+            [tpts, valid], infer_transfusion, dev)
+        kcfg, _ = small_kitti_configs()
+        kpath = f"{tmp}/pcdet_small.pth"
+        write_reference_checkpoint(kpath, "pcdet", kcfg, 52)
+        rng = np.random.RandomState(0)
+        kpts = np.concatenate([rng.uniform(0, 31, (1, 1500, 1)),
+                               rng.uniform(-15, 15, (1, 1500, 1)),
+                               rng.uniform(-1.8, 1.8, (1, 1500, 1)),
+                               rng.uniform(0, 1, (1, 1500, 1))], -1)
+        kpts = torch.from_numpy(kpts.astype(np.float32))
+        kitti_card_vs_cpu(
+            "small KITTI input, imported pcdet weights",
+            lambda d: build_voxelrcnn(kcfg, d, checkpoint=kpath), kcfg,
+            [kpts, torch.ones(1, 1500, dtype=torch.bool)], infer_voxelrcnn,
+            dev)
+    return launches, dets["pcdet"]
+
+
+def tta_card_vs_cpu(dev):
+    """Phase 41's small input: the double-flip TTA path on the card against
+    the CPU's plain path (`card_vs_cpu`, near ties replayed), and the
+    merged head maps of both to atol = rtol = 1e-3."""
+    from df3d_torch.entry import (
+        build_centerpoint, infer_double_flip, random_points, small_cfg,
+    )
+    from df3d_torch.models.tta import merge_center_head_maps
+
+    cfg = small_cfg()
+    merged = []
+
+    def tta(model, cfg, *args):
+        seen = []
+        handle = model.head.register_forward_hook(
+            lambda mod, inp, out: seen.append(out))
+        try:
+            out = infer_double_flip(model, cfg, *args)
+        finally:
+            handle.remove()
+        merged.append(to_cpu(merge_center_head_maps(seen[0])))
+        return out
+
+    pts = torch.from_numpy(random_points(np.random.RandomState(4), 1, 2000))
+    card_vs_cpu("small double-flip TTA input",
+                lambda d: build_centerpoint(cfg, d, seed=0), cfg,
+                [pts, torch.ones(pts.shape[:2], dtype=torch.bool)], tta, dev)
+    worst = 0.0
+    for c, g in zip(*merged):
+        for k in c:
+            torch.testing.assert_close(g[k], c[k], atol=1e-3, rtol=1e-3)
+            worst = max(worst, (g[k] - c[k]).abs().max().item())
+    log(f"small double-flip TTA input: merged head maps agree, max diff "
+        f"{worst:.3g}")
+
+
+def phase_tta_lidar(dev, cfg, frames):
+    """Phase 41: `centerpoint_nusc` at full width, each 260k-point frame as
+    its four flips in one batch-4 forward (`entry.infer_double_flip`, the
+    serving caps per variant): every K1 launch of one TTA frame against the
+    plain version and a repeat launch (phase 4's tolerance), timed with
+    its bound; then TTA frames timed as phase 5 (K1 16 launches a frame).
+    Returns K1's entry, the launches and each frame's detections."""
+    from df3d_torch.entry import build_centerpoint, infer_double_flip
+    from df3d_torch.ops import msda_kernel as K2
+    from df3d_torch.ops import sparse_conv_kernel as K1
+
+    tta_card_vs_cpu(dev)
+    model = build_centerpoint(cfg, dev, seed=0)
+    k1 = phase_k1(model, cfg, frames[0], dev, infer_double_flip,
+                  edge_cases=False, per_frame=K1_PER_TTA_FRAME)
+    inputs = [(torch.from_numpy(f[None]).to(dev),
+               torch.ones(1, len(f), dtype=torch.bool, device=dev))
+              for f in frames]
+    launches = timed_path(
+        "double-flip TTA path", lambda *a: infer_double_flip(model, cfg, *a),
+        len(cfg.tasks) * cfg.nms_post_max_size, inputs, TTA_TIMED_FRAMES,
+        {K1: K1_PER_TTA_FRAME, K2: 0})
+    dets = [to_cpu(infer_double_flip(model, cfg, *a)[0]) for a in inputs]
+    return k1, launches, dets
+
+
+def phase_tta_fused(dev, frames):
+    """Phase 42: `centerpoint_3ddf_nusc` at full width with double-flip
+    TTA: six 448x800 cameras repeated for the four flips (24 images), each
+    variant's reflection composed into its projections. K2's one launch of
+    a TTA frame must take the warp path at B = 4 and agree with the plain
+    version as in phase 7; K1 launches 16 times; then TTA frames timed
+    (K1 16, K2 1 a frame). Returns K2's entry and the launches."""
+    from df3d_torch.entry import build_centerpoint3ddf, infer_double_flip
+    from df3d_torch.ops import msda_kernel as K2
+    from df3d_torch.ops import sparse_conv_kernel as K1
+
+    cfg, fcfg = full_fused_configs()
+    model = build_centerpoint3ddf(cfg, fcfg, dev, seed=0)
+    inputs = [fused_inputs(f, fcfg.num_cams, fcfg.image_shape, dev, 10 + i)
+              for i, f in enumerate(frames)]
+    k2 = phase_k2(model, cfg, inputs[0], infer_double_flip,
+                  K2_PER_TTA_FRAME, edge_cases=False,
+                  k1_per_frame=K1_PER_TTA_FRAME)
+    launches = timed_path(
+        "fused double-flip TTA path",
+        lambda *a: infer_double_flip(model, cfg, *a),
+        len(cfg.tasks) * cfg.nms_post_max_size, inputs, FUSED_TIMED_FRAMES,
+        {K1: K1_PER_TTA_FRAME, K2: K2_PER_TTA_FRAME})
+    return k2, launches
+
+
+def phase_recalibrate(dev):
+    """Phase 43, first part: `recalibrate_batch_stats` on the small
+    CenterPoint (one training-mode forward of two samples), card against
+    CPU: every norm's statistics to 1e-3 x max(1, |CPU|) (the inversion
+    divides the forward's rounding by 1 - 0.99), and moved from where they
+    started."""
+    from df3d_torch.entry import build_centerpoint, random_points, small_cfg
+    from df3d_torch.models.layers import FlaxBatchNorm, MaskedBatchNorm
+    from df3d_torch.ops.voxelize import voxelize_batch
+    from df3d_torch.train.trainer import recalibrate_batch_stats
+
+    cfg = small_cfg()
+    pts = torch.from_numpy(random_points(np.random.RandomState(5), 2, 2000))
+    stats = []
+    for d in ("cpu", dev):
+        model = build_centerpoint(cfg, d, seed=0)
+        res = voxelize_batch(pts.to(d), torch.ones(2, 2000, dtype=torch.bool,
+                                                   device=d),
+                             cfg.voxel_size, cfg.pc_range, cfg.grid_size,
+                             cfg.max_voxels, cfg.max_points_per_voxel)
+        norms = {n: m for n, m in model.named_modules()
+                 if isinstance(m, (MaskedBatchNorm, FlaxBatchNorm))}
+        before = {n: m.running_var.cpu().clone() for n, m in norms.items()}
+        recalibrate_batch_stats(model,
+                                lambda: model(res.features, res.coords))
+        check(not model.training, "recalibration left the model training")
+        stats.append({n: (m.running_mean.cpu(), m.running_var.cpu())
+                      for n, m in norms.items()})
+    worst, moved = 0.0, 0
+    for name, (mean, var) in stats[0].items():
+        for c, g in zip((mean, var), stats[1][name]):
+            err = (g - c).abs().max().item()
+            scale = max(1.0, c.abs().max().item())
+            check(err <= 1e-3 * scale, f"recalibration {name}: card and CPU "
+                  f"differ by {err} (scale {scale})")
+            worst = max(worst, err / scale)
+        moved += int(not torch.equal(var, before[name]))
+    check(moved == len(stats[0]), "recalibration left norms unmoved")
+    log(f"recalibrate_batch_stats (small CenterPoint, {len(stats[0])} norms "
+        f"at momentum 0.99): card vs CPU agree, max |diff| / max(1, |CPU|) "
+        f"{worst:.3g}")
+
+
+def kitti_calib():
+    """A KITTI calib dict of the synthetic front camera
+    (`utils.synth.kitti_camera`): P2 @ R0 @ V2C is its projection."""
+    from df3d_torch.utils import synth
+
+    rot = np.array([[0.0, -1.0, 0.0], [0.0, 0.0, -1.0], [1.0, 0.0, 0.0]])
+    v2c = np.concatenate([rot, np.asarray(synth.KITTI_VELO_TO_CAM_T)[:, None]],
+                         1)
+    return {"P2": np.asarray(synth.KITTI_P2, np.float32),
+            "R0": np.eye(3, dtype=np.float32),
+            "V2C": v2c.astype(np.float32)}
+
+
+def kitti_gt_sample(boxes, calib):
+    """A KITTI sample record (raw annotations of cars in the camera frame,
+    unoccluded and untruncated) of lidar boxes (N, 7)."""
+    from df3d_torch.data.kitti import (
+        lidar_boxes_to_kitti_annos, lidar_to_rect,
+    )
+
+    n = len(boxes)
+    bottom = boxes[:, :3] - np.stack([np.zeros(n), np.zeros(n),
+                                      boxes[:, 5] / 2], 1)
+    annos = lidar_boxes_to_kitti_annos(boxes, np.ones(n), np.zeros(n, int),
+                                       calib, KITTI_IMAGE, ("Car",))
+    return {"calib": calib, "image_shape": KITTI_IMAGE, "gt_boxes": boxes,
+            "annos_raw": {"name": np.asarray(["Car"] * n),
+                          "location": lidar_to_rect(calib, bottom),
+                          "dimensions": boxes[:, [3, 5, 4]],
+                          "rotation_y": -boxes[:, 6] - np.pi / 2,
+                          "bbox": annos["bbox"], "alpha": annos["alpha"],
+                          "occluded": np.zeros(n), "truncated": np.zeros(n)}}
+
+
+def kitti_perfect_ap(gt_annos, cls):
+    """The R40 AP, in each difficulty, of detections that are the ground
+    truth itself, all scores distinct: with n boxes that count in a
+    difficulty (1 <= n <= 40), the precision is 1 at recalls 1/n .. n/n
+    and R40 takes the samples 1..n-1 of its 40, so AP = (n - 1) / 40 * 100
+    (0 for no box). The counts follow KITTI's buckets (bbox height above
+    the minimum, occlusion and truncation at most the maximum)."""
+    from df3d_torch.data.kitti_eval import DIFFICULTY
+
+    out = []
+    for d in range(3):
+        min_h, max_occ, max_trunc = DIFFICULTY[d]
+        n = 0
+        for a in gt_annos:
+            h = a["bbox"][:, 3] - a["bbox"][:, 1]
+            k = len(a["name"])
+            occ = a.get("occluded", np.zeros(k))
+            trunc = a.get("truncated", np.zeros(k))
+            n += int(np.sum((a["name"] == cls) & (h > min_h)
+                            & (occ <= max_occ) & (trunc <= max_trunc)))
+        if n > 40:
+            raise ValueError(f"{n} boxes: more than R40's samples")
+        out.append(max(n - 1, 0) / 40.0 * 100.0)
+    return out
+
+
+def phase_metrics(tta_dets, kitti_det, kitti_boxes):
+    """Phase 43, second part: nuScenes mAP/NDS of phase 41's TTA frames
+    against their scenes' boxes and KITTI's APs and recall of phase 40's
+    KITTI frame against its cars (random weights: the numbers show the
+    path runs, not an accuracy); then the ground truth scored as its own
+    detections, which must give what the JAX package's tests assert
+    (tests/test_nuscenes_eval.py::test_perfect_detections: mAP and NDS
+    over 0.95, ATE under 0.01, AAE 0; tests/test_kitti_eval.py::
+    test_perfect_detection_ap_high: moderate 3D and BEV AP over 95) on
+    those tests' inputs; on this run's synthetic boxes, nuScenes' bounds
+    and, for KITTI's few cars a frame, the exact R40 value of each
+    difficulty's count (`kitti_perfect_ap`)."""
+    from df3d_torch.data.kitti_eval import evaluate_kitti
+    from df3d_torch.data.nuscenes_eval import NUSC_CLASSES, evaluate_nuscenes
+    from df3d_torch.train.evaluate import (
+        kitti_metrics, kitti_records, nuscenes_metrics, nuscenes_records,
+    )
+
+    gts, dets, gt_perfect = [], [], []
+    classes = np.asarray(SCENE_CLASSES, np.int64)
+    for i, det in enumerate(tta_dets):
+        boxes = scene_boxes(100 + i)
+        batch = {"gt_boxes": boxes[None], "gt_classes": classes[None],
+                 "gt_valid": np.ones((1, len(boxes)), bool)}
+        g, d = nuscenes_records(det, batch)
+        gts += g
+        dets += d
+        gt_perfect.append(dict(g[0], attrs=np.zeros(len(boxes), np.int32)))
+    m = nuscenes_metrics(gts, dets)
+    log(f"nuScenes metric of {len(dets)} TTA frames "
+        f"({sum(len(d['boxes']) for d in dets)} detections, random weights: "
+        f"not an accuracy): mAP {m['mAP']:.4f}, NDS {m['NDS']:.4f}")
+    own = [dict(g, scores=np.linspace(0.9, 0.5, len(g["boxes"])))
+           for g in gt_perfect]
+    res = evaluate_nuscenes(gt_perfect, own, NUSC_CLASSES)
+    check(res["mAP"] > 0.95 and res["NDS"] > 0.95
+          and res["tp_errors"]["trans_err"] < 0.01
+          and res["tp_errors"]["attr_err"] < 1e-9,
+          f"nuScenes: the scenes' boxes as their own detections: {res}")
+    car = [10.0, 0.0, 0.0, 4.0, 2.0, 1.5, 0.3, 1.0, 0.0]
+    ped = [5.0, 5.0, 0.0, 0.7, 0.7, 1.7, 0.0, 0.0, 0.0]
+    frame = {"boxes": np.asarray([car, ped], np.float32),
+             "names": np.asarray(["car", "pedestrian"]),
+             "attrs": np.asarray([1, 2], np.int32)}
+    test = evaluate_nuscenes(
+        [frame] * 10, [dict(frame, scores=np.asarray([0.9, 0.8]))] * 10,
+        ("car", "pedestrian"))
+    check(test["mAP"] > 0.95 and test["NDS"] > 0.95
+          and test["tp_errors"]["trans_err"] < 0.01
+          and test["tp_errors"]["attr_err"] < 1e-9,
+          f"nuScenes: test_perfect_detections' input: {test}")
+    log(f"nuScenes, ground truth as its own detections: the scenes' boxes "
+        f"mAP {res['mAP']:.4f} NDS {res['NDS']:.4f}; "
+        f"test_perfect_detections' input mAP {test['mAP']:.4f} NDS "
+        f"{test['NDS']:.4f}")
+
+    calib = kitti_calib()
+    sample = kitti_gt_sample(kitti_boxes, calib)
+    recall = {}
+    g, d = kitti_records(kitti_det, [sample], ("Car",), recall)
+    km = kitti_metrics(g, d, recall, ("Car",))
+    log(f"KITTI metric of one frame ({len(kitti_boxes)} cars, "
+        f"{len(d[0]['name'])} detections, random weights: not an accuracy): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in km.items()
+                    if k != "detail"))
+    own_det = [dict(a, score=np.linspace(0.9, 0.5, len(a["name"])))
+               for a in g]
+    own = evaluate_kitti(g, own_det, classes=("Car",),
+                         metrics=("3d", "bev", "bbox"), compute_aos=True)
+    want = kitti_perfect_ap(g, "Car")
+    check(all(abs(own["Car"][m][d] - want[d]) < 1e-6
+              for m in ("3d", "bev", "bbox", "aos") for d in range(3)),
+          f"KITTI: the frame's cars as their own detections: {own['Car']}, "
+          f"R40 of each difficulty's count gives {want}")
+    box = [10.0, 0.0, 0.0, 3.9, 1.6, 1.56, 0.0]
+    box2 = [30.0, 5.0, 0.0, 3.9, 1.6, 1.56, 0.5]
+    gt = {"boxes_lidar": np.asarray([box, box2], np.float32),
+          "name": np.asarray(["Car", "Car"]),
+          "bbox": np.tile(np.array([0, 0, 100, 50], np.float32), (2, 1)),
+          "occluded": np.zeros(2), "truncated": np.zeros(2)}
+    perfect = [{"boxes_lidar": gt["boxes_lidar"],
+                "score": np.asarray([0.9 - 0.001 * i, 0.8 - 0.001 * i],
+                                    np.float32),
+                "name": gt["name"]} for i in range(30)]
+    test = evaluate_kitti([gt] * 30, perfect)
+    check(test["Car"]["3d"][1] > 95.0 and test["Car"]["bev"][1] > 95.0,
+          f"KITTI: test_perfect_detection_ap_high's input: {test}")
+    log(f"KITTI, ground truth as its own detections: the frame's cars "
+        f"{own['Car']} (R40 of each difficulty's count: {want}); "
+        f"test_perfect_detection_ap_high's input 3D "
+        f"{test['Car']['3d']}, BEV {test['Car']['bev']}")
+
+
 def f32_backends():
     """TF32 off for matmuls and cuDNN convs, cuDNN's algorithms timed: the
     settings of every process that runs a phase (a spawned rank too)."""
@@ -3535,6 +4207,7 @@ def main():
     from df3d_torch.ops import build
     from df3d_torch.ops import msda_kernel as K2
     from df3d_torch.ops import sparse_conv_kernel as K1
+    from df3d_torch.utils.synth import make_kitti_sample
 
     f32_backends()
     dev = torch.device("cuda")
@@ -3749,6 +4422,29 @@ def main():
     profile_counts = phase_profile_paths(cfg, frames, dev)
     k1_bf16["launches"] = profile_counts["bf16"]
     k1["launches_by_path"]["lidar_tpu_v5e"] = profile_counts["f32"]
+    torch.cuda.empty_cache()
+
+    # the evaluation path: reference checkpoints, double-flip TTA at batch
+    # 4, recalibration and the metrics; "tta" holds phases 41's (K1) and
+    # 42's (K2) kernel numbers at the batch-4 shapes
+    kpts, kboxes, _, kvalid = make_kitti_sample(np.random.RandomState(100))
+    k1["launches_by_path"]["imported"], kitti_det = phase_imported_weights(
+        dev, frames, kpts)
+    tta_k1, tta_lidar, tta_dets = phase_tta_lidar(dev, cfg, frames)
+    torch.cuda.empty_cache()
+    tta_k2, tta_fused = phase_tta_fused(dev, frames)
+    torch.cuda.empty_cache()
+    phase_recalibrate(dev)
+    phase_metrics(tta_dets, kitti_det, kboxes[kvalid])
+    for entry, kernel, extra in ((k1, K1, tta_k1), (k2, K2, tta_k2)):
+        entry["launches_by_path"]["tta_lidar"] = tta_lidar[kernel]
+        entry["launches_by_path"]["tta_fused"] = tta_fused[kernel]
+        entry["tta"] = {k: v for k, v in extra.items()
+                        if k not in ("name", "route", "source", "replaces",
+                                     "library_ms")}
+        entry["max_abs_err"] = max(entry["max_abs_err"],
+                                   extra["max_abs_err"])
+    k2["launches_by_path"]["imported"] = 0
     for entry in (k1, k2):
         entry["launches"] = sum(entry["launches_by_path"].values())
 

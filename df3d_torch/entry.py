@@ -1,15 +1,21 @@
 """Entry points of the port: build a detector, run a serving path.
 
-* `build_centerpoint(cfg, device, seed, profile)`: the model on `device`,
-  with random flax-like weights drawn from a seeded `torch.Generator`, in
-  eval mode, serving in the named profile (`serving.py`: "exact", the
-  default, or "tpu_v5e").
+* `build_centerpoint(cfg, device, seed, profile, checkpoint)`: the model
+  on `device`, with random flax-like weights drawn from a seeded
+  `torch.Generator` or a det3d checkpoint's (`train.import_centerpoint`),
+  in eval mode, serving in the named profile (`serving.py`: "exact", the
+  default, or "tpu_v5e"). `build_transfusion` and `build_voxelrcnn` take
+  an mmdet3d or pcdet `checkpoint` the same way.
 * `infer(model, cfg, points, valid)`: voxelize -> model -> decode + NMS.
 * `entry(device)`: the counterpart of the JAX package's
   `__graft_entry__.entry()`: `(fn, args)` for a small CenterPoint forward.
 * `build_centerpoint3ddf(cfg, fcfg, device, seed)` and `infer_fused(model,
   cfg, points, valid, images, proj)`: the same for the camera+LiDAR
   CenterPoint + 3D-DF detector.
+* `infer_double_flip(model, cfg, points, valid[, images, proj])`: det3d's
+  double-flip TTA of `infer` or `infer_fused` (batch x4, head maps
+  un-flipped and averaged); `train.trainer.make_centerpoint_eval_step`
+  picks among the three.
 * `build_transfusion(cfg, device, seed)` and `infer_transfusion(model,
   cfg, points, valid)`: TransFusion-L (voxelize -> model -> decode of every
   query, no NMS); `build_transfusion3ddf(cfg, fcfg, device, seed)` and
@@ -82,10 +88,18 @@ from df3d_torch.models.detectors.voxel_rcnn import (
 )
 from df3d_torch.models.fusion.actr import ACTRConfig
 from df3d_torch.models.heads.voxelrcnn_head import VoxelRCNNHead
+from df3d_torch.models.tta import (
+    expand_images_double_flip, expand_points_double_flip,
+    expand_proj_double_flip, merge_center_head_maps,
+)
 from df3d_torch.ops.voxelize import voxelize_batch
 from df3d_torch.parallel import ddp
 from df3d_torch.serving import apply_profile
+from df3d_torch.train.import_centerpoint import import_centerpoint
+from df3d_torch.train.import_transfusion import import_transfusion
+from df3d_torch.train.import_voxelrcnn import import_voxelrcnn
 from df3d_torch.train.schedules import adam_onecycle
+from df3d_torch.train.torch_import import load_torch_checkpoint
 from df3d_torch.train.trainer import (
     CenterPointTrainStep, DataParallelTrainStep, FusedTrainStep, TrainState,
     TransFusionTrainStep, VoxelRCNNTrainStep, create_train_state,
@@ -107,13 +121,20 @@ def resolve_device(device=None) -> torch.device:
 
 
 def build_centerpoint(cfg: CenterPointConfig, device=None, seed: int = 0,
-                      profile: str = "exact") -> CenterPoint:
-    """CenterPoint on `device` with random weights drawn from `seed`, in
-    eval mode, serving in the named profile (`serving.PROFILES`: "exact",
-    or "tpu_v5e" for bf16 sparse-conv bodies from 32 input channels and a
-    bf16-operand dense tail)."""
+                      profile: str = "exact",
+                      checkpoint: str | None = None) -> CenterPoint:
+    """CenterPoint on `device` with random weights drawn from `seed`, or
+    with the weights of a det3d `checkpoint` (.pth; either spconv layout),
+    in eval mode, serving in the named profile (`serving.PROFILES`:
+    "exact", or "tpu_v5e" for bf16 sparse-conv bodies from 32 input
+    channels and a bf16-operand dense tail)."""
     device = resolve_device(device)
-    model = CenterPoint(cfg).init_weights(torch.Generator().manual_seed(seed))
+    model = CenterPoint(cfg)
+    if checkpoint is None:
+        model.init_weights(torch.Generator().manual_seed(seed))
+    else:
+        model.load_state_dict(import_centerpoint(
+            model, load_torch_checkpoint(checkpoint)))
     apply_profile(model, profile)
     return model.to(device).eval()
 
@@ -220,11 +241,39 @@ def infer_fused(model: CenterPoint3DDF, cfg: CenterPointConfig,
                   valid, images, proj)
 
 
-def build_transfusion(cfg: TransFusionConfig, device=None,
-                      seed: int = 0) -> TransFusionL:
+@torch.no_grad()
+def infer_double_flip(model: CenterPoint | CenterPoint3DDF,
+                      cfg: CenterPointConfig, points: torch.Tensor,
+                      valid: torch.Tensor, images: torch.Tensor | None = None,
+                      proj: torch.Tensor | None = None):
+    """det3d's double-flip TTA of `infer` (or, with images and proj, of
+    `infer_fused`): each sample as [identity, flip_y, flip_x, flip_both]
+    in one batch-x4 forward, the head maps un-flipped and averaged
+    (`models.tta`), then decode + NMS -> (detections of the B samples, cap
+    overflows of the 4B variants). A fused model's cameras keep their
+    images; each variant's reflection is composed into its projections."""
+    cams = ()
+    if images is not None:
+        cams = (expand_images_double_flip(images),
+                expand_proj_double_flip(proj))
+    return _serve(model, cfg,
+                  lambda c, preds: centerpoint_predict(
+                      c, merge_center_head_maps(preds)),
+                  "decode_nms", expand_points_double_flip(points),
+                  valid.repeat_interleave(4, dim=0), *cams)
+
+
+def build_transfusion(cfg: TransFusionConfig, device=None, seed: int = 0,
+                      checkpoint: str | None = None) -> TransFusionL:
+    """TransFusion-L on `device` with random weights drawn from `seed`, or
+    with the weights of an mmdet3d `checkpoint` (.pth), in eval mode."""
     device = resolve_device(device)
-    model = TransFusionL(cfg).init_weights(
-        torch.Generator().manual_seed(seed))
+    model = TransFusionL(cfg)
+    if checkpoint is None:
+        model.init_weights(torch.Generator().manual_seed(seed))
+    else:
+        model.load_state_dict(import_transfusion(
+            model, load_torch_checkpoint(checkpoint)))
     return model.to(device).eval()
 
 
@@ -261,14 +310,24 @@ def _voxelrcnn_head(cfg: VoxelRCNNConfig, generator: torch.Generator,
     return init_head_weights(head, generator).to(device).eval()
 
 
-def build_voxelrcnn(cfg: VoxelRCNNConfig, device=None, seed: int = 0
+def build_voxelrcnn(cfg: VoxelRCNNConfig, device=None, seed: int = 0,
+                    checkpoint: str | None = None
                     ) -> tuple[VoxelRCNN, VoxelRCNNHead]:
-    """(first stage, RCNN head) on `device`, random weights drawn from
-    `seed`, in eval mode."""
+    """(first stage, RCNN head) on `device`, with random weights drawn from
+    `seed` or the weights of a pcdet `checkpoint` (.pth; either spconv
+    layout), in eval mode."""
     device = resolve_device(device)
-    g = torch.Generator().manual_seed(seed)
-    rpn = VoxelRCNN(cfg).init_weights(g).to(device).eval()
-    return rpn, _voxelrcnn_head(cfg, g, device)
+    if checkpoint is None:
+        g = torch.Generator().manual_seed(seed)
+        rpn = VoxelRCNN(cfg).init_weights(g).to(device).eval()
+        return rpn, _voxelrcnn_head(cfg, g, device)
+    rpn = VoxelRCNN(cfg)
+    head = VoxelRCNNHead(cfg.rcnn, cfg.voxel_size, cfg.pc_range)
+    rpn_sd, head_sd = import_voxelrcnn(rpn, head,
+                                       load_torch_checkpoint(checkpoint))
+    rpn.load_state_dict(rpn_sd)
+    head.load_state_dict(head_sd)
+    return rpn.to(device).eval(), head.to(device).eval()
 
 
 def build_voxelrcnn3ddf(cfg: VoxelRCNNConfig, fcfg: FusedConfig,

@@ -29,6 +29,11 @@ targets there (ROADMAP section 3). The RoI features stay attached.
 `DataParallelTrainStep` runs any of these steps over the ranks of a
 process group, each on its share of the global batch, and equals the
 one-process step on the global batch (`parallel.ddp`).
+
+Evaluation (the JAX package's `trainer.py:342` and `:459`): CenterPoint's
+eval step with det3d's double-flip TTA (`make_centerpoint_eval_step`) and
+the batch-norm recalibration by momentum inversion
+(`recalibrate_batch_stats`).
 """
 
 from __future__ import annotations
@@ -52,6 +57,7 @@ from df3d_torch.models.detectors.voxel_rcnn import (
 )
 from df3d_torch.models.fusion.actr import ACTR
 from df3d_torch.models.heads.voxelrcnn_head import sample_rois_for_training
+from df3d_torch.models.layers import FlaxBatchNorm, MaskedBatchNorm
 from df3d_torch.ops.voxelize import voxelize_batch
 from df3d_torch.parallel import ddp
 from df3d_torch.train.schedules import AdamOneCycle, AdamState
@@ -320,3 +326,63 @@ class DataParallelTrainStep:
     def __call__(self, state: TrainState, batch: dict, *args):
         logs, grads = self.grads(state, batch, *args)
         return self.step.apply(state, grads), logs
+
+
+def make_centerpoint_eval_step(model: CenterPoint | CenterPoint3DDF,
+                               cfg: CenterPointConfig, tta: str | None = None,
+                               fused: bool = False):
+    """`eval_step(batch) -> detections` of CenterPoint (`fused`:
+    CenterPoint + 3D-DF, whose batch carries images and proj too), the
+    counterpart of the JAX package's `make_centerpoint_eval_step`. Without
+    `tta` it is `entry.infer` (or `infer_fused`); with tta="double_flip",
+    `entry.infer_double_flip`: det3d's double-flip TTA, one batch-x4
+    forward of the flipped variants whose head maps are un-flipped and
+    averaged before decoding."""
+    from df3d_torch import entry  # entry builds on this module
+
+    if tta not in (None, "double_flip"):
+        raise ValueError(f"tta={tta!r}: None or 'double_flip'")
+    if tta:
+        infer = entry.infer_double_flip
+    else:
+        infer = entry.infer_fused if fused else entry.infer
+    keys = ("points", "points_valid") + (("images", "proj") if fused else ())
+
+    def eval_step(batch: dict) -> dict:
+        return infer(model, cfg, *(batch[k] for k in keys))[0]
+
+    return eval_step
+
+
+@torch.no_grad()
+def recalibrate_batch_stats(model: torch.nn.Module, forward) -> None:
+    """Exact batch-norm recalibration by momentum inversion (the JAX
+    package's `recalibrate_batch_stats`): `forward()` runs one
+    training-mode forward of `model` on a calibration batch, and every
+    training norm's running statistics become that batch's statistics.
+
+    A norm moves its running statistics by s1 = m * s0 + (1 - m) * b, so b
+    = (s1 - m * s0) / (1 - m), at each norm's own momentum m (0.99; 0.9 on
+    TransFusion's position embeddings and FFN branches), with the variance
+    floored at 0 against cancellation and each statistic's dtype kept.
+    Train-mode activations do not read the running statistics, so one
+    forward recovers every layer's. The norms are the `MaskedBatchNorm`s
+    and flax-style `FlaxBatchNorm`s (the 2D ones too); a frozen image
+    branch's norms stay in eval mode and keep their statistics and step
+    counters. `model` is left in the mode it was in."""
+    norms = [m for m in model.modules()
+             if isinstance(m, (MaskedBatchNorm, FlaxBatchNorm))]
+    before = [(bn.running_mean.clone(), bn.running_var.clone())
+              for bn in norms]
+    was_training = model.training
+    model.train()
+    try:
+        forward()
+    finally:
+        model.train(was_training)
+    for bn, (mean0, var0) in zip(norms, before):
+        m = bn.momentum
+        mean = (bn.running_mean - m * mean0) / (1.0 - m)
+        var = ((bn.running_var - m * var0) / (1.0 - m)).clamp_min(0.0)
+        bn.running_mean.copy_(mean.to(mean0.dtype))
+        bn.running_var.copy_(var.to(var0.dtype))

@@ -2,8 +2,9 @@
 
 `state_dict_from_flax(model, variables)` turns `{"params": ...,
 "batch_stats": ...}` (nested dicts of numpy arrays, as the JAX package's
-`model.init` gives them after `jax.tree_util.tree_map(np.asarray, ...)`)
-into a `state_dict` for `model`:
+`model.init` gives them after `jax.tree_util.tree_map(np.asarray, ...)`,
+or of tensors, as `train.torch_import`'s name maps give a reference
+checkpoint's) into a `state_dict` for `model`:
 
 * sparse conv taps `(K, Cin, Cout)` are kept as they are;
 * flax conv kernels HWIO -> OIHW;
@@ -103,7 +104,7 @@ def _child(module: nn.Module, name: str) -> tuple[nn.Module, str]:
 
 
 def _leaf(module: nn.Module, collection: str, name: str,
-          value: np.ndarray) -> tuple[str, np.ndarray]:
+          value: torch.Tensor) -> tuple[str, torch.Tensor]:
     """(torch entry name, value in the torch layout) for one flax leaf."""
     if isinstance(module, (SubMConv3d, SparseConv3d)) and name == "kernel":
         return "weight", value
@@ -123,21 +124,26 @@ def _leaf(module: nn.Module, collection: str, name: str,
     if isinstance(module, ACTR) and name == "level_embed":
         return "level_embed", value
     if isinstance(module, nn.ConvTranspose2d) and name == "kernel":
-        return "weight", value[::-1, ::-1].transpose(2, 3, 0, 1)
+        return "weight", value.flip(0, 1).permute(2, 3, 0, 1)
     if isinstance(module, nn.Conv2d):
         if name == "kernel":
-            return "weight", value.transpose(3, 2, 0, 1)
+            return "weight", value.permute(3, 2, 0, 1)
         if name == "bias":
             return "bias", value
     raise KeyError(f"{type(module).__name__} has no counterpart for {name}")
 
 
 def _flatten(tree, prefix=()):
+    """(path, f32 tensor) for every leaf: numpy and JAX arrays are copied,
+    tensors (an imported reference checkpoint's) kept."""
     for k, v in tree.items():
         if isinstance(v, dict) or hasattr(v, "items"):
             yield from _flatten(v, prefix + (k,))
+        elif isinstance(v, torch.Tensor):
+            yield prefix + (k,), v.detach().to(torch.float32)
         else:
-            yield prefix + (k,), np.asarray(v)
+            yield prefix + (k,), torch.from_numpy(
+                np.array(v, dtype=np.float32))
 
 
 def _carry(model: nn.Module, variables) -> dict:
@@ -161,11 +167,11 @@ def _carry(model: nn.Module, variables) -> dict:
             if key not in target:
                 raise KeyError(f"flax leaf {collection}/{'/'.join(path)} -> "
                                f"{key}, which the model does not have")
-            if tuple(target[key].shape) != value.shape:
+            if target[key].shape != value.shape:
                 raise ValueError(
                     f"{key}: torch shape {tuple(target[key].shape)} vs "
-                    f"carried {value.shape} from {'/'.join(path)}")
-            out[key] = torch.from_numpy(np.array(value, dtype=np.float32))
+                    f"carried {tuple(value.shape)} from {'/'.join(path)}")
+            out[key] = value.clone(memory_format=torch.contiguous_format)
     return out
 
 

@@ -42,7 +42,8 @@ def test_masked_batchnorm():
     mask = rng.rand(2, 20) > 0.3
     jm = jlayers.MaskedBatchNorm()
     v = _vars(jm, jnp.asarray(x), jnp.asarray(mask), False)
-    want = jm.apply(v, jnp.asarray(x), jnp.asarray(mask), False)
+    want = jax.jit(lambda v, x, m: jm.apply(v, x, m, False))(
+        v, jnp.asarray(x), jnp.asarray(mask))
     tm = load_flax(tlayers.MaskedBatchNorm(6), v)
     got = tm(torch.from_numpy(x), torch.from_numpy(mask))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
@@ -57,9 +58,10 @@ def test_sparse_basic_block():
     tst = tsp.SparseTensor(torch.from_numpy(feats), torch.from_numpy(coords),
                            shape)
     jm = jlayers.SparseBasicBlock(8)
-    jplan = jsp.build_subm_plan(jst, 3)
+    jplan = jax.jit(jsp.build_subm_plan, static_argnums=1)(jst, 3)
     v = _vars(jm, jst, jplan, False)
-    want = jm.apply(v, jst, jplan, False).features
+    want = jax.jit(lambda v, st, pl: jm.apply(v, st, pl, False).features)(
+        v, jst, jplan)
     tm = load_flax(tlayers.SparseBasicBlock(8), v)
     with torch.no_grad():
         got = tm(tst, tsp.build_subm_plan(tst, 3)).features
@@ -81,9 +83,9 @@ def test_dense_conv(case):
     feats = (rng.randn(2, 7, 10, 10, 6) * mask[..., None]).astype(np.float32)
     k = int(np.prod(ksize))
     w = (rng.randn(k, 6, 5) * 0.2).astype(np.float32)
-    want = jdense.dense_conv(
-        jdense.DenseTensor(jnp.asarray(feats), jnp.asarray(mask)),
-        jnp.asarray(w), ksize, stride, padding, subm)
+    want = jax.jit(lambda f, m, w: jdense.dense_conv(
+        jdense.DenseTensor(f, m), w, ksize, stride, padding, subm))(
+            jnp.asarray(feats), jnp.asarray(mask), jnp.asarray(w))
     got = tdense.dense_conv(
         tdense.DenseTensor(torch.from_numpy(feats), torch.from_numpy(mask)),
         torch.from_numpy(w), ksize, stride, padding, subm)
@@ -114,7 +116,7 @@ def test_bev_backbone_even_map():
                upsample_strides=(1, 2), num_upsample_filters=(8, 8))
     jm = JBEVBackbone(**cfg)
     v = _vars(jm, jnp.asarray(x), False)
-    want = jm.apply(v, jnp.asarray(x), False)
+    want = jax.jit(lambda v, x: jm.apply(v, x, False))(v, jnp.asarray(x))
     tm = load_flax(BEVBackbone(6, **cfg), v)
     with torch.no_grad():
         got = tm(torch.from_numpy(x))
@@ -127,7 +129,7 @@ def test_center_head():
     x = rng.randn(2, 8, 8, 16).astype(np.float32)
     jm = jhead.CenterHead((1, 2))
     v = _vars(jm, jnp.asarray(x), False)
-    want = jm.apply(v, jnp.asarray(x), False)
+    want = jax.jit(lambda v, x: jm.apply(v, x, False))(v, jnp.asarray(x))
     tm = load_flax(thead.CenterHead(16, (1, 2)), v)
     with torch.no_grad():
         got = tm(torch.from_numpy(x))
@@ -155,7 +157,7 @@ def _boxes(rng, n):
 def test_iou_bev():
     rng = np.random.RandomState(7)
     a, b = _boxes(rng, 40), _boxes(rng, 24)
-    want = np.asarray(jiou.iou_bev(jnp.asarray(a), jnp.asarray(b)))
+    want = np.asarray(jax.jit(jiou.iou_bev)(jnp.asarray(a), jnp.asarray(b)))
     got = tiou.iou_bev(torch.from_numpy(a), torch.from_numpy(b)).numpy()
     np.testing.assert_allclose(got, want, atol=1e-5)
     np.testing.assert_allclose(
@@ -174,10 +176,13 @@ def test_nms_bev_keep_sets(pre, chunk):
     got_idx, got_mask = tnms.nms_bev(
         torch.from_numpy(boxes), torch.from_numpy(scores), 0.2, pre, 20,
         valid=torch.from_numpy(valid), chunk=chunk)
+    # one jitted program for the three problems (op by op, each op of the
+    # NMS loop compiled alone, cost ~10 s)
+    jnms_bev = jax.jit(lambda b, s, v: jnms.nms_bev(b, s, 0.2, pre, 20,
+                                                    valid=v, chunk=chunk))
     for i in range(p):
-        idx, mask = jnms.nms_bev(jnp.asarray(boxes[i]), jnp.asarray(scores[i]),
-                                 0.2, pre, 20, valid=jnp.asarray(valid[i]),
-                                 chunk=chunk)
+        idx, mask = jnms_bev(jnp.asarray(boxes[i]), jnp.asarray(scores[i]),
+                             jnp.asarray(valid[i]))
         np.testing.assert_array_equal(got_mask[i].numpy(), np.asarray(mask))
         np.testing.assert_array_equal(got_idx[i].numpy(), np.asarray(idx))
         assert 0 < int(np.asarray(mask).sum())
@@ -194,8 +199,8 @@ def test_center_head_predict():
         preds.append({k: v.astype(np.float32) for k, v in p.items()})
     args = ((0.5, 0.5), (-16.0, -16.0), 8, (-20.0, -20.0, -4.0, 20.0, 20.0,
                                            4.0), 0.1, 0.2, 32, 8)
-    want = jhead.center_head_predict(
-        [{k: jnp.asarray(v) for k, v in p.items()} for p in preds], *args)
+    want = jax.jit(lambda p: jhead.center_head_predict(p, *args))(
+        [{k: jnp.asarray(v) for k, v in p.items()} for p in preds])
     got = thead.center_head_predict(
         [{k: torch.from_numpy(v) for k, v in p.items()} for p in preds], *args)
     np.testing.assert_array_equal(got["valid"].numpy(),

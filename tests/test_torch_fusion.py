@@ -105,7 +105,7 @@ def test_gates(name):
     a, b = (rng.randn(2, 5, 12).astype(np.float32) for _ in range(2))
     jm = jgates.GATES[name]()
     v = _vars(jm, jnp.asarray(a), jnp.asarray(b))
-    want = jm.apply(v, jnp.asarray(a), jnp.asarray(b))
+    want = jax.jit(jm.apply)(v, jnp.asarray(a), jnp.asarray(b))
     got = load_flax(tgates.GATES[name](12), v)(*_t(a, b))
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5)
@@ -226,7 +226,7 @@ def test_encoder_layer_all_masked_group():
     mask[1] = False
     jm = JPreNormEncoderLayer(16, 4)
     v = _vars(jm, jnp.asarray(x), jnp.asarray(mask))
-    want = np.asarray(jm.apply(v, jnp.asarray(x), jnp.asarray(mask)))
+    want = np.asarray(jax.jit(jm.apply)(v, jnp.asarray(x), jnp.asarray(mask)))
     tm = load_flax(PreNormEncoderLayer(16, 4), v)
     with torch.no_grad():
         got = tm(*_t(x, mask)).numpy()
@@ -260,7 +260,7 @@ def test_norm_epsilons(name):
     v = _vars(jm, jnp.asarray(x))
     if "batch_stats" in v:  # running variance ~1e-6 as well
         v["batch_stats"]["var"] = np.full_like(v["batch_stats"]["var"], 1e-6)
-    want = np.asarray(jm.apply(v, jnp.asarray(x)))
+    want = np.asarray(jax.jit(jm.apply)(v, jnp.asarray(x)))
     tm.load_state_dict({k: t for k, t in zip(
         ("weight", "bias"), _t(v["params"]["scale"], v["params"]["bias"]))}
         | ({"running_mean": torch.from_numpy(v["batch_stats"]["mean"]),
@@ -294,7 +294,7 @@ def test_splat_duplicates_and_ifat():
              [jnp.asarray(uv)] * 2, [jnp.asarray(mask)] * 2)
     jm = JIFATGate(2)
     v = _vars(jm, *jargs)
-    want = jm.apply(v, *jargs)
+    want = jax.jit(jm.apply)(v, *jargs)
     tm = load_flax(IFATGate([c, c]), v)
     with torch.no_grad():
         got = tm(_t(*imgs), _t(feats) * 2, _t(uv) * 2, _t(mask) * 2)
@@ -583,7 +583,7 @@ def test_sem_deeplabv3_taps_and_logits():
     images = rng.randn(1, 32, 48, 3).astype(np.float32)
     jm = JSemDeepLabV3(backbone_layers=(1, 1, 1, 1))
     v = _vars(jm, jnp.asarray(images))
-    want = jm.apply(v, jnp.asarray(images))
+    want = jax.jit(jm.apply)(v, jnp.asarray(images))
     tm = load_flax(SemDeepLabV3(backbone_layers=(1, 1, 1, 1)), v)
     with torch.no_grad():
         got = tm(torch.from_numpy(images), with_logits=True)

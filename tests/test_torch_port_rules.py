@@ -1,8 +1,10 @@
-"""Rules of the PyTorch port: df3d_torch (its training package too),
-chip_smoke.py, k1_ablate.py, k2_ablate.py and lidar_wall.py import
-nothing of JAX, optax or the JAX package, and scipy only in the host-side
-Hungarian assignment (df3d_torch/ops/assign.py, as the JAX package and the
-reference assign with it); with no CUDA device the entry
+"""Rules of the PyTorch port: df3d_torch (its training package, the
+reference-checkpoint importers and the evaluators too), chip_smoke.py,
+k1_ablate.py, k2_ablate.py and lidar_wall.py import nothing of JAX, optax
+or the JAX package, and scipy only in the host-side Hungarian assignment
+(df3d_torch/ops/assign.py, as the JAX package and the reference assign
+with it); in the package only the checkpoint loader (df3d_torch/train/
+torch_import.py) unpickles with `torch.load`; with no CUDA device the entry
 points raise rather than fall back, and the K1 and K2 launchers (K1's input
 gradient launch too) never answer with their plain versions. The ablation
 scripts' source edits still apply to the kernels they copy."""
@@ -26,12 +28,18 @@ ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "df3d", "scipy")
 # the one module that may import scipy: the assignment runs on the host
 SCIPY_ALLOWED = ROOT / "df3d_torch" / "ops" / "assign.py"
+# the one module that may call torch.load: the reference checkpoints
+TORCH_LOAD_ALLOWED = ROOT / "df3d_torch" / "train" / "torch_import.py"
 
 
 def _port_files():
     files = sorted((ROOT / "df3d_torch").rglob("*.py"))
-    assert {"schedules.py", "trainer.py"} <= {
+    assert {"schedules.py", "trainer.py", "torch_import.py",
+            "import_centerpoint.py", "import_voxelrcnn.py",
+            "import_transfusion.py", "evaluate.py"} <= {
         f.name for f in files if f.parent.name == "train"}
+    assert {"nuscenes_eval.py", "kitti_eval.py", "kitti.py"} <= {
+        f.name for f in files if f.parent.name == "data"}
     return files + [
         ROOT / "chip_smoke.py", ROOT / "k1_ablate.py",
         ROOT / "k2_ablate.py", ROOT / "lidar_wall.py"]
@@ -60,6 +68,33 @@ def test_no_jax_or_jax_package_imports(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
     if path == SCIPY_ALLOWED:
         assert "scipy" in set(_imported_roots(path))
+
+
+def _torch_load_calls(path):
+    """Lines that call `torch.load` (or a bare `load` imported from
+    torch)."""
+    tree = ast.parse(path.read_text(), str(path))
+    bare = {a.asname or a.name for node in ast.walk(tree)
+            if isinstance(node, ast.ImportFrom) and node.module == "torch"
+            for a in node.names if a.name == "load"}
+    for node in ast.walk(tree):
+        if not isinstance(node, ast.Call):
+            continue
+        f = node.func
+        if ((isinstance(f, ast.Attribute) and f.attr == "load"
+             and getattr(f.value, "id", None) == "torch")
+                or (isinstance(f, ast.Name) and f.id in bare)):
+            yield node.lineno
+
+
+@pytest.mark.parametrize("path", sorted((ROOT / "df3d_torch").rglob("*.py")),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_torch_load_only_in_the_checkpoint_loader(path):
+    calls = list(_torch_load_calls(path))
+    if path == TORCH_LOAD_ALLOWED:
+        assert len(calls) == 1
+    else:
+        assert not calls, f"{path.relative_to(ROOT)}:{calls} calls torch.load"
 
 
 @pytest.mark.parametrize("script, source",

@@ -14,6 +14,7 @@ patterns. The JAX package's dtype globals are set only inside the
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -108,6 +109,13 @@ CONV_CASES = [
 ]
 
 
+# the plans as jitted programs (op by op each compiled ~90 small ones); the
+# conv bodies stay eager, since the JAX package reads its profile while a
+# program is traced
+_jsubm_plan = jax.jit(jsp.build_subm_plan, static_argnums=1)
+_jconv_plan = jax.jit(jsp.build_conv_plan, static_argnums=(1, 2, 3, 4))
+
+
 def _conv_inputs(case, rng):
     _, geom, cin, cout = case
     feats, coords = sparse_inputs(rng, batch=2, shape=(8, 12, 12), n=80,
@@ -118,10 +126,10 @@ def _conv_inputs(case, rng):
     tst = tsp.SparseTensor(torch.from_numpy(feats), torch.from_numpy(coords),
                            (8, 12, 12))
     if geom[0] == "subm":
-        jplan, tplan = jsp.build_subm_plan(jst, 3), tsp.build_subm_plan(tst, 3)
+        jplan, tplan = _jsubm_plan(jst, 3), tsp.build_subm_plan(tst, 3)
     else:
         _, k, s, p, max_out = geom
-        jplan = jsp.build_conv_plan(jst, k, s, p, max_out)
+        jplan = _jconv_plan(jst, k, s, p, max_out)
         tplan = tsp.build_conv_plan(tst, k, s, p, max_out)
     w = (rng.randn(27, cin, cout) / np.sqrt(27 * cin)).astype(np.float32)
     return jst, tst, jplan, tplan, w

@@ -4,6 +4,7 @@ kernel (interpret mode) on the same inputs, and the K1 kernel's schedule
 (hit rows compacted per tile and tap, emulated in torch) against all
 three."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -36,6 +37,15 @@ def _pair(feats, coords, shape, rows_sorted=True):
     return jst, tst
 
 
+# the JAX sides as jitted programs, shared by the cases that reuse their
+# static arguments and shapes (op by op each plan compiled ~90 small ones)
+_jsubm_plan = jax.jit(jsp.build_subm_plan, static_argnums=1)
+_jconv_plan = jax.jit(jsp.build_conv_plan, static_argnums=(1, 2, 3, 4))
+_jconv = jax.jit(jsp.apply_sparse_conv)
+_jpallas = jax.jit(lambda f, idx, w: apply_sparse_conv_pallas_v2(
+    f, idx, w, interpret=True))
+
+
 def _plans(case, rng):
     name, shape, n, pad_to, geom = case
     feats, coords = sparse_inputs(rng, batch=2, shape=shape, n=n, cin=5,
@@ -47,10 +57,10 @@ def _plans(case, rng):
             feats[b], coords[b] = feats[b][perm], coords[b][perm]
     jst, tst = _pair(feats, coords, shape, rows_sorted)
     if geom[0] == "subm":
-        return jst, tst, jsp.build_subm_plan(jst, geom[1]), \
+        return jst, tst, _jsubm_plan(jst, geom[1]), \
             tsp.build_subm_plan(tst, geom[1])
     _, k, s, p, max_out = geom
-    return jst, tst, jsp.build_conv_plan(jst, k, s, p, max_out), \
+    return jst, tst, _jconv_plan(jst, k, s, p, max_out), \
         tsp.build_conv_plan(tst, k, s, p, max_out)
 
 
@@ -94,10 +104,9 @@ def test_plain_conv_matches_xla_and_pallas(case):
     assert jst.features.shape[-1] == cin
     w = (rng.randn(tplan.num_taps, cin, cout) * 0.3).astype(np.float32)
     got = tsp.apply_sparse_conv(tst.features, tplan, torch.from_numpy(w))
-    want_xla = np.asarray(jsp.apply_sparse_conv(jst.features, jplan,
-                                                jnp.asarray(w)))
-    want_pallas = np.asarray(apply_sparse_conv_pallas_v2(
-        jst.features, jplan.gather_idx, jnp.asarray(w), interpret=True))
+    want_xla = np.asarray(_jconv(jst.features, jplan, jnp.asarray(w)))
+    want_pallas = np.asarray(_jpallas(jst.features, jplan.gather_idx,
+                                      jnp.asarray(w)))
     assert got.shape == want_xla.shape
     np.testing.assert_allclose(got.numpy(), want_xla, atol=1e-5, rtol=1e-5)
     np.testing.assert_allclose(got.numpy(), want_pallas, atol=1e-5,
@@ -140,12 +149,11 @@ def test_k1_schedule_matches_plain_xla_and_pallas(case):
     w = (rng.randn(tplan.num_taps, cin, cout) * 0.3).astype(np.float32)
     wt = torch.from_numpy(w)
     plain = k1.sparse_conv_plain(tst.features, tplan.gather_idx, wt)
-    want_xla = np.asarray(jsp.apply_sparse_conv(jst.features, jplan,
-                                                jnp.asarray(w)))
+    want_xla = np.asarray(_jconv(jst.features, jplan, jnp.asarray(w)))
     short = tplan.num_out_rows - 1 - tst.num_rows
     table = jnp.pad(jst.features, ((0, 0), (0, max(short, 0)), (0, 0)))
-    want_pallas = np.asarray(apply_sparse_conv_pallas_v2(
-        table, jplan.gather_idx, jnp.asarray(w), interpret=True))
+    want_pallas = np.asarray(_jpallas(table, jplan.gather_idx,
+                                      jnp.asarray(w)))
     for rows in K1_TILE_ROWS:
         got, _ = k1_emulate(tst.features, tplan.gather_idx, wt, rows)
         np.testing.assert_allclose(got.numpy(), plain.numpy(), atol=1e-6,

@@ -20,6 +20,8 @@ max|ref| + 1e-6 for dvalue, dloc and dattn against JAX and for the kernel
 arithmetic against the plain version; the module's gradients, through two
 more f32 matmuls and a softmax, 1e-4 * max|ref| + 1e-6."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -77,10 +79,25 @@ def _tol(ref):
     return 1e-5 * np.abs(ref).max() + 1e-6
 
 
+@functools.partial(jax.jit, static_argnums=1)
+def _jvjp(v, shapes, l, a, g):
+    """One program a level layout (op by op it compiled ~230 small ones a
+    case)."""
+    _, pull = jax.vjp(lambda v, l, a: jms_deform_attn(v, shapes, l, a),
+                      v, l, a)
+    return pull(g)
+
+
 def _jax_vjp(value, shapes, locs, attn, grad):
-    _, vjp = jax.vjp(lambda v, l, a: jms_deform_attn(v, shapes, l, a),
-                     jnp.asarray(value), jnp.asarray(locs), jnp.asarray(attn))
-    return [np.asarray(t) for t in vjp(jnp.asarray(grad))]
+    return [np.asarray(t) for t in _jvjp(jnp.asarray(value), shapes,
+                                         jnp.asarray(locs), jnp.asarray(attn),
+                                         jnp.asarray(grad))]
+
+
+@functools.partial(jax.jit, static_argnums=1)
+def _pallas_grad(v, shapes, l, a, g):
+    return jax.grad(lambda v, l, a: (ms_deform_attn_pallas(
+        v, shapes, l, a, 4, True) * g).sum(), argnums=(0, 1, 2))(v, l, a)
 
 
 CASES = [pytest.param(s, shapes, id=f"L{len(shapes)}_seed{s}")
@@ -116,12 +133,8 @@ def test_autograd_matches_pallas_grad(seed, shapes):
     out = tmsda.ms_deform_attn(tin[0], shapes, tin[1], tin[2])
     got = torch.autograd.grad(out, tin, torch.from_numpy(grad))
 
-    def f(v, l, a):
-        return (ms_deform_attn_pallas(v, shapes, l, a, 4, True)
-                * jnp.asarray(grad)).sum()
-
-    want = jax.grad(f, argnums=(0, 1, 2))(
-        jnp.asarray(value), jnp.asarray(locs), jnp.asarray(attn))
+    want = _pallas_grad(jnp.asarray(value), shapes, jnp.asarray(locs),
+                        jnp.asarray(attn), jnp.asarray(grad))
     for name, g, w in zip(("dvalue", "dloc", "dattn"), got, want):
         w = np.asarray(w)
         np.testing.assert_allclose(g.numpy(), w, rtol=0, atol=_tol(w),
@@ -178,8 +191,12 @@ def test_msdeform_attn_module_gradients(q_method):
     def f(params, qu, re, va, iq):
         return jm.apply({"params": params}, qu, re, va, shapes, iq)
 
-    _, vjp = jax.vjp(f, variables["params"], *jin)
-    want_params, *want_inputs = vjp(jnp.asarray(cot))
+    @jax.jit
+    def vjp(params, qu, re, va, iq, g):
+        return jax.vjp(f, params, qu, re, va, iq)[1](g)
+
+    want_params, *want_inputs = vjp(variables["params"], *jin,
+                                    jnp.asarray(cot))
 
     tm = MSDeformAttnModule(c, nl, n_heads=2, n_points=3, q_method=q_method)
     tm.load_state_dict(state_dict_from_flax(tm, variables))

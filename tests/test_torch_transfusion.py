@@ -157,7 +157,7 @@ def test_decoder_layer():
     args = [jnp.asarray(a) for a in (q, q_pos, kv, kv_pos)]
     jm = jhead.DecoderLayer(32, 4, 64)
     v = _vars(jm, *args)
-    want = np.asarray(jm.apply(v, *args))
+    want = np.asarray(jax.jit(jm.apply)(v, *args))
     tm = load_flax(thead.DecoderLayer(32, 4, 64), v)
     with torch.no_grad():
         got = tm(*(torch.from_numpy(a) for a in (q, q_pos, kv, kv_pos)))
@@ -182,7 +182,7 @@ def test_transfusion_head(case):
     jcfg = jhead.TransFusionHeadCfg(**kw)
     jm = jhead.TransFusionHead(jcfg)
     v = _vars(jm, jnp.asarray(bev), False)
-    want = jm.apply(v, jnp.asarray(bev), False)
+    want = jax.jit(lambda v, x: jm.apply(v, x, False))(v, jnp.asarray(bev))
     tm = load_flax(thead.TransFusionHead(thead.TransFusionHeadCfg(**kw), 24),
                    v)
     with torch.no_grad():

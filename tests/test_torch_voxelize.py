@@ -1,6 +1,7 @@
 """df3d_torch.ops.voxelize (sort method) against df3d.ops.voxelize: integer
 outputs equal exactly, features to atol 1e-6."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -52,8 +53,9 @@ def test_voxelize_matches_jax(max_voxels):
     valid = rng.rand(len(pts)) > 0.05
     got = voxelize(torch.from_numpy(pts), torch.from_numpy(valid), VS, PCR,
                    GRID, max_voxels, 10)
-    want = jvoxelize(jnp.asarray(pts), jnp.asarray(valid), VS, PCR, GRID,
-                     max_voxels, 10)
+    # one jitted program (op by op it compiled ~140 small ones)
+    want = jax.jit(jvoxelize, static_argnums=(2, 3, 4, 5, 6))(
+        jnp.asarray(pts), jnp.asarray(valid), VS, PCR, GRID, max_voxels, 10)
     _check(got, want)
     assert got.num_points.max().item() == 10  # the 15-point voxel is capped
     if max_voxels == 96:
@@ -66,7 +68,7 @@ def test_voxelize_batch_matches_jax():
     valid = rng.rand(*pts.shape[:2]) > 0.05
     got = voxelize_batch(torch.from_numpy(pts), torch.from_numpy(valid), VS,
                          PCR, GRID, 256, 10)
-    want = jvoxelize_batch(jnp.asarray(pts), jnp.asarray(valid), VS, PCR,
-                           GRID, 256, 10)
+    want = jax.jit(jvoxelize_batch, static_argnums=(2, 3, 4, 5, 6))(
+        jnp.asarray(pts), jnp.asarray(valid), VS, PCR, GRID, 256, 10)
     assert got.features.shape == (2, 256, 5)
     _check(got, want)

@@ -15,6 +15,7 @@ on the other side of 0 from JAX's; it runs at torch's default.
 """
 
 import contextlib
+import dataclasses
 
 import jax
 import numpy as np
@@ -155,6 +156,21 @@ def recorded_plans(module, plans: list):
     finally:
         for n, build in builders.items():
             setattr(module, n, build)
+
+
+def port_config(jax_cfg, like):
+    """The port's counterpart of a JAX package config dataclass: `like` is
+    an instance of the port's class (its defaults); every field of the
+    port's class takes the JAX config's value, nested configs (and tuples
+    of them) converted the same way."""
+    if dataclasses.is_dataclass(jax_cfg):
+        return type(like)(**{
+            f.name: port_config(getattr(jax_cfg, f.name), getattr(like, f.name))
+            for f in dataclasses.fields(like)})
+    if (isinstance(jax_cfg, tuple) and jax_cfg
+            and dataclasses.is_dataclass(jax_cfg[0])):
+        return tuple(port_config(v, like[0]) for v in jax_cfg)
+    return jax_cfg
 
 
 def load_flax(module: torch.nn.Module, variables) -> torch.nn.Module:
