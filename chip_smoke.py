@@ -7,7 +7,8 @@ Voxel R-CNN + 3D-DF (one camera + LiDAR) serving paths and training
 steps; then the training steps data parallel; then CenterPoint in the
 bf16 "tpu_v5e" serving profile beside "exact"; then the evaluation path:
 reference checkpoints imported, double-flip TTA, recalibration and the
-metrics.
+metrics; then the fused training steps with the aux objectives and
+TransFusion + 3D-DF with the Swin-T image branch.
 
     python3 chip_smoke.py
 
@@ -284,6 +285,28 @@ any failure raises and the process exits non-zero:
    tests/test_nuscenes_eval.py::test_perfect_detections and
    tests/test_kitti_eval.py::test_perfect_detection_ap_high assert, and
    KITTI's frame of cars the exact R40 AP of each difficulty's count.
+44. aux, small: phases 17, 22 and 29's small fused training steps with
+   the aux objectives (`aux=True`), card against CPU with those phases'
+   tolerances, the aux head's leaves and the three aux logs among them.
+45. aux, full width: `centerpoint_3ddf_nusc` and `transfusion_3ddf_nusc`
+   at batch 4 x six 448x800 cameras, `voxel_rcnn_3ddf_kitti` at batch 2,
+   each step aux off then aux on in this process (2 warm-up + 3 timed
+   steps, the split with an `aux` stage, peak memory); the aux step's K1
+   and K2 launch counts equal the aux-off step's, and each launch of one
+   aux step is held against its plain version (`check_launches`).
+46. aux, data parallel: phase 34 for the three fused small steps with the
+   aux objectives (their normalizers over the global batch).
+47. Swin small: phase 11's check on `transfusion_3ddf_swin_nusc`'s Swin-T
+   branch narrowed (one block a stage, width 24) on two 64x112 cameras.
+48. Swin at full width: `transfusion_3ddf_swin_nusc` on six 448x800
+   cameras: every launch of one frame against its plain version (K1 16,
+   K2 2), 3 warm-up and 5 timed frames with the split; then a seeded
+   synthetic mmdet TransFusion + Swin checkpoint at full width through
+   `build_transfusion3ddf(..., checkpoint=)`, every entry equal to its
+   source, one frame finite.
+49. Swin training: the preset's step at batch 4 (K1 16 + 15, K2 2 + 2, each
+   launch against its plain version), 2 warm-up + 3 timed steps, the split
+   and peak memory.
 
 TF32 is off for matmuls and cuDNN convs: the port serves in f32 (the JAX
 package's "exact" profile) and the comparisons need full f32; the
@@ -347,7 +370,7 @@ K2_PER_TRANSFUSION_FUSED_FRAME = 2  # one per ACTR layer
 # sparse conv but conv_input, whose input, the voxel features, needs none)
 TRAIN_BATCH = 4
 TRAIN_WARMUP_STEPS = 2
-TRAIN_TIMED_STEPS = 5
+TRAIN_TIMED_STEPS = 3
 K1_BWD_PER_STEP = 15
 SCENE_CLASSES = (0,) * 52 + (1,) * 9 + (8,) * 18
 # a K2 output element costs ~14 FLOP of corner arithmetic per sample and
@@ -359,8 +382,12 @@ K2_FLOP_PER_SAMPLE = 14
 K2_BWD_FLOP_PER_SAMPLE = 30
 
 
+T0 = time.perf_counter()
+
+
 def log(*args):
-    print(*args, flush=True)
+    """Print with the seconds since the script started."""
+    print(f"[{time.perf_counter() - T0:7.1f} s]", *args, flush=True)
 
 
 def check(ok, message):
@@ -1932,6 +1959,7 @@ def small_step_card_vs_cpu(label, build_trainer, batch, dev, k2_per_step,
           f"{k1_counts[0]}, {k1_counts[1]}, {k2_per_step} and "
           f"{k2_per_step}")
     compare_train_step(f"{label}, K1, K2 and cuDNN", cpu, card, strict=False)
+    return cpu, card
 
 
 def small_train_arrays(b, points_f=5, n=4096):
@@ -1957,19 +1985,21 @@ def fused_batch_fn(arrays, rng, fcfg):
     return lambda d: fused_train_batch(*arrays, images, proj, d)
 
 
-def phase_small_fused_train(dev):
+def phase_small_fused_train(dev, aux=False):
     """One CenterPoint + 3D-DF training step of
     `entry.build_centerpoint3ddf_trainer` on the card against the same step
     on the CPU (`small_step_card_vs_cpu`): `small_fused_train_configs()` at
     batch 2, phase 14's points and gt layout, seeded normalized images and
-    the rig of `utils.synth.camera_rig`, the same seeded weights."""
+    the rig of `utils.synth.camera_rig`, the same seeded weights; with
+    `aux`, the step with the aux objectives (phase 44)."""
     from df3d_torch.entry import build_centerpoint3ddf_trainer
 
     cfg, fcfg = small_fused_train_configs()
     arrays, rng = small_train_arrays(2)
-    small_step_card_vs_cpu(
-        "small fused train step",
-        lambda d: build_centerpoint3ddf_trainer(cfg, fcfg, d, seed=0),
+    return small_step_card_vs_cpu(
+        "small fused train step" + (", aux" if aux else ""),
+        lambda d: build_centerpoint3ddf_trainer(cfg, fcfg, d, seed=0,
+                                                aux=aux),
         fused_batch_fn(arrays, rng, fcfg), dev, k2_per_step=1)
 
 
@@ -2037,42 +2067,56 @@ def phase_small_transfusion_train(dev):
         lambda d: train_batch(*arrays, d), dev, k2_per_step=0)
 
 
-def phase_small_transfusion_fused_train(dev):
+def phase_small_transfusion_fused_train(dev, aux=False):
     """One TransFusion + 3D-DF training step of
     `entry.build_transfusion3ddf_trainer` on the card against the same step
     on the CPU, as phase 20, with the cameras of phase 17 (seeded
-    normalized images, the rig) and the frozen ResNet + FPN branch."""
+    normalized images, the rig) and the frozen ResNet + FPN branch; with
+    `aux`, the step with the aux objectives (phase 44)."""
     from df3d_torch.entry import build_transfusion3ddf_trainer
 
     cfg, fcfg = small_transfusion_train_configs()
     arrays, rng = small_transfusion_train_arrays()
-    small_step_card_vs_cpu(
-        "small TransFusion + 3D-DF train step",
-        lambda d: build_transfusion3ddf_trainer(cfg, fcfg, d, seed=0),
+    return small_step_card_vs_cpu(
+        "small TransFusion + 3D-DF train step" + (", aux" if aux else ""),
+        lambda d: build_transfusion3ddf_trainer(cfg, fcfg, d, seed=0,
+                                                aux=aux),
         fused_batch_fn(arrays, rng, fcfg), dev,
         k2_per_step=fcfg.actr.num_layers)
 
 
-def full_fused_train_setup(dev, transfusion=False, with_batch=True):
+def full_fused_train_setup(dev, transfusion=False, with_batch=True,
+                           aux=False, preset=None):
     """CenterPoint + 3D-DF at the `centerpoint_3ddf_nusc` preset's full
     width with `CenterPointConfig()`'s training caps (or TransFusion +
-    3D-DF at `transfusion_3ddf_nusc`'s with `TransFusionConfig()`'s), its
-    trainer from seed 0, and (unless not `with_batch`: None)
+    3D-DF at `transfusion_3ddf_nusc`'s with `TransFusionConfig()`'s, or at
+    another TransFusion `preset`'s), its trainer from seed 0 (with the aux
+    objectives if `aux`), and (unless not `with_batch`: None)
     `full_train_batch` plus six random normalized 448x800 images per sample
     and the rig of `utils.synth.camera_rig`."""
     from df3d_torch.entry import (
         build_centerpoint3ddf_trainer, build_transfusion3ddf_trainer,
         centerpoint_3ddf_nusc, fused_config, transfusion_3ddf_nusc,
     )
-    from df3d_torch.utils.synth import camera_rig
 
-    preset = transfusion_3ddf_nusc() if transfusion else centerpoint_3ddf_nusc()
+    transfusion = transfusion or preset is not None
+    if preset is None:
+        preset = (transfusion_3ddf_nusc() if transfusion
+                  else centerpoint_3ddf_nusc())
     build = (build_transfusion3ddf_trainer if transfusion
              else build_centerpoint3ddf_trainer)
     cfg, fcfg = preset["lidar"], fused_config(preset)
-    state, step = build(cfg, fcfg, dev, seed=0)
+    state, step = build(cfg, fcfg, dev, seed=0, aux=aux)
     if not with_batch:
         return cfg, fcfg, state, step, None
+    return cfg, fcfg, state, step, full_fused_batch(dev, fcfg)
+
+
+def full_fused_batch(dev, fcfg):
+    """`full_train_batch` plus `TRAIN_BATCH` x `fcfg.num_cams` random
+    normalized images and the rig of `utils.synth.camera_rig`."""
+    from df3d_torch.utils.synth import camera_rig
+
     nc, hw = fcfg.num_cams, fcfg.image_shape
     batch = full_train_batch(dev)
     g = torch.Generator(device=dev).manual_seed(20)
@@ -2080,7 +2124,7 @@ def full_fused_train_setup(dev, transfusion=False, with_batch=True):
                                   device=dev)
     batch["proj"] = torch.from_numpy(np.broadcast_to(
         camera_rig(nc, hw), (TRAIN_BATCH, nc, 3, 4)).copy()).to(dev)
-    return cfg, fcfg, state, step, batch
+    return batch
 
 
 def k2_bwd_check(label, launch, plain, value, shapes, locs, attn, grad):
@@ -2345,7 +2389,8 @@ def phase_fused_train_k2(state, step, batch, per_step=1, warp=True,
 def phase_fused_train_path(state, step, batch, fcfg, k2_per_step=1,
                            label="fused train path", step_args=(),
                            k1_counts=(K1_PER_FRAME, K1_BWD_PER_STEP),
-                           caps_drop=False):
+                           caps_drop=False, timed_steps=TRAIN_TIMED_STEPS,
+                           profile=True):
     """A fused trainer's step (`entry.build_centerpoint3ddf_trainer`,
     `build_transfusion3ddf_trainer` or `build_voxelrcnn3ddf_trainer`,
     `step(state, batch, *step_args)`) at full width on that fixed batch:
@@ -2358,8 +2403,11 @@ def phase_fused_train_path(state, step, batch, fcfg, k2_per_step=1,
     `cap_overflow` also counts the dense tail's rows summed over the batch
     against the per-sample cap, as the JAX package does), unless
     `caps_drop` (KITTI's caps drop rows by design; the counts are
-    printed); the frozen image branch unchanged. Prints ms/step, the
-    host-clock split of one step, peak memory and a one-step profile."""
+    printed); the frozen image branch unchanged. Prints ms/step
+    (`timed_steps` of them), the host-clock split of one step, peak memory
+    and (with `profile`) a one-step profile. Returns the launch counts,
+    with the mean ms/step (`ms`), the peak (`peak_gib`), the split and the
+    last step's logs."""
     from df3d_torch.ops import msda_kernel as K2
     from df3d_torch.ops import sparse_conv_kernel as K1
     from df3d_torch.utils import stages
@@ -2392,7 +2440,7 @@ def phase_fused_train_path(state, step, batch, fcfg, k2_per_step=1,
     torch.cuda.reset_peak_memory_stats()
     K1.launches = K1.bwd_launches = K2.launches = K2.bwd_launches = 0
     per_step = []
-    for _ in range(TRAIN_TIMED_STEPS):
+    for _ in range(timed_steps):
         t0 = time.perf_counter()
         logs = one_step()
         torch.cuda.synchronize()
@@ -2402,12 +2450,13 @@ def phase_fused_train_path(state, step, batch, fcfg, k2_per_step=1,
     peak = torch.cuda.max_memory_allocated()
     for name, want in (("k1_fwd", k1_counts[0]), ("k1_bwd", k1_counts[1]),
                        ("k2_fwd", k2_per_step), ("k2_bwd", k2_per_step)):
-        check(counts[name] == want * TRAIN_TIMED_STEPS,
+        check(counts[name] == want * timed_steps,
               f"{label}: {name} launched {counts[name]} times in "
-              f"{TRAIN_TIMED_STEPS} steps, expected {want} a step")
+              f"{timed_steps} steps, expected {want} a step")
     with stages.recording() as split:
         one_step()
-    profile_frame(one_step)
+    if profile:
+        profile_frame(one_step)
     handle.remove()
     check(all(np.isfinite(losses)), f"{label}: losses {losses}")
     check(min(losses[1:5]) < losses[0],
@@ -2421,15 +2470,15 @@ def phase_fused_train_path(state, step, batch, fcfg, k2_per_step=1,
     drops = {k: int(v.sum()) for k, v in overflows[-1].items()}
     log(f"{label}: batch {batch['points'].shape[0]} x {fcfg.num_cams} "
         "cameras, "
-        f"{TRAIN_TIMED_STEPS} timed steps after {TRAIN_WARMUP_STEPS}, ms/step "
+        f"{timed_steps} timed steps after {TRAIN_WARMUP_STEPS}, ms/step "
         f"mean {np.mean(per_step):.3f} median {np.median(per_step):.3f} min "
         f"{np.min(per_step):.3f}; per step "
         f"{[round(x, 3) for x in per_step]}")
     log(f"{label}: launches per step K1 "
-        f"{counts['k1_fwd'] // TRAIN_TIMED_STEPS} forward, "
-        f"{counts['k1_bwd'] // TRAIN_TIMED_STEPS} backward; K2 "
-        f"{counts['k2_fwd'] // TRAIN_TIMED_STEPS} forward, "
-        f"{counts['k2_bwd'] // TRAIN_TIMED_STEPS} backward; peak memory "
+        f"{counts['k1_fwd'] // timed_steps} forward, "
+        f"{counts['k1_bwd'] // timed_steps} backward; K2 "
+        f"{counts['k2_fwd'] // timed_steps} forward, "
+        f"{counts['k2_bwd'] // timed_steps} backward; peak memory "
         f"{peak / 2**30:.3f} GiB")
     log(f"{label} step split (ms, host clock, synchronised): "
         + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
@@ -2440,7 +2489,8 @@ def phase_fused_train_path(state, step, batch, fcfg, k2_per_step=1,
         + "; rows the caps dropped (the dense tail's: its batch-summed "
         "count over the per-sample cap): "
         + ", ".join(f"{k}={v}" for k, v in drops.items()))
-    return counts
+    return dict(counts, ms=float(np.mean(per_step)), peak_gib=peak / 2**30,
+                split=dict(split), logs={k: float(v) for k, v in logs.items()})
 
 
 # KITTI (Voxel R-CNN, phases 24-28): K1 launches a frame (12 sparse convs,
@@ -2877,7 +2927,7 @@ def flax_initial_attention(built):
     return state, step
 
 
-def phase_small_kitti_train(dev):
+def phase_small_kitti_train(dev, aux=False):
     """Both KITTI training steps (`entry.build_voxelrcnn_trainer`,
     `build_voxelrcnn3ddf_trainer`) on a small input, card against CPU
     (`small_step_card_vs_cpu`, `kitti_train_decisions`): the configs of
@@ -2885,7 +2935,8 @@ def phase_small_kitti_train(dev):
     first stage's proposals, a seeded normalized 64x96 image and KITTI's
     camera scaled to it, the same RoI sampler noise on both devices; the
     fused step's attention kernels at flax's initial zeros
-    (`flax_initial_attention`)."""
+    (`flax_initial_attention`). With `aux`, the fused step only, with the
+    aux objectives (phase 44). Returns the last step's records."""
     from df3d_torch.entry import (
         build_voxelrcnn3ddf_trainer, build_voxelrcnn_trainer,
     )
@@ -2893,12 +2944,17 @@ def phase_small_kitti_train(dev):
     lidar, fused, fcfg = small_kitti_train_configs()
     noise = torch.rand(KITTI_TRAIN_BATCH, lidar.train_post_nms,
                        generator=torch.Generator().manual_seed(5)) * 1e-3
-    for label, build, k2 in (
-            ("small KITTI train step",
-             lambda d: build_voxelrcnn_trainer(lidar, d, seed=0), 0),
-            ("small KITTI fused train step",
-             lambda d: flax_initial_attention(
-                 build_voxelrcnn3ddf_trainer(fused, fcfg, d, seed=0)), 1)):
+    cases = [("small KITTI train step",
+              lambda d: build_voxelrcnn_trainer(lidar, d, seed=0), 0),
+             ("small KITTI fused train step",
+              lambda d: flax_initial_attention(
+                  build_voxelrcnn3ddf_trainer(fused, fcfg, d, seed=0)), 1)]
+    if aux:
+        cases = [("small KITTI fused train step, aux",
+                  lambda d: flax_initial_attention(
+                      build_voxelrcnn3ddf_trainer(fused, fcfg, d, seed=0,
+                                                  aux=True)), 1)]
+    for label, build, k2 in cases:
         state, step = build("cpu")
         cpu = small_kitti_train_batch(bool(k2), fcfg)
         boxes, classes, valid = gts_near_proposals(state, step, cpu)
@@ -2906,12 +2962,13 @@ def phase_small_kitti_train(dev):
         cpu.update(gt_boxes=torch.from_numpy(boxes),
                    gt_classes=torch.from_numpy(classes),
                    gt_valid=torch.from_numpy(valid))
-        small_step_card_vs_cpu(
+        records = small_step_card_vs_cpu(
             label, build, lambda d, cpu=cpu: {k: v.to(d)
                                               for k, v in cpu.items()},
             dev, k2_per_step=k2, decisions=kitti_train_decisions,
             grads_kwargs={"noise": noise},
             k1_counts=(K1_PER_KITTI_FRAME, K1_BWD_PER_KITTI_STEP))
+    return records
 
 
 def kitti_train_batch(dev, fused):
@@ -2996,6 +3053,9 @@ DP_NOISE_SEED = 5
 DP_TIMED_STEPS = 3
 SMALL_DP_STEPS = ("CenterPoint", "CenterPoint + 3D-DF", "TransFusion-L",
                   "TransFusion + 3D-DF", "Voxel R-CNN", "Voxel R-CNN + 3D-DF")
+# phase 46: the fused ones with the aux objectives
+AUX_DP_STEPS = ("CenterPoint + 3D-DF, aux", "TransFusion + 3D-DF, aux",
+                "Voxel R-CNN + 3D-DF, aux")
 
 
 def rank_rows(tree, rank, world):
@@ -3025,6 +3085,8 @@ def small_dp_case(name, dev):
     for the RoI sampler's noise)."""
     from df3d_torch import entry
 
+    aux = name.endswith(", aux")
+    name = name.removesuffix(", aux")
     decisions, args, kitti = transfusion_decisions, (), name.startswith("V")
     if name.startswith("CenterPoint"):
         arrays, rng = small_train_arrays(2)
@@ -3036,7 +3098,8 @@ def small_dp_case(name, dev):
         batch = train_batch(*arrays, "cpu")
     elif name == "CenterPoint + 3D-DF":
         cfg, fcfg = small_fused_train_configs()
-        built = entry.build_centerpoint3ddf_trainer(cfg, fcfg, dev, seed=0)
+        built = entry.build_centerpoint3ddf_trainer(cfg, fcfg, dev, seed=0,
+                                                    aux=aux)
         batch = fused_batch_fn(arrays, rng, fcfg)("cpu")
     elif name == "TransFusion-L":
         cfg, _ = small_transfusion_train_configs()
@@ -3044,7 +3107,8 @@ def small_dp_case(name, dev):
         batch = train_batch(*arrays, "cpu")
     elif name == "TransFusion + 3D-DF":
         cfg, fcfg = small_transfusion_train_configs()
-        built = entry.build_transfusion3ddf_trainer(cfg, fcfg, dev, seed=0)
+        built = entry.build_transfusion3ddf_trainer(cfg, fcfg, dev, seed=0,
+                                                    aux=aux)
         batch = fused_batch_fn(arrays, rng, fcfg)("cpu")
     else:
         lidar, fused, fcfg = small_kitti_train_configs()
@@ -3053,7 +3117,8 @@ def small_dp_case(name, dev):
             if name == "Voxel R-CNN":
                 return entry.build_voxelrcnn_trainer(lidar, d, seed=0)
             return flax_initial_attention(
-                entry.build_voxelrcnn3ddf_trainer(fused, fcfg, d, seed=0))
+                entry.build_voxelrcnn3ddf_trainer(fused, fcfg, d, seed=0,
+                                                  aux=aux))
 
         built, batch = build(dev), small_kitti_train_batch(name != "Voxel "
                                                            "R-CNN", fcfg)
@@ -3102,9 +3167,11 @@ def step_record(state, logs, grads):
             copy(state.model.state_dict()), float(state.tx.lr(0)))
 
 
-def dp_small_rank(rank, world, init_method):
-    """A rank of phase 34: each small step over the ranks on this rank's
-    sample (`DataParallelTrainStep`), the one-process step's ReLU and path
+def dp_small_rank(rank, world, init_method, names=SMALL_DP_STEPS,
+                  tag="small"):
+    """A rank of phase 34 (or 46: `names` and the files' `tag`): each
+    small step over the ranks on this rank's sample
+    (`DataParallelTrainStep`), the one-process step's ReLU and path
     decisions replayed on its rows; saves what it computed."""
     from df3d_torch.parallel import ddp
     from df3d_torch.train.trainer import DataParallelTrainStep
@@ -3113,9 +3180,9 @@ def dp_small_rank(rank, world, init_method):
     dev = ddp.init_data_parallel(rank, world, backend="gloo",
                                  init_method=init_method, device="cuda:0")
     try:
-        for i, name in enumerate(SMALL_DP_STEPS):
+        for i, name in enumerate(names):
             (state, step), batch, decisions, args = small_dp_case(name, dev)
-            rec = torch.load(DP_DIR / f"small{i}.pt")
+            rec = torch.load(DP_DIR / f"{tag}{i}.pt")
             ddp.broadcast_state(state)
             mine = {k: v.to(dev) for k, v in
                     ddp.shard_batch(batch, rank, world).items()}
@@ -3129,21 +3196,21 @@ def dp_small_rank(rank, world, init_method):
             torch.save({"step": step_record(state, logs, grads),
                         "flips": flips,
                         "replays": replays},
-                       DP_DIR / f"small{i}_rank{rank}.pt")
+                       DP_DIR / f"{tag}{i}_rank{rank}.pt")
     finally:
         torch.distributed.destroy_process_group()
 
 
-def spawn_ranks(fn):
-    """fn(rank, DP_WORLD, init_method) in `DP_WORLD` new processes, which
-    meet through a file under build/dp/."""
+def spawn_ranks(fn, *args):
+    """fn(rank, DP_WORLD, init_method, *args) in `DP_WORLD` new processes,
+    which meet through a file under build/dp/."""
     store = DP_DIR / "store"
     store.unlink(missing_ok=True)
     torch.multiprocessing.spawn(fn, nprocs=DP_WORLD,
-                                args=(DP_WORLD, f"file://{store}"))
+                                args=(DP_WORLD, f"file://{store}", *args))
 
 
-def phase_small_dp_train(dev):
+def phase_small_dp_train(dev, names=SMALL_DP_STEPS, tag="small"):
     """Each of the six small training steps (phases 14, 17, 20, 22 and 29's
     configs and batches, the second sample's valid points and gt boxes
     cut)
@@ -3159,10 +3226,11 @@ def phase_small_dp_train(dev):
     rounds apart from the whole one, by more on some runs (one run of
     five saw the fused KITTI step's first-stage leaves 7x past the tight
     tolerance, at 7e-4 of their largest entry). Both ranks end with the
-    same bits."""
+    same bits. Phase 46 runs the fused ones with the aux objectives
+    (`names` AUX_DP_STEPS, files tagged "aux")."""
     DP_DIR.mkdir(parents=True, exist_ok=True)
     refs = []
-    for i, name in enumerate(SMALL_DP_STEPS):
+    for i, name in enumerate(names):
         (state, step), batch, decisions, args = small_dp_case(name, dev)
         masks, picks = [], []
         with relu_decisions(masks, False), decisions(picks, False):
@@ -3170,16 +3238,16 @@ def phase_small_dp_train(dev):
                                              batch.items()}, *args)
         step.apply(state, grads)
         refs.append(step_record(state, logs, grads))
-        torch.save({"relu": masks, "picks": picks}, DP_DIR / f"small{i}.pt")
+        torch.save({"relu": masks, "picks": picks}, DP_DIR / f"{tag}{i}.pt")
         del state, step
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    spawn_ranks(dp_small_rank)
+    spawn_ranks(dp_small_rank, names, tag)
     log(f"small data-parallel steps: 2 ranks on one card over gloo, "
-        f"{time.perf_counter() - t0:.1f} s for the six steps with the ranks' "
-        "start")
-    for i, name in enumerate(SMALL_DP_STEPS):
-        got = [torch.load(DP_DIR / f"small{i}_rank{r}.pt")
+        f"{time.perf_counter() - t0:.1f} s for the {len(names)} steps with "
+        "the ranks' start")
+    for i, name in enumerate(names):
+        got = [torch.load(DP_DIR / f"{tag}{i}_rank{r}.pt")
                for r in range(DP_WORLD)]
         for r, g in enumerate(got):
             check(sum(n for n, _ in g["flips"]) <= 4
@@ -3697,6 +3765,60 @@ def mmdet3d_state_dict(sd):
     return out
 
 
+def mmdet_swin_state_dict(sd, depths, window=7):
+    """A port Swin image branch's state dict (`image_branch.swin.*` and
+    `image_branch.swin_fpn.*`) under mmdet's names (`img_backbone.*`,
+    `img_neck.*`): PatchMerging's norm and reduction in mmdet's
+    channel-major (C, 4) order, the relative position index buffers of a
+    `window` checkpoint (mmdet saves them)."""
+    from df3d_torch.models.image.swin import relative_index
+
+    out, _, copy = _renamer(sd)
+    s, p = "image_branch.swin", "img_backbone"
+    copy(f"{p}.patch_embed.projection", f"{s}.patch_embed")
+    copy(f"{p}.patch_embed.norm", f"{s}.patch_norm")
+    for si, depth in enumerate(depths):
+        for bi in range(depth):
+            t, b = f"{p}.stages.{si}.blocks.{bi}", f"{s}.stage{si}_block{bi}"
+            copy(f"{t}.norm1", f"{b}.norm1")
+            copy(f"{t}.norm2", f"{b}.norm2")
+            copy(f"{t}.attn.w_msa.qkv", f"{b}.attn.qkv")
+            copy(f"{t}.attn.w_msa.proj", f"{b}.attn.proj")
+            table = sd[f"{b}.attn.rel_bias"]
+            out[f"{t}.attn.w_msa.relative_position_bias_table"] = table
+            win = round((table.shape[0] ** 0.5 + 1) / 2)
+            if win == window:
+                out[f"{t}.attn.w_msa.relative_position_index"] = \
+                    relative_index(win)
+            copy(f"{t}.ffn.layers.0.0", f"{b}.mlp0")
+            copy(f"{t}.ffn.layers.1", f"{b}.mlp1")
+        copy(f"{p}.norm{si}", f"{s}.out_norm{si}")
+        if si < len(depths) - 1:
+            t = f"{p}.stages.{si}.downsample"
+            w = sd[f"{s}.merge{si}.weight"]
+            c = w.shape[1] // 4
+            out[f"{t}.reduction.weight"] = w.reshape(-1, 4, c).transpose(
+                1, 2).reshape(w.shape)
+            for k in ("weight", "bias"):
+                out[f"{t}.norm.{k}"] = sd[f"{s}.merge_norm{si}.{k}"].reshape(
+                    4, c).T.reshape(-1)
+    for i in range(len(depths)):
+        copy(f"img_neck.lateral_convs.{i}.conv", f"{s}_fpn.lateral{i}")
+        copy(f"img_neck.fpn_convs.{i}.conv", f"{s}_fpn.fpn{i}")
+    return out
+
+
+def mmdet_transfusion_swin_state_dict(model):
+    """A port TransFusion + 3D-DF (Swin image branch) model's image branch
+    and LiDAR detector under mmdet's names, as an mmdet TransFusion + Swin
+    checkpoint holds them (no fusion hook)."""
+    sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    det = {k.removeprefix("detector."): v for k, v in sd.items()
+           if k.startswith("detector.") and ".fusion_hook." not in k}
+    return {**mmdet3d_state_dict(det),
+            **mmdet_swin_state_dict(sd, model.image_branch.swin.depths)}
+
+
 def pcdet_state_dict(rpn_sd, head_sd):
     """A port Voxel R-CNN's two state dicts under pcdet's names, spconv v2,
     the RoI head's FC stacks with dropout between layers (voxel_rcnn_car's
@@ -4183,6 +4305,286 @@ def phase_metrics(tta_dets, kitti_det, kitti_boxes):
         f"{test['Car']['3d']}, BEV {test['Car']['bev']}")
 
 
+# the aux objectives (phases 44-46) and the Swin-T preset (47-49)
+AUX_LOGS = ("aux_seg_loss", "aux_consistency_loss", "aux_loss")
+
+
+def phase_aux_small_train(dev):
+    """Phase 44: phases 17, 22 and 29's small fused training steps with the
+    aux objectives, card against CPU (`small_step_card_vs_cpu`: the aux
+    head's leaves among the gradients and updated parameters, the three
+    aux logs among the logs)."""
+    for label, run in (("CenterPoint + 3D-DF", phase_small_fused_train),
+                       ("TransFusion + 3D-DF",
+                        phase_small_transfusion_fused_train),
+                       ("Voxel R-CNN + 3D-DF", phase_small_kitti_train)):
+        cpu, _ = run(dev, aux=True)
+        logs, grads = cpu[0], cpu[1]
+        check(all(k in logs for k in AUX_LOGS),
+              f"{label}, aux: logs {sorted(logs)}")
+        head = [n for n in grads if ".aux_seg." in f".{n}"]
+        check(len(head) == 4 and all(grads[n].abs().max() > 0
+                                     for n in head),
+              f"{label}, aux: the aux head's gradients {head}")
+
+
+def check_launches(label, run):
+    """`run()` with every K1 launch (forward and input gradient) and K2
+    launch (forward and backward) captured, then each held against its
+    plain version (`k1_check`, `k2_check`, `k2_bwd_check`: the tolerances
+    of phases 4, 7 and 18, repeat launches bit for bit). Returns the
+    launch counts and the largest errors of K1 and K2."""
+    from df3d_torch.ops import msda_kernel as K2
+    from df3d_torch.ops import sparse_conv_kernel as K1
+
+    launchers = {"k1_fwd": (K1, "sparse_conv_cuda"),
+                 "k1_bwd": (K1, "sparse_conv_cuda_dx"),
+                 "k2_fwd": (K2, "msda_cuda"), "k2_bwd": (K2, "msda_bwd_cuda")}
+    saved = {k: getattr(m, a) for k, (m, a) in launchers.items()}
+    captured = {k: [] for k in launchers}
+
+    def recording(key):
+        def wrapped(*args):
+            captured[key].append(tuple(
+                a.clone() if torch.is_tensor(a) else a for a in args))
+            return saved[key](*args)
+        return wrapped
+
+    for key, (mod, attr) in launchers.items():
+        setattr(mod, attr, recording(key))
+    try:
+        run()
+    finally:
+        for key, (mod, attr) in launchers.items():
+            setattr(mod, attr, saved[key])
+    torch.cuda.synchronize()
+    err = {"k1": 0.0, "k2": 0.0}
+    for key in ("k1_fwd", "k1_bwd"):
+        for i, (f, idx, w) in enumerate(captured[key]):
+            err["k1"] = max(err["k1"], k1_check(
+                f"{label}: K1 {key} launch {i}", saved[key],
+                K1.sparse_conv_plain, f, idx, w)[2])
+    for i, args in enumerate(captured["k2_fwd"]):
+        err["k2"] = max(err["k2"], k2_check(
+            f"{label}: K2 forward launch {i}", saved["k2_fwd"],
+            K2.msda_plain, *args)[2])
+    for i, args in enumerate(captured["k2_bwd"]):
+        err["k2"] = max(err["k2"], k2_bwd_check(
+            f"{label}: K2 backward launch {i}", saved["k2_bwd"],
+            K2.msda_bwd_plain, *args)[0])
+    counts = {k: len(v) for k, v in captured.items()}
+    log(f"{label}: launches {counts}, each against its plain version: max "
+        f"abs err K1 {err['k1']:.3g}, K2 {err['k2']:.3g}; repeat launches "
+        "bit for bit")
+    return counts, err
+
+
+def aux_full_cases(dev):
+    """(label, build(aux) -> (state, step), batch, step args, K2 per
+    step, K1 counts) of phase 45's three presets at full width."""
+    from df3d_torch.entry import (
+        build_voxelrcnn3ddf_trainer, centerpoint_3ddf_nusc, fused_config,
+        transfusion_3ddf_nusc, voxel_rcnn_3ddf_kitti,
+    )
+
+    def nusc(transfusion):
+        def build(aux):
+            return full_fused_train_setup(dev, transfusion=transfusion,
+                                          with_batch=False, aux=aux)[2:4]
+        return build
+
+    kitti = voxel_rcnn_3ddf_kitti()
+    gen = torch.Generator(device=dev)
+    yield ("centerpoint_3ddf_nusc", nusc(False),
+           lambda: full_fused_batch(dev, fused_config(
+               centerpoint_3ddf_nusc())), (), 1,
+           (K1_PER_FRAME, K1_BWD_PER_STEP))
+    yield ("transfusion_3ddf_nusc", nusc(True),
+           lambda: full_fused_batch(dev, fused_config(
+               transfusion_3ddf_nusc())), (),
+           K2_PER_TRANSFUSION_FUSED_FRAME, (K1_PER_FRAME, K1_BWD_PER_STEP))
+    yield ("voxel_rcnn_3ddf_kitti",
+           lambda aux: build_voxelrcnn3ddf_trainer(
+               kitti["lidar"], fused_config(kitti), dev, seed=0, aux=aux),
+           lambda: kitti_train_batch(dev, fused=True), (gen,), 1,
+           (K1_PER_KITTI_FRAME, K1_BWD_PER_KITTI_STEP))
+
+
+def phase_aux_full(dev):
+    """Phase 45: the three fused presets' training steps at full width
+    (`centerpoint_3ddf_nusc` and `transfusion_3ddf_nusc` at batch 4 x six
+    448x800 cameras, `voxel_rcnn_3ddf_kitti` at batch 2) with the aux
+    objectives, each beside its aux-off step in this process, the same
+    weights but the head: ms/step (2 warm-up + 3 timed,
+    `phase_fused_train_path` without its profile), the split with the
+    `aux` stage (the head, the FG render and the two losses), peak memory,
+    the aux logs finite; the kernels' launch counts equal the aux-off
+    step's, and every launch of one aux step held against its plain
+    version (`check_launches`). Returns {preset: (aux-off, aux-on)
+    results} and the largest errors."""
+    out, err = {}, {"k1": 0.0, "k2": 0.0}
+    for label, build, batch_fn, args, k2, k1 in aux_full_cases(dev):
+        batch = batch_fn()
+        runs = []
+        for aux in (False, True):
+            state, step = build(aux)
+            if args:
+                args[0].manual_seed(7)
+            if aux:
+                counts, e = check_launches(
+                    f"{label}, aux step",
+                    lambda: step.grads(state, batch, *args))
+                err = {k: max(err[k], e[k]) for k in err}
+                check(counts == runs[0]["per_step"],
+                      f"{label}: aux step launches {counts}, aux off "
+                      f"{runs[0]['per_step']}")
+            res = phase_fused_train_path(
+                state, step, batch,
+                getattr(state.model, "rpn", state.model).fused, k2,
+                f"{label} train path, aux {'on' if aux else 'off'}", args,
+                k1, caps_drop=bool(args), timed_steps=3, profile=False)
+            res["per_step"] = {k: res[k] // 3 for k in
+                               ("k1_fwd", "k1_bwd", "k2_fwd", "k2_bwd")}
+            if aux:
+                check(all(np.isfinite(res["logs"][k]) for k in AUX_LOGS)
+                      and "aux" in res["split"],
+                      f"{label}: aux logs {res['logs']}, split "
+                      f"{res['split']}")
+            runs.append(res)
+            del state, step
+            torch.cuda.empty_cache()
+        off, on = runs
+        log(f"{label}: aux off {off['ms']:.3f} ms/step, peak "
+            f"{off['peak_gib']:.3f} GiB; aux on {on['ms']:.3f} ms/step, peak "
+            f"{on['peak_gib']:.3f} GiB, aux stage {on['split']['aux']:.3f} "
+            f"ms; aux logs " + ", ".join(f"{k} {on['logs'][k]:.5f}"
+                                         for k in AUX_LOGS))
+        out[label] = runs
+        del batch
+    return out, err
+
+
+def phase_aux_dp(dev):
+    """Phase 46: phase 34 with the aux objectives, for the three fused
+    small steps (`AUX_DP_STEPS`): the consistency and segmentation
+    normalizers over the global batch."""
+    phase_small_dp_train(dev, AUX_DP_STEPS, tag="aux")
+
+
+def swin_configs():
+    """(TransFusion-L, its FusedConfig) of `transfusion_3ddf_swin_nusc` at
+    the serving stage caps of `full_transfusion_configs`."""
+    from df3d_torch.entry import fused_config, transfusion_3ddf_swin_nusc
+
+    preset = transfusion_3ddf_swin_nusc()
+    cfg = dataclasses.replace(preset["lidar"],
+                              max_voxels=REALISTIC_STAGE_CAPS[0],
+                              stage_caps=REALISTIC_STAGE_CAPS)
+    return cfg, fused_config(preset)
+
+
+def phase_swin_small(dev):
+    """Phase 47: phase 11's check with the Swin-T branch: the small
+    TransFusion + 3D-DF input, card against the CPU's plain path, Swin-T
+    narrowed (one block a stage, width 24) on two 64x112 cameras."""
+    from df3d_torch.entry import (
+        build_transfusion3ddf, fused_config, infer_transfusion_fused,
+        random_points, transfusion_3ddf_swin_nusc,
+    )
+
+    cfg = small_transfusion_config()
+    preset = transfusion_3ddf_swin_nusc()
+    fcfg = fused_config(preset, image_shape=(64, 112), num_cams=2,
+                        swin_depths=(1, 1, 1, 1), swin_dim=24,
+                        actr=dataclasses.replace(preset["actr"],
+                                                 lt_npoint=64))
+    frame = random_points(np.random.RandomState(3), 1, 2000)[0]
+    transfusion_card_vs_cpu(
+        "small Swin TransFusion + 3D-DF input",
+        lambda d: build_transfusion3ddf(cfg, fcfg, d, seed=0), cfg,
+        list(fused_inputs(frame, fcfg.num_cams, fcfg.image_shape, "cpu", 0)),
+        infer_transfusion_fused, dev)
+
+
+def phase_swin_full(dev, frames):
+    """Phase 48: `transfusion_3ddf_swin_nusc` at full width on six 448x800
+    cameras: every K1 and K2 launch of one frame against its plain version
+    (`check_launches`: 16 and 2), then `phase_fused_main_path` (3 warm-up
+    and 5 timed frames, the split with `image_branch`); then a seeded
+    synthetic mmdet TransFusion + Swin checkpoint
+    (`mmdet_transfusion_swin_state_dict`, full width, written with
+    torch.save) built through `entry.build_transfusion3ddf(...,
+    checkpoint=)`: its image branch and LiDAR detector equal the source's,
+    its fusion hook the seeded one, and one frame of it finite. Returns
+    the timed path's launches and the largest errors."""
+    from df3d_torch.entry import build_transfusion3ddf, infer_transfusion_fused
+    from df3d_torch.models.detectors.fused import TransFusion3DDF
+
+    cfg, fcfg = swin_configs()
+    model = build_transfusion3ddf(cfg, fcfg, dev, seed=0)
+    inputs = fused_inputs(frames[0], fcfg.num_cams, fcfg.image_shape, dev, 10)
+    counts, err = check_launches(
+        "Swin TransFusion + 3D-DF frame",
+        lambda: infer_transfusion_fused(model, cfg, *inputs))
+    check(counts == {"k1_fwd": K1_PER_FRAME, "k1_bwd": 0,
+                     "k2_fwd": K2_PER_TRANSFUSION_FUSED_FRAME, "k2_bwd": 0},
+          f"Swin frame launches {counts}")
+    launches = phase_fused_main_path(
+        "Swin TransFusion + 3D-DF path", model, cfg, fcfg, frames, dev,
+        infer_transfusion_fused, cfg.head.num_proposals,
+        K2_PER_TRANSFUSION_FUSED_FRAME)
+    hook = {k: v.cpu() for k, v in model.state_dict().items()
+            if ".fusion_hook." in k}
+    del model
+    torch.cuda.empty_cache()
+
+    source = TransFusion3DDF(cfg, fcfg).init_weights(
+        torch.Generator().manual_seed(1))
+    ref = mmdet_transfusion_swin_state_dict(source)
+    path = Path(__file__).resolve().parent / "build" / "swin_ckpt.pth"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    torch.save({"state_dict": ref}, path)
+    built = build_transfusion3ddf(cfg, fcfg, dev, seed=0,
+                                  checkpoint=str(path))
+    path.unlink()
+    want = dict(source.state_dict(), **hook)
+    check_imported("Swin checkpoint", (built,), (want,))
+    det, _ = infer_transfusion_fused(built, cfg, *inputs)
+    check(all(torch.isfinite(v).all() for v in det.values()
+              if v.is_floating_point()), "Swin checkpoint frame: non-finite")
+    log(f"Swin checkpoint: {len(ref)} mmdet keys imported through "
+        f"checkpoint=, every entry equal to the source's (the fusion hook's "
+        f"the seeded ones); one frame finite, "
+        f"{int(det['boxes'].shape[1])} boxes")
+    del built, source
+    torch.cuda.empty_cache()
+    return launches, err
+
+
+def phase_swin_train(dev):
+    """Phase 49: the Swin preset's training step at batch 4 x six 448x800
+    cameras: every launch of one step against its plain version (K1 16 +
+    15, K2 2 + 2), then `phase_fused_train_path` (2 warm-up + 3 timed
+    steps, the split, peak memory). Returns its counts and the largest
+    errors."""
+    from df3d_torch.entry import transfusion_3ddf_swin_nusc
+
+    _, fcfg, state, step, batch = full_fused_train_setup(
+        dev, preset=transfusion_3ddf_swin_nusc())
+    counts, err = check_launches("Swin train step",
+                                 lambda: step.grads(state, batch))
+    k2 = K2_PER_TRANSFUSION_FUSED_FRAME
+    check(counts == {"k1_fwd": K1_PER_FRAME, "k1_bwd": K1_BWD_PER_STEP,
+                     "k2_fwd": k2, "k2_bwd": k2},
+          f"Swin train step launches {counts}")
+    res = phase_fused_train_path(state, step, batch, fcfg, k2,
+                                 "Swin TransFusion + 3D-DF train path",
+                                 timed_steps=3, profile=False)
+    del state, step, batch
+    torch.cuda.empty_cache()
+    return res, err
+
+
 def f32_backends():
     """TF32 off for matmuls and cuDNN convs, cuDNN's algorithms timed: the
     settings of every process that runs a phase (a spawned rank too)."""
@@ -4445,10 +4847,36 @@ def main():
         entry["max_abs_err"] = max(entry["max_abs_err"],
                                    extra["max_abs_err"])
     k2["launches_by_path"]["imported"] = 0
+    torch.cuda.empty_cache()
+
+    # the aux objectives (phases 44-46) and the Swin-T preset (47-49):
+    # "aux_<preset>" counts phase 45's timed aux steps, "swin" phase 48's
+    # timed frames, "swin_train" phase 49's timed steps
+    def timed_phase(n, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        log(f"phase {n}: {time.perf_counter() - t:.1f} s")
+        return out
+
+    timed_phase(44, phase_aux_small_train, dev)
+    aux_runs, aux_err = timed_phase(45, phase_aux_full, dev)
+    timed_phase(46, phase_aux_dp, dev)
+    timed_phase(47, phase_swin_small, dev)
+    swin_launches, swin_err = timed_phase(48, phase_swin_full, dev, frames)
+    swin_train, swin_train_err = timed_phase(49, phase_swin_train, dev)
+    for entry, kernel, name in ((k1, K1, "k1"), (k2, K2, "k2")):
+        for preset, (_, on) in aux_runs.items():
+            entry["launches_by_path"][f"aux_{preset}"] = (
+                on[f"{name}_fwd"] + on[f"{name}_bwd"])
+        entry["launches_by_path"]["swin"] = swin_launches[kernel]
+        entry["launches_by_path"]["swin_train"] = (
+            swin_train[f"{name}_fwd"] + swin_train[f"{name}_bwd"])
+        entry["max_abs_err"] = max(entry["max_abs_err"], aux_err[name],
+                                   swin_err[name], swin_train_err[name])
     for entry in (k1, k2):
         entry["launches"] = sum(entry["launches_by_path"].values())
 
-    log(f"card: {card}")
+    print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": [k1, k2, k1_bf16]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -53,10 +53,13 @@
   (`train.trainer.DataParallelTrainStep`), NCCL with one card a rank, or
   gloo CPU processes with `device="cpu"`.
 * `voxel_rcnn_car_kitti()`, `voxel_rcnn_3ddf_kitti()`,
-  `centerpoint_3ddf_nusc()`, `transfusion_l_nusc()` and
-  `transfusion_3ddf_nusc()` are the port's copies of the JAX package's
-  presets of those names; `fused_config(preset)` the `FusedConfig` the JAX
-  package builds for a fused preset.
+  `centerpoint_3ddf_nusc()`, `transfusion_l_nusc()`,
+  `transfusion_3ddf_nusc()` and `transfusion_3ddf_swin_nusc()` are the
+  port's copies of the JAX package's presets of those names;
+  `fused_config(preset)` the `FusedConfig` the JAX package builds for a
+  fused preset. `build_transfusion3ddf(..., checkpoint=)` reads an mmdet
+  TransFusion + Swin checkpoint for a Swin preset
+  (`train.import_transfusion.import_transfusion_3ddf_swin`).
 
 Everything runs on the card unless the caller passes `device="cpu"`; with
 no card, the default raises.
@@ -64,6 +67,7 @@ no card, the default raises.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -96,7 +100,9 @@ from df3d_torch.ops.voxelize import voxelize_batch
 from df3d_torch.parallel import ddp
 from df3d_torch.serving import apply_profile
 from df3d_torch.train.import_centerpoint import import_centerpoint
-from df3d_torch.train.import_transfusion import import_transfusion
+from df3d_torch.train.import_transfusion import (
+    import_transfusion, import_transfusion_3ddf_swin,
+)
 from df3d_torch.train.import_voxelrcnn import import_voxelrcnn
 from df3d_torch.train.schedules import adam_onecycle
 from df3d_torch.train.torch_import import load_torch_checkpoint
@@ -153,20 +159,45 @@ def build_centerpoint_trainer(cfg: CenterPointConfig, device=None,
     return state, make_centerpoint_train_step(cfg)
 
 
+def _aux_fcfg(fcfg: FusedConfig, aux: bool,
+              with_aux_seg: bool | None) -> FusedConfig:
+    """`fcfg` with the aux head when `aux` or `with_aux_seg` asks for it
+    (`with_aux_seg` None: as `aux`)."""
+    head = aux if with_aux_seg is None else with_aux_seg
+    if aux and not head:
+        raise ValueError("aux=True needs the aux head (with_aux_seg)")
+    return dataclasses.replace(fcfg, with_aux_seg=fcfg.with_aux_seg or head)
+
+
+def _fused_trainer(model_cls, cfg, fcfg, device, seed, aux, with_aux_seg,
+                   aux_seg_weight, aux_consistency_weight):
+    device = resolve_device(device)
+    fcfg = _aux_fcfg(fcfg, aux, with_aux_seg)
+    model = model_cls(cfg, fcfg).init_weights(
+        torch.Generator().manual_seed(seed))
+    state = create_train_state(model.to(device).train(),
+                               adam_onecycle(1e-3, 2000))
+    return state, make_fused_train_step(
+        cfg, aux, fcfg.image_shape, aux_seg_weight, aux_consistency_weight)
+
+
 def build_centerpoint3ddf_trainer(cfg: CenterPointConfig, fcfg: FusedConfig,
-                                  device=None, seed: int = 0
+                                  device=None, seed: int = 0,
+                                  aux: bool = False,
+                                  with_aux_seg: bool | None = None,
+                                  aux_seg_weight: float = 1.0,
+                                  aux_consistency_weight: float = 0.1
                                   ) -> tuple[TrainState, FusedTrainStep]:
     """(state, step) for training CenterPoint + 3D-DF on `device` from
     random weights drawn from `seed` (as `build_centerpoint3ddf` draws
     them), with `build_centerpoint_trainer`'s AdamW and OneCycle; the
-    state's parameters leave out the frozen image branch. Other schedules:
+    state's parameters leave out the frozen image branch. `aux` adds the
+    aux objectives, the images being `fcfg.image_shape` (the aux head's
+    weights drawn after all others). Other schedules:
     `create_train_state(model, adam_onecycle(...))`."""
-    device = resolve_device(device)
-    model = CenterPoint3DDF(cfg, fcfg).init_weights(
-        torch.Generator().manual_seed(seed))
-    state = create_train_state(model.to(device).train(),
-                               adam_onecycle(1e-3, 2000))
-    return state, make_fused_train_step(cfg)
+    return _fused_trainer(CenterPoint3DDF, cfg, fcfg, device, seed, aux,
+                          with_aux_seg, aux_seg_weight,
+                          aux_consistency_weight)
 
 
 def build_transfusion_trainer(cfg: TransFusionConfig, device=None,
@@ -184,18 +215,20 @@ def build_transfusion_trainer(cfg: TransFusionConfig, device=None,
 
 
 def build_transfusion3ddf_trainer(cfg: TransFusionConfig, fcfg: FusedConfig,
-                                  device=None, seed: int = 0
+                                  device=None, seed: int = 0,
+                                  aux: bool = False,
+                                  with_aux_seg: bool | None = None,
+                                  aux_seg_weight: float = 1.0,
+                                  aux_consistency_weight: float = 0.1
                                   ) -> tuple[TrainState, FusedTrainStep]:
     """(state, step) for training TransFusion + 3D-DF on `device` from
     random weights drawn from `seed` (as `build_transfusion3ddf` draws
     them), with `build_centerpoint_trainer`'s AdamW and OneCycle; the
-    state's parameters leave out the frozen image branch."""
-    device = resolve_device(device)
-    model = TransFusion3DDF(cfg, fcfg).init_weights(
-        torch.Generator().manual_seed(seed))
-    state = create_train_state(model.to(device).train(),
-                               adam_onecycle(1e-3, 2000))
-    return state, make_fused_train_step(cfg)
+    state's parameters leave out the frozen image branch. `aux` as for
+    `build_centerpoint3ddf_trainer`."""
+    return _fused_trainer(TransFusion3DDF, cfg, fcfg, device, seed, aux,
+                          with_aux_seg, aux_seg_weight,
+                          aux_consistency_weight)
 
 
 def _serve(model, cfg, predict, stage: str, points, valid, *model_inputs):
@@ -287,10 +320,22 @@ def infer_transfusion(model: TransFusionL, cfg: TransFusionConfig,
 
 
 def build_transfusion3ddf(cfg: TransFusionConfig, fcfg: FusedConfig,
-                          device=None, seed: int = 0) -> TransFusion3DDF:
+                          device=None, seed: int = 0,
+                          checkpoint: str | None = None) -> TransFusion3DDF:
+    """TransFusion + 3D-DF on `device` with random weights drawn from
+    `seed`, in eval mode. With a Swin image branch, `checkpoint` (.pth) is
+    an mmdet TransFusion + Swin checkpoint: its image backbone, neck and
+    LiDAR detector replace those weights (the fusion hook, which it does
+    not hold, keeps the seeded ones)."""
     device = resolve_device(device)
     model = TransFusion3DDF(cfg, fcfg).init_weights(
         torch.Generator().manual_seed(seed))
+    if checkpoint is not None:
+        if fcfg.image_branch != "swin":
+            raise ValueError("build_transfusion3ddf reads a checkpoint for "
+                             "the Swin image branch only")
+        model.load_state_dict(import_transfusion_3ddf_swin(
+            model, load_torch_checkpoint(checkpoint)))
     return model.to(device).eval()
 
 
@@ -340,10 +385,10 @@ def build_voxelrcnn3ddf(cfg: VoxelRCNNConfig, fcfg: FusedConfig,
     return rpn, _voxelrcnn_head(cfg, g, device)
 
 
-def _voxelrcnn_trainer(rpn, head, cfg, fused: bool):
+def _voxelrcnn_trainer(rpn, head, cfg, fused: bool, **aux):
     model = VoxelRCNNTwoStage(rpn, head).train()
     state = create_train_state(model, adam_onecycle(1e-3, 2000))
-    return state, make_voxelrcnn_train_step(cfg, fused)
+    return state, make_voxelrcnn_train_step(cfg, fused, **aux)
 
 
 def build_voxelrcnn_trainer(cfg: VoxelRCNNConfig, device=None, seed: int = 0
@@ -357,14 +402,21 @@ def build_voxelrcnn_trainer(cfg: VoxelRCNNConfig, device=None, seed: int = 0
 
 
 def build_voxelrcnn3ddf_trainer(cfg: VoxelRCNNConfig, fcfg: FusedConfig,
-                                device=None, seed: int = 0
+                                device=None, seed: int = 0,
+                                aux: bool = False,
+                                with_aux_seg: bool | None = None,
+                                aux_seg_weight: float = 1.0,
+                                aux_consistency_weight: float = 0.1
                                 ) -> tuple[TrainState, VoxelRCNNTrainStep]:
     """As `build_voxelrcnn_trainer`, for Voxel R-CNN + 3D-DF (weights as
     `build_voxelrcnn3ddf` draws them); the state's parameters leave out the
     frozen image branch, and the batch carries images (B, H, W, 3) and proj
-    (B, 3, 4)."""
-    return _voxelrcnn_trainer(*build_voxelrcnn3ddf(cfg, fcfg, device, seed),
-                              cfg, fused=True)
+    (B, 3, 4). `aux` as for `build_centerpoint3ddf_trainer`."""
+    fcfg = _aux_fcfg(fcfg, aux, with_aux_seg)
+    return _voxelrcnn_trainer(
+        *build_voxelrcnn3ddf(cfg, fcfg, device, seed), cfg, fused=True,
+        aux=aux, image_hw=fcfg.image_shape, aux_seg_weight=aux_seg_weight,
+        aux_consistency_weight=aux_consistency_weight)
 
 
 @torch.no_grad()
@@ -460,14 +512,23 @@ def transfusion_3ddf_nusc() -> dict:
     }
 
 
+def transfusion_3ddf_swin_nusc() -> dict:
+    """The JAX package's `transfusion_3ddf_swin_nusc` preset (the
+    reference README's Swin-Tiny row): `transfusion_3ddf_nusc` with a
+    Swin-T + FPN image branch."""
+    return dict(transfusion_3ddf_nusc(), image_branch="swin")
+
+
 def fused_config(preset: dict, **overrides) -> FusedConfig:
     """A `FusedConfig` for a fused preset, as the JAX package's
-    `build_detector` makes it: the ResNet-50 image branch (ResNet + FPN for
-    a TransFusion preset, DeepLabV3 taps at stride 8 otherwise), one camera
-    unless the preset says otherwise, IFAT on, fusion at the stage-4
-    stride."""
-    branch = ("resnet_fpn" if isinstance(preset["lidar"], TransFusionConfig)
-              else "deeplabv3")
+    `build_detector` makes it: the preset's image branch, else ResNet-50
+    (ResNet + FPN for a TransFusion preset, DeepLabV3 taps at stride 8
+    otherwise), one camera unless the preset says otherwise, IFAT on,
+    fusion at the stage-4 stride. `overrides` set other fields (e.g.
+    `with_aux_seg`)."""
+    branch = preset.get("image_branch", (
+        "resnet_fpn" if isinstance(preset["lidar"], TransFusionConfig)
+        else "deeplabv3"))
     fields = dict(image_shape=preset["image_shape"], image_branch=branch,
                   image_layers=(3, 4, 6, 3), n_levels=preset["actr"].n_levels,
                   num_cams=preset.get("num_cams", 1), actr=preset["actr"],

@@ -14,9 +14,18 @@ The image branch is frozen, as the JAX package's default
 `freeze_image_branch` freezes it: it stays in eval mode after `.train()`,
 runs under `torch.no_grad()` on its running statistics and has
 `requires_grad=False` parameters (the JAX package's `stop_gradient` on its
-features). Not ported here: an image branch that trains (no configuration
-of either package asks for one), the 'swin', 'dla' and 'regnet' image
-branches and the auxiliary segmentation head.
+features). The 'swin' branch (`transfusion_3ddf_swin_nusc`) is Swin-T and
+an FPN over its four stages.
+
+With `with_aux_seg` the detectors carry the auxiliary segmentation head
+(`fusion.aux_heads.AuxSegHead`) on the image branch's first scale, folded
+over the cameras; it sits on the frozen branch's features, so only the
+head trains. It runs only when a training step passes an `aux` dict to
+the forward, which then holds the head's logits (`seg_logits`) and the
+fusion point's consistency pairs (`consistency`); a serving forward does
+not compute it. Not ported here: an image branch that trains (no
+configuration of either package asks for one) and the 'dla' and 'regnet'
+image branches.
 """
 
 from __future__ import annotations
@@ -35,6 +44,7 @@ from df3d_torch.models.detectors.transfusion import (
 )
 from df3d_torch.models.detectors.voxel_rcnn import VoxelRCNN, VoxelRCNNConfig
 from df3d_torch.models.fusion.actr import ACTR, ACTRConfig
+from df3d_torch.models.fusion.aux_heads import AuxSegHead
 from df3d_torch.models.fusion.hooks import (
     ACTRFusionSpec, MultiCamACTRFusionHook,
 )
@@ -42,8 +52,9 @@ from df3d_torch.models.fusion.msda_module import (
     MSDeformAttnModule, offset_bias_grid,
 )
 from df3d_torch.models.image.resnet import (
-    FPN_CHANNELS, ResNetFPN, SemDeepLabV3,
+    FPN, FPN_CHANNELS, ResNetFPN, SemDeepLabV3,
 )
+from df3d_torch.models.image.swin import SwinTransformer, WindowAttention
 from df3d_torch.models.layers import flax_trunc_normal_
 from df3d_torch.utils import stages
 
@@ -54,13 +65,18 @@ _TAP_CHANNELS = (32, 64, 128)
 @dataclasses.dataclass(frozen=True)
 class FusedConfig:
     image_shape: tuple = (375, 1242)     # KITTI default
-    image_branch: str = "deeplabv3"      # 'deeplabv3' | 'resnet_fpn'
+    # 'deeplabv3' | 'resnet_fpn' | 'swin' (Swin-T + FPN)
+    image_branch: str = "deeplabv3"
     image_layers: tuple = (3, 4, 6, 3)   # ResNet-50
+    swin_depths: tuple = (2, 2, 6, 2)    # Swin-T's blocks per stage
+    swin_dim: int = 96                   # and its embedding width
     n_levels: int = 3
     num_cams: int = 1
     actr: ACTRConfig = ACTRConfig()
     use_ifat: bool = True
     fusion_downsample: int = 8
+    # the auxiliary FG segmentation head over the first image scale
+    with_aux_seg: bool = False
 
 
 class ImageBranch(nn.Module):
@@ -75,14 +91,24 @@ class ImageBranch(nn.Module):
         elif self.kind == "resnet_fpn":
             self.img = ResNetFPN(layers=cfg.image_layers)
             self.channels = (FPN_CHANNELS,) * self.n_levels
+        elif self.kind == "swin":
+            self.swin = SwinTransformer(cfg.image_shape,
+                                        embed_dim=cfg.swin_dim,
+                                        depths=cfg.swin_depths)
+            self.swin_fpn = FPN(self.swin.stage_channels)
+            self.channels = (FPN_CHANNELS,) * self.n_levels
         else:
             raise NotImplementedError(
-                f"image_branch {self.kind!r}: only 'deeplabv3' and "
-                "'resnet_fpn' are ported")
+                f"image_branch {self.kind!r}: only 'deeplabv3', "
+                "'resnet_fpn' and 'swin' are ported")
 
     def forward(self, images: torch.Tensor) -> list[torch.Tensor]:
         if self.kind == "resnet_fpn":
             return self.img(images, self.n_levels)
+        if self.kind == "swin":
+            outs = self.swin_fpn([s.permute(0, 3, 1, 2)
+                                  for s in self.swin(images)], self.n_levels)
+            return [o.permute(0, 2, 3, 1) for o in outs]
         feats = self.sem(images)
         return [feats["layer1"], feats["layer2"],
                 feats["layer3"]][:self.n_levels]
@@ -107,20 +133,35 @@ class _CameraLidar3DDF(nn.Module):
             image_channels=self.image_branch.channels,
             mvx_channels=mvx_channels)
         self.detector = detector_cls(cfg, fusion_hook=hook)
+        if fused.with_aux_seg:
+            self.aux_seg = AuxSegHead(self.image_branch.channels[0])
 
     def forward(self, voxel_features: torch.Tensor,
                 voxel_coords: torch.Tensor, images: torch.Tensor,
-                proj: torch.Tensor):
+                proj: torch.Tensor, aux: dict | None = None):
         """images (B, n_cam, H, W, 3) normalized; proj (B, n_cam, 3, 4)
-        lidar -> image. Returns what the detector returns."""
+        lidar -> image. Returns what the detector returns. With an `aux`
+        dict (a training step's aux objectives), the forward also puts the
+        head's logits over the cameras folded into the batch, (B * n_cam,
+        Hf, Wf, 1), under "seg_logits", and the fusion hook's consistency
+        pairs, a list, under "consistency"."""
         b, nc = images.shape[:2]
         flat = images.reshape(b * nc, *images.shape[2:])
         with torch.no_grad():
             feats = self.image_branch(flat)
-        feats = [f.reshape(b, nc, *f.shape[1:]) for f in feats]
         stages.mark("image_branch")
+        fusion_kwargs = {}
+        if aux is not None:
+            if not hasattr(self, "aux_seg"):
+                raise ValueError("aux objectives need a model built with "
+                                 "FusedConfig.with_aux_seg=True")
+            aux["seg_logits"] = self.aux_seg(feats[0])
+            aux["consistency"] = fusion_kwargs["aux_pairs"] = []
+            stages.mark("aux")
+        feats = [f.reshape(b, nc, *f.shape[1:]) for f in feats]
         return self.detector(voxel_features, voxel_coords,
-                             fusion_kwargs=dict(image_feats=feats, proj=proj))
+                             fusion_kwargs=dict(image_feats=feats, proj=proj,
+                                                **fusion_kwargs))
 
     def train(self, mode: bool = True):
         """As `nn.Module.train`, but the frozen image branch stays in eval
@@ -147,6 +188,13 @@ class _CameraLidar3DDF(nn.Module):
                 flax_trunc_normal_(m.weight, cin * kh * kw, 1.0, generator)
                 if m.bias is not None:
                     m.bias.zero_()
+            elif isinstance(m, nn.Linear):  # Swin's
+                flax_trunc_normal_(m.weight, m.in_features, 1.0, generator)
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, WindowAttention):
+                m.rel_bias.copy_(0.02 * torch.randn(m.rel_bias.shape,
+                                                    generator=generator))
         hook = next(m for m in self.detector.modules()
                     if isinstance(m, MultiCamACTRFusionHook))
         for m in hook.modules():
@@ -160,6 +208,8 @@ class _CameraLidar3DDF(nn.Module):
             if isinstance(m, MSDeformAttnModule):
                 m.sampling_offsets.bias.copy_(offset_bias_grid(
                     m.n_heads, m.n_levels, m.n_points))
+        if hasattr(self, "aux_seg"):
+            self.aux_seg.init_weights(generator)
         return self
 
 
@@ -178,11 +228,12 @@ class VoxelRCNN3DDF(_CameraLidar3DDF):
 
     def forward(self, voxel_features: torch.Tensor,
                 voxel_coords: torch.Tensor, images: torch.Tensor,
-                proj: torch.Tensor):
+                proj: torch.Tensor, aux: dict | None = None):
         """images (B, H, W, 3) normalized; proj (B, 3, 4) lidar -> image.
-        -> (preds, overflow) as `VoxelRCNN`."""
+        -> (preds, overflow) as `VoxelRCNN`; `aux` as for the
+        multi-camera detectors."""
         return super().forward(voxel_features, voxel_coords,
-                               images[:, None], proj[:, None])
+                               images[:, None], proj[:, None], aux)
 
 
 class CenterPoint3DDF(_CameraLidar3DDF):

@@ -13,6 +13,13 @@ The hook is a module whose children (`mvx_proj`, `ifat`, `actr`,
 `actr_out_proj`) sit under the backbone, where flax puts them. The
 bilinear image query is not on a ported path and is not ported.
 
+Given a list `aux_pairs` (a training step's aux objectives), the ACTR
+fusion point appends its consistency pair, the counterpart of the JAX
+package's `sow("intermediates", "aux_consistency", ...)`: the voxel
+features ahead of the sum, the cameras' summed enhancement and the voxels
+any camera sees. With one camera that is the single-camera hook's pair
+(the features, the masked enhancement, the mask); MVX gives none.
+
 Gradients in training, as JAX's autodiff gives them: the image query reads
 the frozen image branch's features and gets none; the IFAT gate's splat
 passes it back to the winning voxel of each pixel (`splat_to_image`) and so
@@ -106,8 +113,8 @@ class MultiCamACTRFusionHook(nn.Module):
         return uv, mask_f, cam_feats, gather_image_query(cam_feats, uv,
                                                          mask_f)
 
-    def forward(self, st: SparseTensor, image_feats, proj,
-                stage=None) -> SparseTensor:
+    def forward(self, st: SparseTensor, image_feats, proj, stage=None,
+                aux_pairs: list | None = None) -> SparseTensor:
         b, n, c = st.features.shape
         nc = self.num_cams
         if stage == "conv1":
@@ -139,5 +146,8 @@ class MultiCamACTRFusionHook(nn.Module):
         enh = self.actr_out_proj(enh) * mask_f[..., None]
         # sum the cameras' contributions (det3d sum-scatter)
         enh_sum = enh.reshape(b, nc, n, c).sum(1)
+        if aux_pairs is not None:
+            aux_pairs.append((st.features, enh_sum,
+                              mask_f.reshape(b, nc, n).any(1)))
         stages.mark("msda_actr")
         return st.with_features(st.features + enh_sum)

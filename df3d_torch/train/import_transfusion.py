@@ -1,14 +1,16 @@
-"""TransFusion-L (mmdet3d) checkpoint importer (port of
-df3d/train/import_transfusion.py:1-215): an mmdet3d state dict straight
-into the port's `TransFusionL`.
+"""TransFusion-L (mmdet3d) and TransFusion + Swin checkpoint importers
+(port of df3d/train/import_transfusion.py): an mmdet3d state dict straight
+into the port's `TransFusionL`, or an mmdet TransFusion + Swin-T one into
+a `TransFusion3DDF` with the Swin image branch.
 
 mmdet3d's names (SparseEncoder's conv_input/encoder_layers/conv_out,
 SECOND's blocks, SECONDFPN's deblocks, TransFusionHead's shared_conv,
 heatmap_head, class_encoding, decoder and prediction_heads) map onto the
 JAX package's flax paths, with torch's packed MultiheadAttention in_proj
 split into query, key and value; `torch_import.imported_state_dict`
-carries them into the port's entries. The Swin image branch's importer is
-not ported.
+carries them into the port's entries. mmdet's Swin (`img_backbone.*`) and
+FPN (`img_neck.*`) names map onto the image branch's `swin` and
+`swin_fpn` the same way (`swin_name_map`, `fpn_name_map`).
 """
 
 from __future__ import annotations
@@ -17,7 +19,9 @@ from typing import Mapping
 
 import torch
 
+from df3d_torch.models.detectors.fused import TransFusion3DDF
 from df3d_torch.models.detectors.transfusion import TransFusionL
+from df3d_torch.models.image.swin import relative_index
 from df3d_torch.train.import_voxelrcnn import spconv_taps_auto
 from df3d_torch.train.torch_import import (
     TrackedStateDict, batchnorm, conv1d, conv2d, conv_bn_2d,
@@ -156,3 +160,101 @@ def import_transfusion(model: TransFusionL, torch_sd: Mapping
     sd = TrackedStateDict(torch_sd)
     params, stats = transfusion_name_map(model, sd)
     return imported_state_dict(model, sd, params, stats)
+
+
+# --- the Swin-T image branch (TransFusion-L + 3D-DF, Swin variant) ---------
+
+def _swin_merge_perm(arr: torch.Tensor, c: int) -> torch.Tensor:
+    """A leading 4C axis from mmdet's PatchMerging layout to the port's.
+    mmdet's `nn.Unfold` sampler is channel-major (index c * 4 + pos, pos =
+    ih * 2 + iw); the port's reshape-transpose merge is position-major
+    (pos * C + c) over the same positions: a (C, 4) -> (4, C) transpose."""
+    g = arr.reshape(c, 4, *arr.shape[1:])
+    return g.transpose(0, 1).reshape(arr.shape)
+
+
+def swin_name_map(sd: Mapping, prefix: str = "img_backbone.",
+                  depths=(2, 2, 6, 2), windows=None) -> dict:
+    """mmdet's SwinTransformer names -> the flax params tree of the JAX
+    package's `SwinTransformer` (LayerNorms only: no batch statistics).
+    The window attention's packed qkv is one Linear(3C), transposed; the
+    relative position bias table is copied as it is; PatchMerging's norm
+    and reduction are group-permuted (`_swin_merge_perm`). A checkpoint's
+    `relative_position_index` buffer, when it carries one, must equal the
+    port's index for the block's window (`windows[si]`, one per stage)."""
+    p = prefix
+
+    def ln(t):
+        return {"scale": sd[f"{t}.weight"], "bias": sd[f"{t}.bias"]}
+
+    def dense(t):
+        return {"kernel": linear(sd[f"{t}.weight"]), "bias": sd[f"{t}.bias"]}
+
+    out: dict = {
+        "patch_embed": {"kernel": conv2d(sd[f"{p}patch_embed.projection.weight"]),
+                        "bias": sd[f"{p}patch_embed.projection.bias"]},
+        "LayerNorm_0": ln(f"{p}patch_embed.norm"),
+    }
+    for si, depth in enumerate(depths):
+        for bi in range(depth):
+            t = f"{p}stages.{si}.blocks.{bi}"
+            a = f"{t}.attn.w_msa"
+            index = f"{a}.relative_position_index"
+            if index in sd and not torch.equal(
+                    sd[index].long(), relative_index(windows[si])):
+                raise ValueError(f"{index}: not the window-{windows[si]} "
+                                 "relative position index")
+            out[f"stage{si}_block{bi}"] = {
+                "LayerNorm_0": ln(f"{t}.norm1"),
+                "LayerNorm_1": ln(f"{t}.norm2"),
+                "attn": {"qkv": dense(f"{a}.qkv"),
+                         "rel_bias": sd[f"{a}.relative_position_bias_table"],
+                         "proj": dense(f"{a}.proj")},
+                "mlp0": dense(f"{t}.ffn.layers.0.0"),
+                "mlp1": dense(f"{t}.ffn.layers.1"),
+            }
+        out[f"out_norm{si}"] = ln(f"{p}norm{si}")
+        if si < len(depths) - 1:
+            t = f"{p}stages.{si}.downsample"
+            c = sd[f"{t}.norm.weight"].shape[0] // 4
+            out[f"merge_norm{si}"] = {
+                k: _swin_merge_perm(v, c) for k, v in ln(f"{t}.norm").items()}
+            out[f"merge{si}"] = {"kernel": _swin_merge_perm(
+                linear(sd[f"{t}.reduction.weight"]), c)}
+    return out
+
+
+def fpn_name_map(sd: Mapping, prefix: str = "img_neck.",
+                 n_ins: int = 4) -> dict:
+    """mmdet's FPN (lateral_convs, fpn_convs) -> the flax params tree of
+    the JAX package's `FPN`."""
+    out = {}
+    for i in range(n_ins):
+        for flax_name, torch_name in (("lateral", "lateral_convs"),
+                                      ("fpn", "fpn_convs")):
+            t = f"{prefix}{torch_name}.{i}.conv"
+            out[f"{flax_name}{i}"] = {"kernel": conv2d(sd[f"{t}.weight"]),
+                                      "bias": sd[f"{t}.bias"]}
+    return out
+
+
+def import_transfusion_3ddf_swin(model: TransFusion3DDF, torch_sd: Mapping
+                                 ) -> dict[str, torch.Tensor]:
+    """An mmdet TransFusion + Swin-T state dict (`img_backbone.*`,
+    `img_neck.*`, `pts_*`) -> the `state_dict` of `model`, a
+    `TransFusion3DDF` with the Swin image branch: the image branch and the
+    LiDAR detector from the checkpoint, strict both ways; the fusion hook
+    and an aux head, which the checkpoint does not hold, keep `model`'s
+    weights (as the JAX package's `import_transfusion_3ddf_swin` merges
+    into the variables it is given)."""
+    sd = TrackedStateDict(torch_sd)
+    swin = model.image_branch.swin
+    windows = [getattr(swin, f"stage{si}_block0").win
+               for si in range(len(swin.depths))]
+    lidar_p, lidar_s = transfusion_name_map(model.detector, sd)
+    params = {"detector": lidar_p, "image_branch": {
+        "swin": swin_name_map(sd, depths=swin.depths, windows=windows),
+        "swin_fpn": fpn_name_map(sd, n_ins=len(swin.depths))}}
+    return imported_state_dict(
+        model, sd, params, {"detector": lidar_s},
+        keep=("detector.middle_encoder.fusion_hook.", "aux_seg."))

@@ -91,6 +91,35 @@ def batchnorm(torch_sd: Mapping, prefix: str) -> tuple[dict, dict]:
              "var": torch_sd[f"{prefix}.running_var"]})
 
 
+def resnet_name_map(torch_sd: Mapping, layers=(3, 4, 6, 3),
+                    torch_prefix: str = "backbone.") -> tuple[dict, dict]:
+    """A torchvision or mmdet ResNet's names -> (params, batch_stats) trees
+    in the JAX package's `ResNet` paths (conv1, bn1, layer{i}_{j} with
+    conv1-3, bn1-3 and, where the checkpoint has one, the downsample conv
+    and norm)."""
+    params, stats = {}, {}
+    p = torch_prefix
+    params["conv1"] = {"kernel": conv2d(torch_sd[f"{p}conv1.weight"])}
+    params["bn1"], stats["bn1"] = batchnorm(torch_sd, f"{p}bn1")
+    for li, n in enumerate(layers):
+        for j in range(n):
+            t, f = f"{p}layer{li + 1}.{j}", f"layer{li + 1}_{j}"
+            blk, blk_s = {}, {}
+            for ci in (1, 2, 3):
+                blk[f"conv{ci}"] = {
+                    "kernel": conv2d(torch_sd[f"{t}.conv{ci}.weight"])}
+            for ci in (1, 2, 3):
+                blk[f"bn{ci}"], blk_s[f"bn{ci}"] = batchnorm(
+                    torch_sd, f"{t}.bn{ci}")
+            if f"{t}.downsample.0.weight" in torch_sd:
+                blk["downsample_conv"] = {
+                    "kernel": conv2d(torch_sd[f"{t}.downsample.0.weight"])}
+                blk["downsample_bn"], blk_s["downsample_bn"] = batchnorm(
+                    torch_sd, f"{t}.downsample.1")
+            params[f], stats[f] = blk, blk_s
+    return params, stats
+
+
 def conv_bn_2d(torch_sd: Mapping, conv_key: str, bn_prefix: str,
                transpose: bool = False) -> tuple[dict, dict]:
     """A 2D conv (or a ConvTranspose2d) and its BatchNorm -> (params,
@@ -123,14 +152,17 @@ class TrackedStateDict(dict):
 
 
 def imported_state_dict(model: nn.Module, torch_sd: TrackedStateDict,
-                        params: dict, stats: dict) -> dict:
+                        params: dict, stats: dict,
+                        keep: tuple[str, ...] = ()) -> dict:
     """The `state_dict` of `model` from a name map's flax-named trees of
-    `torch_sd`'s tensors. Raises on a key of `torch_sd` the map did not
-    read, and (`weights.state_dict_from_flax`) on a leaf with no entry, an
-    entry with no leaf or a shape that disagrees."""
+    `torch_sd`'s tensors; the entries under the `keep` prefixes, which the
+    reference does not hold, keep `model`'s values. Raises on a key of
+    `torch_sd` the map did not read, and (`weights.state_dict_from_flax`)
+    on a leaf with no entry, an entry with no leaf or a shape that
+    disagrees."""
     unread = torch_sd.unread()
     if unread:
         raise KeyError(f"reference keys no entry of {type(model).__name__} "
                        f"takes: {unread}")
     return state_dict_from_flax(model, {"params": params,
-                                        "batch_stats": stats})
+                                        "batch_stats": stats}, keep=keep)

@@ -1,7 +1,7 @@
 """The training steps of CenterPoint, TransFusion-L, Voxel R-CNN and their
 3D-DF fused detectors (port of df3d/train/trainer.py:23-75,
-`make_voxelrcnn_train_step` at :78, `make_transfusion_train_step` at :171
-and `make_fused_train_step` at :277, aux off).
+`make_voxelrcnn_train_step` at :78, `make_transfusion_train_step` at :171,
+`_fused_aux_terms` at :225 and `make_fused_train_step` at :277).
 
 One step: voxelize -> (fused: the frozen image branch) -> forward in
 training mode (batch statistics, the running ones moved) -> the host
@@ -9,7 +9,11 @@ family's loss (`centerpoint_loss`, or `transfusion_loss` with its
 Hungarian assignment on the host) -> gradients by autograd (the sparse
 convs' input gradients are K1 launches on the card, the deformable
 attention's gradients a K2 backward launch) -> clip + AdamW with
-OneCycle. The JAX package's step is a pure function of its state; here
+OneCycle. A fused step with `aux` adds the aux objectives
+(`fused_aux_terms`: the image-FG segmentation loss on the model's aux
+head, the voxel/camera consistency loss at the ACTR fusion point) to the
+loss and their logs to the step's. The JAX package's step is a pure
+function of its state; here
 the model holds the parameters and batch statistics, and the step updates
 them and the optimizer moments in place, which keeps one copy of each on
 the card.
@@ -56,6 +60,7 @@ from df3d_torch.models.detectors.voxel_rcnn import (
     voxel_rcnn_train_losses,
 )
 from df3d_torch.models.fusion.actr import ACTR
+from df3d_torch.models.fusion.aux_heads import AuxSegHead, fused_aux_losses
 from df3d_torch.models.heads.voxelrcnn_head import sample_rois_for_training
 from df3d_torch.models.layers import FlaxBatchNorm, MaskedBatchNorm
 from df3d_torch.ops.voxelize import voxelize_batch
@@ -107,6 +112,7 @@ class CenterPointTrainStep:
     halves."""
 
     loss = staticmethod(centerpoint_loss)
+    aux = False  # the fused steps' aux objectives
 
     def __init__(self, cfg: CenterPointConfig):
         self.cfg = cfg
@@ -124,13 +130,14 @@ class CenterPointTrainStep:
         """Voxelize, forward in training mode, loss -> (total, logs)."""
         cfg = self.cfg
         res = self.voxelize(batch)
+        aux = {} if self.aux else None
         preds, _, overflow = model(res.features, res.coords,
-                                   *self.model_inputs(batch))
+                                   *self.model_inputs(batch, aux))
         total, logs = self.loss(cfg, preds, batch["gt_boxes"],
                                 batch["gt_classes"], batch["gt_valid"])
         logs["cap_overflow"] = cap_overflow_total(overflow)
         stages.mark("loss")
-        return total, logs
+        return self.add_aux(total, logs, aux, batch)
 
     def grads(self, state: TrainState, batch: dict, *args, **kwargs):
         """Forward, loss and backward -> (logs, gradients in
@@ -154,13 +161,29 @@ class CenterPointTrainStep:
         stages.mark("backward")
         return {k: v.detach() for k, v in logs.items()}, grads
 
-    def model_inputs(self, batch: dict) -> tuple:
-        """The model's inputs after the voxels."""
+    def model_inputs(self, batch: dict, aux: dict | None = None) -> tuple:
+        """The model's inputs after the voxels; a fused model's end with
+        `aux` when it is given (the dict its forward fills with the aux
+        head's logits and the consistency pairs)."""
         return ()
 
     def unreached(self, model) -> set[int]:
         """ids of the trainable parameters the loss cannot reach."""
         return set()
+
+    def add_aux(self, total, logs: dict, aux: dict | None, batch: dict):
+        """The aux objectives of the forward's `aux` outputs (none when
+        None) at their weights added to the loss, their logs to the step's,
+        `loss` the new total."""
+        if aux is None:
+            return total, logs
+        a_total, a_logs = fused_aux_terms(
+            aux, batch, self.image_hw, self.aux_seg_weight,
+            self.aux_consistency_weight)
+        total = total + a_total
+        logs = dict(logs, **a_logs, loss=total)
+        stages.mark("aux")
+        return total, logs
 
     def apply(self, state: TrainState, grads) -> TrainState:
         state.tx.update(grads, state.opt_state, state.params)
@@ -191,14 +214,45 @@ def make_transfusion_train_step(cfg: TransFusionConfig
     return TransFusionTrainStep(cfg)
 
 
+def fused_aux_terms(aux: dict, batch: dict, image_hw, seg_weight: float,
+                    consistency_weight: float):
+    """The aux objectives of a fused forward's `aux` outputs (the JAX
+    package's `_fused_aux_terms`) -> (total, logs). A multi-camera batch's
+    projections fold to (B * n_cam, 3, 4) and its gt boxes repeat sample
+    by sample, as the head's logits are folded."""
+    proj = batch["proj"]
+    gt_boxes, gt_valid = batch["gt_boxes"], batch["gt_valid"]
+    if proj.dim() == 4:
+        b, nc = proj.shape[:2]
+        proj = proj.reshape(b * nc, 3, 4)
+        gt_boxes = gt_boxes.repeat_interleave(nc, 0)
+        gt_valid = gt_valid.repeat_interleave(nc, 0)
+    pairs = aux["consistency"]
+    vf, ifeat, vmask = pairs[0] if pairs else (None, None, None)
+    return fused_aux_losses(aux["seg_logits"], gt_boxes, gt_valid, proj,
+                            image_hw, voxel_feats=vf,
+                            image_feats_at_voxels=ifeat, voxel_mask=vmask,
+                            seg_weight=seg_weight,
+                            consistency_weight=consistency_weight)
+
+
 class FusedTrainStep(CenterPointTrainStep):
     """The 3D-DF step of a CenterPoint or TransFusion-L host,
     `step(state, batch) -> (state, logs)` as its host's step, with images
     (B, n_cam, H, W, 3) normalized and proj (B, n_cam, 3, 4) lidar -> image
     in the batch; the loss and logs are the host family's, `cap_overflow`
-    counting the fusion's dense tail too."""
+    counting the fusion's dense tail too.
 
-    def __init__(self, cfg: CenterPointConfig | TransFusionConfig):
+    `aux` adds the aux objectives (the model built with
+    `FusedConfig.with_aux_seg`; `image_hw` the input images' (H, W)) at
+    `aux_seg_weight` and `aux_consistency_weight`, and the logs
+    `aux_seg_loss`, `aux_consistency_loss` and `aux_loss`. Without it, an
+    aux head the model carries is not run and gets zero gradients."""
+
+    def __init__(self, cfg: CenterPointConfig | TransFusionConfig,
+                 aux: bool = False, image_hw=None,
+                 aux_seg_weight: float = 1.0,
+                 aux_consistency_weight: float = 0.1):
         if isinstance(cfg, CenterPointConfig):
             self.loss = centerpoint_loss
         elif isinstance(cfg, TransFusionConfig):
@@ -206,20 +260,38 @@ class FusedTrainStep(CenterPointTrainStep):
         else:
             raise ValueError(f"unsupported fused host config {type(cfg)}")
         super().__init__(cfg)
+        self.set_aux(aux, image_hw, aux_seg_weight, aux_consistency_weight)
 
-    def model_inputs(self, batch: dict) -> tuple:
-        return batch["images"], batch["proj"]
+    def set_aux(self, aux, image_hw, seg_weight, consistency_weight):
+        if aux and image_hw is None:
+            raise ValueError("aux objectives need image_hw, the input "
+                             "images' (H, W)")
+        self.aux, self.image_hw = aux, image_hw
+        self.aux_seg_weight = seg_weight
+        self.aux_consistency_weight = consistency_weight
+
+    def model_inputs(self, batch: dict, aux: dict | None = None) -> tuple:
+        cams = (batch["images"], batch["proj"])
+        return cams if aux is None else cams + (aux,)
 
     def unreached(self, model) -> set[int]:
         """The fusion's last dual-query layer's image-only parameters
-        (`ACTR.unreached_parameters`)."""
-        return {id(p) for m in model.modules() if isinstance(m, ACTR)
-                for p in m.unreached_parameters()}
+        (`ACTR.unreached_parameters`) and, without `aux`, the aux head's."""
+        out = {id(p) for m in model.modules() if isinstance(m, ACTR)
+               for p in m.unreached_parameters()}
+        if not self.aux:
+            out |= {id(p) for m in model.modules()
+                    if isinstance(m, AuxSegHead) for p in m.parameters()}
+        return out
 
 
-def make_fused_train_step(cfg: CenterPointConfig | TransFusionConfig
+def make_fused_train_step(cfg: CenterPointConfig | TransFusionConfig,
+                          aux: bool = False, image_hw=None,
+                          aux_seg_weight: float = 1.0,
+                          aux_consistency_weight: float = 0.1
                           ) -> FusedTrainStep:
-    return FusedTrainStep(cfg)
+    return FusedTrainStep(cfg, aux, image_hw, aux_seg_weight,
+                          aux_consistency_weight)
 
 
 class VoxelRCNNTrainStep(CenterPointTrainStep):
@@ -235,15 +307,25 @@ class VoxelRCNNTrainStep(CenterPointTrainStep):
     layer's tie-breaking noise, uniform in [0, 1e-3) per proposal (the JAX
     package draws it from its step's key). logs: rpn_cls_loss,
     rpn_loc_loss, rpn_dir_loss, rpn_loss, rcnn_cls_loss, rcnn_reg_loss,
-    rcnn_corner_loss, rcnn_loss, loss and cap_overflow."""
+    rcnn_corner_loss, rcnn_loss, loss and cap_overflow; fused with `aux`,
+    the aux objectives and logs as `FusedTrainStep`'s."""
 
-    def __init__(self, cfg: VoxelRCNNConfig, fused: bool = False):
+    def __init__(self, cfg: VoxelRCNNConfig, fused: bool = False,
+                 aux: bool = False, image_hw=None,
+                 aux_seg_weight: float = 1.0,
+                 aux_consistency_weight: float = 0.1):
         super().__init__(cfg)
+        if aux and not fused:
+            raise ValueError("aux objectives are the fused step's")
         self.fused = fused
+        self.set_aux(aux, image_hw, aux_seg_weight, aux_consistency_weight)
 
-    def model_inputs(self, batch: dict) -> tuple:
-        return (batch["images"], batch["proj"]) if self.fused else ()
+    def model_inputs(self, batch: dict, aux: dict | None = None) -> tuple:
+        if not self.fused:
+            return ()
+        return FusedTrainStep.model_inputs(self, batch, aux)
 
+    set_aux = FusedTrainStep.set_aux
     unreached = FusedTrainStep.unreached
 
     def forward_loss(self, model: VoxelRCNNTwoStage, batch: dict,
@@ -259,8 +341,9 @@ class VoxelRCNNTrainStep(CenterPointTrainStep):
                                              batch["gt_classes"],
                                              batch["gt_valid"])
         stages.mark("rpn_targets")
+        aux = {} if self.aux else None
         preds, overflow = model.rpn(res.features, res.coords,
-                                    *self.model_inputs(batch))
+                                    *self.model_inputs(batch, aux))
         with torch.no_grad():  # the proposals carry no gradient (pcdet)
             rois, roi_scores, roi_mask = proposal_layer(
                 cfg, preds, model.anchors, train=True)
@@ -277,12 +360,16 @@ class VoxelRCNNTrainStep(CenterPointTrainStep):
             cfg, preds, {"cls": cls, "reg": reg}, rpn_targets, targets)
         logs["cap_overflow"] = cap_overflow_total(overflow)
         stages.mark("loss")
-        return total, logs
+        return self.add_aux(total, logs, aux, batch)
 
 
-def make_voxelrcnn_train_step(cfg: VoxelRCNNConfig, fused: bool = False
+def make_voxelrcnn_train_step(cfg: VoxelRCNNConfig, fused: bool = False,
+                              aux: bool = False, image_hw=None,
+                              aux_seg_weight: float = 1.0,
+                              aux_consistency_weight: float = 0.1
                               ) -> VoxelRCNNTrainStep:
-    return VoxelRCNNTrainStep(cfg, fused)
+    return VoxelRCNNTrainStep(cfg, fused, aux, image_hw, aux_seg_weight,
+                              aux_consistency_weight)
 
 
 class DataParallelTrainStep:

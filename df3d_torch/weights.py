@@ -21,7 +21,11 @@ checkpoint's) into a `state_dict` for `model`:
 * the fusion hook's children (`mvx_proj`, `ifat`, `actr`,
   `actr_out_proj`), which flax puts under the backbone (CenterPoint's and
   Voxel R-CNN's `backbone`, TransFusion's `middle_encoder`), live under
-  the backbone's `fusion_hook` module.
+  the backbone's `fusion_hook` module;
+* a fused detector's auxiliary segmentation head (`aux_seg`, the `Conv_0`
+  and `Conv_1` of a `--aux-loss` checkpoint) and the Swin image branch
+  (`image_branch/swin`, whose window attention's `rel_bias` is copied as
+  it is, and `image_branch/swin_fpn`) carry like the other modules.
 
 `load_voxelrcnn(rpn, head, params, batch_stats)` carries Voxel R-CNN's
 two-part tree, `{"rpn": ..., "rcnn": ...}` in each collection (the tree the
@@ -45,6 +49,7 @@ from df3d_torch.models.backbones_3d import (
 from df3d_torch.models.fusion.actr import (
     ACTR, EncoderLayer, FusionEncoderLayer,
 )
+from df3d_torch.models.fusion.aux_heads import AuxSegHead
 from df3d_torch.models.fusion.pointformer import PreNormEncoderLayer
 from df3d_torch.models.heads.center_head import CenterHead, SepHeadBranch
 from df3d_torch.models.heads.transfusion_head import (
@@ -53,6 +58,9 @@ from df3d_torch.models.heads.transfusion_head import (
 from df3d_torch.models.layers import (
     ConvBNReLU2d, DeconvBNReLU2d, FlaxBatchNorm, MaskedBatchNorm,
     SparseBasicBlock, SparseConv3d, SparseConvBNReLU, SubMConv3d,
+)
+from df3d_torch.models.image.swin import (
+    SwinBlock, SwinTransformer, WindowAttention,
 )
 from df3d_torch.models.necks import BEVBackbone
 from df3d_torch.train.trainer import create_train_state
@@ -79,6 +87,9 @@ _CHILD_NAMES = {
                    "Dense_1": "ff2", "LayerNorm_1": "norm2"},
     FusionEncoderLayer: {"LayerNorm_0": "norm_attn", "LayerNorm_1": "norm_i",
                          "LayerNorm_2": "norm_p"},
+    AuxSegHead: {"Conv_0": "conv", "Conv_1": "out"},
+    SwinTransformer: {"LayerNorm_0": "patch_norm"},
+    SwinBlock: {"LayerNorm_0": "norm1", "LayerNorm_1": "norm2"},
 }
 
 
@@ -123,6 +134,8 @@ def _leaf(module: nn.Module, collection: str, name: str,
             return "bias", value.reshape(-1)
     if isinstance(module, ACTR) and name == "level_embed":
         return "level_embed", value
+    if isinstance(module, WindowAttention) and name == "rel_bias":
+        return "rel_bias", value
     if isinstance(module, nn.ConvTranspose2d) and name == "kernel":
         return "weight", value.flip(0, 1).permute(2, 3, 0, 1)
     if isinstance(module, nn.Conv2d):
@@ -175,12 +188,17 @@ def _carry(model: nn.Module, variables) -> dict:
     return out
 
 
-def state_dict_from_flax(model: nn.Module, variables) -> dict:
+def state_dict_from_flax(model: nn.Module, variables,
+                         keep: tuple[str, ...] = ()) -> dict:
     """flax variables -> `state_dict` of `model` (torch tensors on the CPU,
-    float32). Raises on an unmapped leaf, an unfilled entry or a shape
-    mismatch."""
+    float32). Entries under the `keep` prefixes that no leaf fills keep
+    `model`'s values. Raises on an unmapped leaf, an unfilled entry or a
+    shape mismatch."""
     target = model.state_dict()
     out = _carry(model, variables)
+    for k, v in target.items():
+        if k not in out and keep and k.startswith(keep):
+            out[k] = v.detach().cpu().clone()
     # BatchNorm2d's step counter has no flax counterpart and no effect in
     # eval mode
     missing = [k for k in target

@@ -1,5 +1,5 @@
 """The whole CenterPoint + 3D-DF training step, df3d_torch against one
-jitted df3d.train.trainer.make_fused_train_step (aux off): the config of
+jitted df3d.train.trainer.make_fused_train_step: the config of
 tests/test_torch_fused_slice.py (`__graft_entry__._mesh_cfg()`-sized LiDAR,
 2 cameras of 32x48, DeepLabV3 taps on one-block ResNet stages, a tiny
 ACTRv2 with IFAT and LT) at batch 2, the gt layout of
@@ -7,6 +7,18 @@ tests/test_torch_train_step.py (four equal boxes of class 0 per sample),
 4096 points per sample over the grid, seeded images and the rig of
 `utils.synth.camera_rig`, `adam_onecycle(1e-3, 100)`, flax variables filled
 from seeded numpy and carried across by df3d_torch.weights.
+
+Aux off and aux on. The JAX model carries the aux segmentation head
+(`with_aux_seg`), and its step is the aux step with the two aux weights as
+traced arguments, so one compiled program gives both: at weights (0, 0)
+the aux terms add exact zeros, which is JAX's aux-off step, and at (1.0,
+0.1) the aux step. The port's aux-off step (a model without the head) is
+held on every leaf but `aux_seg`; its aux step (with the head) on every
+leaf, the three aux logs too. The head's seeded weights are drawn apart
+from the others, which are those of the aux-off file before it. The
+hook's consistency pair (the voxel features ahead of the sum, the
+cameras' summed enhancement, the voxels any camera sees) is held against
+the pair JAX sows in the same program's training forward.
 
 Tolerances, those of tests/test_torch_train_step.py: per leaf, atol =
 1e-4 * max|ref| + 1e-6 (f32, other summation order) on every trainable
@@ -49,6 +61,7 @@ from df3d.models.fusion.actr import ACTRConfig as JACTRConfig
 from df3d.ops.voxelize import voxelize_batch as jvoxelize_batch
 from df3d.train.schedules import adam_onecycle as jadam_onecycle
 from df3d.train.trainer import TrainState as JTrainState
+from df3d.train.trainer import _collect_sown
 from df3d.train.trainer import make_fused_train_step as jmake_step
 from df3d_torch.models.detectors.centerpoint import CenterPointConfig
 from df3d_torch.models.detectors.fused import CenterPoint3DDF, FusedConfig
@@ -60,7 +73,9 @@ from df3d_torch.utils.synth import camera_rig
 from df3d_torch.weights import (
     params_from_flax, state_dict_from_flax, train_state_from_flax,
 )
-from torch_port_helpers import seeded_variables
+from torch_port_helpers import (
+    AUX_LOGS, AUX_WEIGHTS, new_without_aux, seeded_variables, without_aux,
+)
 from torch_port_helpers import one_torch_thread  # noqa: F401
 
 # tests/test_torch_fused_slice.py's config
@@ -115,11 +130,13 @@ def _record_grads():
 
 
 @pytest.fixture(scope="module")
-def step_run():
+def jax_run():
+    """JAX's step at both aux weights (one compiled program), the neck's
+    pre-activations and the sown consistency pair."""
     batch = _batch()
     jcfg = JConfig(**CFG)
-    jmodel = JCenterPoint3DDF(
-        jcfg, JFusedConfig(actr=JACTRConfig(**ACTR), **FUSED))
+    jmodel = JCenterPoint3DDF(jcfg, JFusedConfig(
+        actr=JACTRConfig(**ACTR), with_aux_seg=True, **FUSED))
 
     def init(points, images, proj):
         res = jvoxelize_batch(points, jnp.ones(points.shape[:2], bool),
@@ -130,28 +147,50 @@ def step_run():
 
     shapes = jax.eval_shape(init, *(jnp.asarray(batch[k][:1])
                                     for k in ("points", "images", "proj")))
-    variables = seeded_variables(shapes, np.random.RandomState(1), _hm_prior)
+    variables = seeded_variables(without_aux(shapes),
+                                 np.random.RandomState(1), _hm_prior)
+    variables["params"]["aux_seg"] = seeded_variables(
+        {"params": shapes["params"]["aux_seg"]},
+        np.random.RandomState(2))["params"]
     tx = optax.chain(_record_grads(), jadam_onecycle(LR_MAX, TOTAL_STEPS))
     jstate = JTrainState.create(apply_fn=jmodel.apply,
                                 params=variables["params"], tx=tx,
                                 batch_stats=variables["batch_stats"])
-    (new, jlogs), neck = _jax_step_and_neck(jmodel, jcfg)(
-        jstate, {k: jnp.asarray(v) for k, v in batch.items()})
-    new = jax.tree_util.tree_map(np.asarray, new)
+    run = _jax_step_and_neck(jmodel, jcfg)
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    out = {}
+    for name, w in AUX_WEIGHTS.items():
+        (new, jlogs), neck, pair = run(jstate, jbatch, jnp.float32(w))
+        out[name] = (jax.tree_util.tree_map(np.asarray, new),
+                     {k: np.asarray(v) for k, v in jlogs.items()})
+    return dict(batch=batch, variables=variables, steps=out,
+                neck=neck, pair=[np.asarray(p) for p in pair])
+
+
+@pytest.fixture(scope="module", params=sorted(AUX_WEIGHTS))
+def step_run(request, jax_run):
+    aux = request.param == "aux_on"
+    batch, neck = jax_run["batch"], jax_run["neck"]
+    variables = jax_run["variables"]
+    new, jlogs = jax_run["steps"][request.param]
+    if not aux:
+        variables, new = without_aux(variables), new_without_aux(new)
 
     cfg = CenterPointConfig(**CFG)
-    fcfg = FusedConfig(actr=ACTRConfig(**ACTR), **FUSED)
+    fcfg = FusedConfig(actr=ACTRConfig(**ACTR), with_aux_seg=aux, **FUSED)
     model = CenterPoint3DDF(cfg, fcfg)
     state = train_state_from_flax(model, variables["params"],
                                   variables["batch_stats"],
                                   adam_onecycle(LR_MAX, TOTAL_STEPS))
     before = {k: v.clone() for k, v in model.state_dict().items()}
-    step = make_fused_train_step(cfg)
-    flips = []
+    step = make_fused_train_step(cfg, aux=aux, image_hw=FUSED["image_shape"])
+    flips, outputs = [], []
     blocks = model.detector.neck.blocks
     handles = [blocks[name].bn.register_forward_hook(_jax_decision(
         torch.from_numpy(np.array(z)).permute(0, 3, 1, 2), name, flips))
         for name, z in neck.items()]
+    handles.append(model.register_forward_hook(
+        lambda mod, args, out: outputs.append(args[4:])))
     logs, grads = step.grads(state, {k: torch.from_numpy(v)
                                      for k, v in batch.items()})
     for h in handles:
@@ -159,18 +198,23 @@ def step_run():
     grads = dict(zip(state.param_names, [g.clone() for g in grads]))
     state = step.apply(state, list(grads.values()))
     return dict(model=model, state=state, logs=logs, grads=grads, new=new,
-                jlogs={k: np.asarray(v) for k, v in jlogs.items()},
-                before=before, variables=variables, flips=flips)
+                jlogs=jlogs, before=before, variables=variables,
+                flips=flips, aux=aux, outputs=outputs[0],
+                jpair=jax_run["pair"])
 
 
 def _jax_step_and_neck(jmodel, jcfg):
-    """One jitted program: the JAX training step, and {neck block: its
-    BatchNorm output ahead of the ReLU, NHWC} from the training-mode
-    forward of the same state and batch (`capture_intermediates`)."""
-    step = jmake_step(jmodel, jcfg)
+    """One jitted program: the JAX aux training step at the aux weights
+    `w` (seg, consistency), {neck block: its BatchNorm output ahead of the
+    ReLU, NHWC} from the training-mode forward of the same state and batch
+    (`capture_intermediates`), and the consistency pair that forward
+    sows."""
 
     @jax.jit
-    def run(state, batch):
+    def run(state, batch, w):
+        step = jmake_step(jmodel, jcfg, aux=True,
+                          image_hw=FUSED["image_shape"],
+                          aux_seg_weight=w[0], aux_consistency_weight=w[1])
         r = jvoxelize_batch(batch["points"], batch["points_valid"],
                             jcfg.voxel_size, jcfg.pc_range, jcfg.grid_size,
                             jcfg.max_voxels, jcfg.max_points_per_voxel)
@@ -180,9 +224,10 @@ def _jax_step_and_neck(jmodel, jcfg):
             train=True, mutable=["batch_stats", "intermediates"],
             capture_intermediates=True)
         neck = inter["intermediates"]["detector"]["neck"]
+        pair = _collect_sown(inter["intermediates"], "aux_consistency")[0]
         return step(state, batch), {
             name: block["BatchNorm_0"]["__call__"][0]
-            for name, block in neck.items() if name != "__call__"}
+            for name, block in neck.items() if name != "__call__"}, pair
 
     return run
 
@@ -220,11 +265,16 @@ def test_neck_relu_decisions(step_run):
 
 
 def test_logs(step_run):
+    """Every log; aux off, JAX's aux logs are exact zeros and the port has
+    none."""
     r = step_run
-    assert set(r["logs"]) == set(r["jlogs"])
-    assert int(r["logs"]["cap_overflow"]) == int(r["jlogs"]["cap_overflow"])
-    assert int(r["jlogs"]["cap_overflow"]) > 0  # the caps drop rows here
-    for k, v in r["jlogs"].items():
+    jlogs = dict(r["jlogs"])
+    if not r["aux"]:
+        assert all(jlogs.pop(k) == 0.0 for k in AUX_LOGS)
+    assert set(r["logs"]) == set(jlogs)
+    assert int(r["logs"]["cap_overflow"]) == int(jlogs["cap_overflow"])
+    assert int(jlogs["cap_overflow"]) > 0  # the caps drop rows here
+    for k, v in jlogs.items():
         if k != "cap_overflow":
             np.testing.assert_allclose(r["logs"][k].item(), v, rtol=1e-5,
                                        err_msg=k)
@@ -304,6 +354,41 @@ def test_frozen_image_branch(step_run):
         np.testing.assert_allclose(want[name].numpy(),
                                    (p0 * (1 - lr0 * WEIGHT_DECAY)).numpy(),
                                    rtol=1e-6, atol=1e-9, err_msg=name)
+
+
+def test_aux_head_trains(step_run):
+    """Aux on, the head's leaves have a gradient and move; aux off the
+    port's model has no head."""
+    r = step_run
+    head = [n for n in r["grads"] if n.startswith("aux_seg.")]
+    if not r["aux"]:
+        assert not head
+        return
+    assert len(head) == 4
+    for name in head:
+        assert r["grads"][name].abs().max() > 0, name
+        p = dict(r["model"].named_parameters())[name]
+        assert not torch.equal(p.detach(), r["before"][name]), name
+
+
+def test_consistency_pair(step_run):
+    """The hook's consistency pair against the pair JAX sows: the voxel
+    features ahead of the sum and the summed enhancement to the
+    tolerance, the mask exactly; aux off no pair is made."""
+    r = step_run
+    if not r["aux"]:
+        assert r["outputs"] == ()
+        return
+    (aux,) = r["outputs"]
+    assert aux["seg_logits"].shape == (4, 8, 12, 1)
+    (pair,) = aux["consistency"]
+    feats, enh, mask = (t.detach() for t in pair)
+    jf, je, jm = r["jpair"]
+    np.testing.assert_array_equal(mask.numpy(), jm)
+    assert jm.any() and not jm.all()
+    for got, ref in ((feats, jf), (enh, je)):
+        np.testing.assert_allclose(got.numpy(), ref, rtol=0,
+                                   atol=_tol(ref))
 
 
 def test_unsupported_host_config_raises():

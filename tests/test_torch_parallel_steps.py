@@ -1,5 +1,6 @@
 """Data-parallel training (`train.trainer.DataParallelTrainStep`): each of
-the six training steps over 2 gloo CPU ranks, one sample each, against the
+the six training steps, and the three fused ones with the aux objectives,
+over 2 gloo CPU ranks, one sample each, against the
 port's own one-process step on the global batch of two (which the step
 tests hold against JAX), on the same weights and batch
 (tests/torch_parallel_ranks.py: tiny configs, two samples that differ in
@@ -18,7 +19,9 @@ statistics 1e-4 * max|stat| + 1e-6; float logs rtol 1e-5; integer logs
 (cap_overflow, tf_matched) exact. Both ranks must end with the same bits.
 
 Negative control: the same ranks as plain DDP (per-rank statistics and
-normalizers, averaged gradients and logs) must miss these tolerances."""
+normalizers, averaged gradients and logs) must miss these tolerances; with
+aux, the consistency loss's per-rank normalizer (each rank's visible
+voxels) misses its log too."""
 
 import pytest
 import torch
@@ -109,6 +112,8 @@ def test_plain_ddp_misses(runs, name):
     assert any(m.startswith("gradient") for m in missed)
     assert any(m.startswith("statistic") for m in missed)
     assert any(m.startswith("log") for m in missed)
+    if name.endswith("_aux"):
+        assert "log aux_consistency_loss" in missed, missed
 
 
 def test_samples_differ(runs):

@@ -1,5 +1,5 @@
 """The whole TransFusion + 3D-DF training step, df3d_torch against one jitted
-df3d.train.trainer.make_fused_train_step (aux off) on TransFusion3DDF:
+df3d.train.trainer.make_fused_train_step on TransFusion3DDF:
 tests/test_torch_transfusion_slice.py's config (the +-16 m grid, the tiny
 TransFusion head, 2 cameras of 64x112, ResNet + FPN on one-block stages,
 the `transfusion_3ddf_nusc` preset's ACTRv2 narrowed: one image level, two
@@ -8,6 +8,15 @@ over the grid, tests/test_torch_transfusion_train_step.py's boxes, seeded
 images and the rig of `utils.synth.camera_rig`, `adam_onecycle(1e-3,
 100)`, flax variables filled from seeded numpy and carried across by
 df3d_torch.weights.
+
+Aux off and aux on, as in tests/test_torch_fused_train_step.py: JAX's step
+is the aux step with the aux weights as traced arguments (at (0, 0) its
+aux-off step, at (1.0, 0.1) the aux step) on a model with the aux head,
+whose seeded weights are drawn apart from the others; the port's aux-off
+step (no head) is held on every leaf but `aux_seg`, its aux step on every
+leaf and the aux logs. The ReLUs replayed are those of JAX's forward
+without the head (the same forward otherwise); the head's one ReLU is not
+replayed.
 
 Exact: the queries, the Hungarian matches, cap_overflow and tf_matched;
 the leaves the loss cannot reach (JAX's gradient exactly 0) are the
@@ -63,7 +72,8 @@ from df3d_torch.weights import (
     params_from_flax, state_dict_from_flax, train_state_from_flax,
 )
 from torch_port_helpers import (
-    recorded_jax_relus, replayed_relus, seeded_variables,
+    AUX_LOGS, AUX_WEIGHTS, new_without_aux, recorded_jax_relus,
+    replayed_relus, seeded_variables, without_aux,
 )
 from torch_port_helpers import one_torch_thread  # noqa: F401
 
@@ -133,11 +143,14 @@ def _recorder(fn, calls):
 
 
 @pytest.fixture(scope="module")
-def step_run():
+def jax_run():
+    """JAX's step at both aux weights (one compiled program), its queries,
+    ReLU inputs and Hungarian calls."""
     batch = _batch()
     jcfg = JConfig(head=jhead.TransFusionHeadCfg(**HEAD), **CFG)
-    jmodel = JTransFusion3DDF(
-        jcfg, JFusedConfig(actr=JACTRConfig(**ACTR_CFG), **FUSED))
+    fused = dict(actr=JACTRConfig(**ACTR_CFG), **FUSED)
+    jmodel = JTransFusion3DDF(jcfg, JFusedConfig(with_aux_seg=True, **fused))
+    jplain = JTransFusion3DDF(jcfg, JFusedConfig(**fused))
 
     def init(points, images, proj):
         res = jvoxelize_batch(points, jnp.ones(points.shape[:2], bool),
@@ -148,29 +161,49 @@ def step_run():
 
     shapes = jax.eval_shape(init, *(jnp.asarray(batch[k][:1])
                                     for k in ("points", "images", "proj")))
-    variables = seeded_variables(shapes, np.random.RandomState(1), _prior)
+    variables = seeded_variables(without_aux(shapes),
+                                 np.random.RandomState(1), _prior)
+    variables["params"]["aux_seg"] = seeded_variables(
+        {"params": shapes["params"]["aux_seg"]},
+        np.random.RandomState(2))["params"]
     tx = optax.chain(_record_grads(), jadam_onecycle(LR_MAX, TOTAL_STEPS))
     jstate = JTrainState.create(apply_fn=jmodel.apply,
                                 params=variables["params"], tx=tx,
                                 batch_stats=variables["batch_stats"])
-    jcalls = []
+    run = _jax_step_and_queries(jmodel, jplain, jcfg)
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    out, jcalls = {}, []  # the recorder is traced into the program once
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jhead, "ASSIGN_METHOD", "host")
         mp.setattr(jhead, "_hungarian_host",
                    _recorder(jhead._hungarian_host, jcalls))
-        (new, jlogs), jqueries, jrelus = _jax_step_and_queries(
-            jmodel, jcfg)(jstate, {k: jnp.asarray(v)
-                                   for k, v in batch.items()})
-        new = jax.tree_util.tree_map(np.asarray, new)
+        for name, w in AUX_WEIGHTS.items():
+            start = len(jcalls)
+            (new, jlogs), jqueries, jrelus = run(jstate, jbatch,
+                                                 jnp.float32(w))
+            new = jax.tree_util.tree_map(np.asarray, new)
+            out[name] = (new, {k: np.asarray(v) for k, v in jlogs.items()},
+                         jcalls[start:])
+    return dict(batch=batch, variables=variables, steps=out,
+                jqueries=jqueries, jrelus=jrelus)
+
+
+@pytest.fixture(scope="module", params=sorted(AUX_WEIGHTS))
+def step_run(request, jax_run):
+    aux = request.param == "aux_on"
+    batch, variables = jax_run["batch"], jax_run["variables"]
+    new, jlogs, jcalls = jax_run["steps"][request.param]
+    if not aux:
+        variables, new = without_aux(variables), new_without_aux(new)
 
     cfg = TransFusionConfig(head=thead.TransFusionHeadCfg(**HEAD), **CFG)
     model = TransFusion3DDF(cfg, FusedConfig(actr=ACTRConfig(**ACTR_CFG),
-                                             **FUSED))
+                                             with_aux_seg=aux, **FUSED))
     state = train_state_from_flax(model, variables["params"],
                                   variables["batch_stats"],
                                   adam_onecycle(LR_MAX, TOTAL_STEPS))
     before = {k: v.clone() for k, v in model.state_dict().items()}
-    step = make_fused_train_step(cfg)
+    step = make_fused_train_step(cfg, aux=aux, image_hw=FUSED["image_shape"])
     queries, tcalls, terms = [], [], {}
     handles = [model.detector.bbox_head.register_forward_hook(
         lambda mod, inp, out: queries.append(
@@ -182,7 +215,8 @@ def step_run():
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(thead, "hungarian_match",
                    _recorder(thead.hungarian_match, tcalls))
-        with replayed_relus(jrelus) as flips:
+        with replayed_relus(jax_run["jrelus"],
+                            getattr(model, "aux_seg", None)) as flips:
             logs, grads = step.grads(state, {k: torch.from_numpy(v)
                                              for k, v in batch.items()})
     for h in handles:
@@ -190,25 +224,30 @@ def step_run():
     grads = dict(zip(state.param_names, [g.clone() for g in grads]))
     state = step.apply(state, list(grads.values()))
     return dict(model=model, state=state, logs=logs, grads=grads, new=new,
-                jlogs={k: np.asarray(v) for k, v in jlogs.items()},
-                before=before, jqueries=jqueries, queries=queries[0],
-                jcalls=jcalls, tcalls=tcalls, flips=flips, terms=terms)
+                jlogs=jlogs, before=before, jqueries=jax_run["jqueries"],
+                queries=queries[0], jcalls=jcalls, tcalls=tcalls,
+                flips=flips, terms=terms, aux=aux)
 
 
-def _jax_step_and_queries(jmodel, jcfg):
-    """One jitted program: the JAX training step, and the query labels and
-    positions and the ReLU inputs (in call order) of the training-mode
-    forward of the same state and batch."""
-    step = jmake_step(jmodel, jcfg)
+def _jax_step_and_queries(jmodel, jplain, jcfg):
+    """One jitted program: the JAX aux training step of `jmodel` at the aux
+    weights `w` (seg, consistency), and the query labels and positions and
+    the ReLU inputs (in call order) of the training-mode forward of the
+    same state and batch through `jplain`, the model without the aux
+    head."""
 
     @jax.jit
-    def run(state, batch):
+    def run(state, batch, w):
+        step = jmake_step(jmodel, jcfg, aux=True,
+                          image_hw=FUSED["image_shape"],
+                          aux_seg_weight=w[0], aux_consistency_weight=w[1])
         r = jvoxelize_batch(batch["points"], batch["points_valid"],
                             jcfg.voxel_size, jcfg.pc_range, jcfg.grid_size,
                             jcfg.max_voxels, jcfg.max_points_per_voxel)
         with recorded_jax_relus([]) as relus:
-            (preds, _), _ = jmodel.apply(
-                {"params": state.params, "batch_stats": state.batch_stats},
+            (preds, _), _ = jplain.apply(
+                {"params": without_aux(state.params),
+                 "batch_stats": state.batch_stats},
                 r.features, r.coords, batch["images"], batch["proj"],
                 train=True, mutable=["batch_stats", "intermediates"])
         return step(state, batch), {k: preds[k] for k in (
@@ -277,11 +316,16 @@ def test_queries_and_matches(step_run):
 
 
 def test_logs(step_run):
+    """Every log; aux off, JAX's aux logs are exact zeros and the port has
+    none."""
     r = step_run
-    assert set(r["logs"]) == set(r["jlogs"])
+    jlogs = dict(r["jlogs"])
+    if not r["aux"]:
+        assert all(jlogs.pop(k) == 0.0 for k in AUX_LOGS)
+    assert set(r["logs"]) == set(jlogs)
     for k in ("cap_overflow", "tf_matched"):
-        assert int(r["logs"][k]) == int(r["jlogs"][k]), k
-    for k, v in r["jlogs"].items():
+        assert int(r["logs"][k]) == int(jlogs[k]), k
+    for k, v in jlogs.items():
         np.testing.assert_allclose(r["logs"][k].item(), v, rtol=1e-5,
                                    err_msg=k)
     assert r["state"].step == 1
@@ -385,3 +429,15 @@ def test_frozen_image_branch(step_run):
         np.testing.assert_allclose(want[name].numpy(),
                                    (p0 * (1 - lr0 * WEIGHT_DECAY)).numpy(),
                                    rtol=1e-6, atol=1e-9, err_msg=name)
+
+
+def test_aux_head_trains(step_run):
+    """Aux on, the head's leaves have a gradient and move; aux off the
+    port's model has no head."""
+    r = step_run
+    head = [n for n in r["grads"] if n.startswith("aux_seg.")]
+    assert len(head) == (4 if r["aux"] else 0)
+    for name in head:
+        assert r["grads"][name].abs().max() > 0, name
+        p = dict(r["model"].named_parameters())[name]
+        assert not torch.equal(p.detach(), r["before"][name]), name

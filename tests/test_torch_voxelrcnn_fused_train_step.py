@@ -3,14 +3,23 @@ family), df3d_torch's `entry.build_voxelrcnn3ddf_trainer` step against the
 JAX package at tests/test_fused_training.py's config (its Voxel R-CNN on
 the +-16 m grid with training NMS 64 -> 16, one RoI scale at conv2, grid 2,
 8 RoIs a sample; one 64x96 camera, the DeepLabV3 ResNet-50 taps at two
-levels, MVX at stride 1, a tiny ACTRv2 with IFAT and LT; aux off) at batch
-2: tests/test_torch_voxelrcnn_train_step.py's points, gts near the first
+levels, MVX at stride 1, a tiny ACTRv2 with IFAT and LT) at batch 2: tests/test_torch_voxelrcnn_train_step.py's points, gts near the first
 stage's own proposals and box kernel scale, seeded normalized images and
 KITTI's front camera scaled to the image (`utils.synth.kitti_camera`),
 `adam_onecycle(1e-3, 100)`, flax variables filled from seeded numpy and
 carried across by `weights.train_state_from_flax`, the deformable
 attention's offset and weight kernels at flax's initial zeros
 (`initial_scales`).
+
+Aux off and aux on, as in tests/test_torch_fused_train_step.py: the
+composition carries the JAX package's aux branch (`_fused_aux_terms`) with
+the aux weights as traced arguments, on a model with the aux head (its
+seeded weights drawn apart from the others), so one compiled program
+gives JAX's aux-off step at (0, 0) and the aux step at (1.0, 0.1); the
+port's aux-off step (no head) is held on every leaf but `aux_seg`, its aux
+step on every leaf and the aux logs. The hook's consistency pair (one
+camera: the voxel features ahead of the sum, the masked enhancement, the
+mask) is held against the pair the composition's forward sows.
 
 The port is held against the JAX package's step composed with the
 proposals' gradient stopped (`torch_port_helpers.voxelrcnn_stop_gradient_step`;
@@ -52,9 +61,11 @@ from df3d_torch.utils.synth import kitti_camera
 from df3d_torch.weights import state_dict_from_flax, train_state_from_flax
 from test_torch_voxelrcnn_train_step import GEOM, points_batch
 from torch_port_helpers import (
-    check_batch_stats, check_gradients, check_logs, check_relu_decisions,
-    check_sampled, check_updated_parameters, gts_near_proposals,
-    small_box_residuals, voxelrcnn_step_run, voxelrcnn_variables,
+    AUX_WEIGHTS, check_batch_stats, check_gradients, check_logs,
+    check_relu_decisions, check_sampled, check_updated_parameters,
+    gts_near_proposals, new_without_aux, seeded_variables,
+    small_box_residuals, tol, voxelrcnn_jax_runs, voxelrcnn_step_run,
+    voxelrcnn_variables, without_aux,
 )
 from torch_port_helpers import one_torch_thread  # noqa: F401
 
@@ -87,9 +98,13 @@ def configs(config, rh):
 
 
 @pytest.fixture(scope="module")
-def step_run():
+def jax_run():
+    """The batch, the variables (the aux head's drawn apart) and JAX's
+    composition at both aux weights (one compiled program)."""
     jcfg, tcfg = configs(JConfig, jrh), configs(VoxelRCNNConfig, trh)
-    jmodel = JVoxelRCNN3DDF(jcfg, JFusedConfig(actr=JACTRConfig(**ACTR),
+    jmodel = JVoxelRCNN3DDF(jcfg, JFusedConfig(
+        actr=JACTRConfig(**ACTR), with_aux_seg=True, **FUSED))
+    jplain = JVoxelRCNN3DDF(jcfg, JFusedConfig(actr=JACTRConfig(**ACTR),
                                                **FUSED))
     jhead = jrh.VoxelRCNNHead(jcfg.rcnn, jcfg.voxel_size, jcfg.pc_range)
     batch = points_batch()
@@ -102,19 +117,48 @@ def step_run():
         p, v, jcfg.voxel_size, jcfg.pc_range, jcfg.grid_size,
         jcfg.max_voxels, jcfg.max_points_per_voxel),
         batch["points"], batch["points_valid"])
-    variables = voxelrcnn_variables(
-        jmodel, jhead, (res.features, res.coords, batch["images"],
-                        batch["proj"]),
-        jcfg.rcnn.roi_per_image, seed=1, out_scale=initial_scales)
+    fwd = (res.features, res.coords, batch["images"], batch["proj"])
+    variables = voxelrcnn_variables(jplain, jhead, fwd,
+                                    jcfg.rcnn.roi_per_image, seed=1,
+                                    out_scale=initial_scales)
+    head_shapes = jax.eval_shape(lambda *a: jmodel.init(
+        jax.random.PRNGKey(0), *a, train=False), *fwd)["params"]["aux_seg"]
+    variables["params"]["rpn"]["aux_seg"] = seeded_variables(
+        {"params": head_shapes}, np.random.RandomState(2))["params"]
     fcfg = FusedConfig(actr=ACTRConfig(**ACTR), **FUSED)
     state, step = build_voxelrcnn3ddf_trainer(tcfg, fcfg, "cpu")
-    state = train_state_from_flax(state.model, variables["params"],
+    state = train_state_from_flax(state.model,
+                                  without_aux(variables)["params"],
                                   variables["batch_stats"],
                                   adam_onecycle(LR_MAX, TOTAL_STEPS))
     batch.update(gts_near_proposals(state.model, step, batch))
-    return voxelrcnn_step_run(jmodel, jhead, jcfg, state, step, batch,
-                              variables, LR_MAX, TOTAL_STEPS,
-                              with_package_step=False)
+    outs = voxelrcnn_jax_runs(jmodel, jhead, jcfg, batch, variables, LR_MAX,
+                              TOTAL_STEPS, with_package_step=False,
+                              aux_weights=list(AUX_WEIGHTS.values()),
+                              image_hw=IMAGE)
+    return dict(jmodel=jmodel, jhead=jhead, jcfg=jcfg, tcfg=tcfg,
+                fcfg=fcfg, batch=batch, variables=variables,
+                outs=dict(zip(AUX_WEIGHTS, outs)))
+
+
+@pytest.fixture(scope="module", params=sorted(AUX_WEIGHTS))
+def step_run(request, jax_run):
+    aux = request.param == "aux_on"
+    j = jax_run
+    variables, out = j["variables"], j["outs"][request.param]
+    if not aux:
+        variables = without_aux(variables)
+        new, jlogs, extra = out["sg"]
+        out = dict(out, sg=(new_without_aux(new), jlogs, extra))
+    state, step = build_voxelrcnn3ddf_trainer(
+        j["tcfg"], j["fcfg"], "cpu", aux=aux)
+    state = train_state_from_flax(state.model, variables["params"],
+                                  variables["batch_stats"],
+                                  adam_onecycle(LR_MAX, TOTAL_STEPS))
+    r = voxelrcnn_step_run(j["jmodel"], j["jhead"], j["jcfg"], state, step,
+                           j["batch"], variables, LR_MAX, TOTAL_STEPS,
+                           jax_out=out)
+    return dict(r, aux=aux)
 
 
 def test_relu_decisions(step_run):
@@ -171,3 +215,34 @@ def test_frozen_image_branch(step_run):
         np.testing.assert_allclose(want[name].numpy(),
                                    (p0 * (1 - lr0 * WEIGHT_DECAY)).numpy(),
                                    rtol=1e-6, atol=1e-9, err_msg=name)
+
+
+def test_aux_head_trains(step_run):
+    """Aux on, the head's leaves have a gradient and move; aux off the
+    port's model has no head."""
+    r = step_run
+    head = [n for n in r["grads"] if n.startswith("rpn.aux_seg.")]
+    assert len(head) == (4 if r["aux"] else 0)
+    for name in head:
+        assert r["grads"][name].abs().max() > 0, name
+        p = dict(r["model"].named_parameters())[name]
+        assert not torch.equal(p.detach(), r["before"][name]), name
+
+
+def test_consistency_pair(step_run):
+    """The hook's one-camera consistency pair against the pair JAX's
+    single-camera hook sows: features and masked enhancement to the
+    tolerance, the mask exactly; aux off no pair is made."""
+    r = step_run
+    if not r["aux"]:
+        assert r["outputs"] == ()
+        return
+    (aux,) = r["outputs"]
+    assert aux["seg_logits"].shape[0] == 2
+    (pair,) = aux["consistency"]
+    feats, enh, mask = (t.detach() for t in pair)
+    jf, je, jm = r["jpair"]
+    np.testing.assert_array_equal(mask.numpy(), np.asarray(jm, bool))
+    assert jm.any() and not jm.all()
+    for got, ref in ((feats, jf), (enh, je)):
+        np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=tol(ref))

@@ -51,11 +51,15 @@ from df3d_torch.models.layers import (
     FlaxBatchNorm, FlaxBatchNorm2d, MaskedBatchNorm,
 )
 from df3d_torch.parallel import ddp
-from df3d_torch.train.trainer import DataParallelTrainStep
+from df3d_torch.train.trainer import (
+    DataParallelTrainStep, create_train_state,
+)
 from df3d_torch.utils.synth import camera_rig, kitti_camera
 
 STEPS = ("centerpoint", "centerpoint_3ddf", "transfusion_l",
-         "transfusion_3ddf", "voxel_rcnn", "voxel_rcnn_3ddf")
+         "transfusion_3ddf", "voxel_rcnn", "voxel_rcnn_3ddf",
+         "centerpoint_3ddf_aux", "transfusion_3ddf_aux",
+         "voxel_rcnn_3ddf_aux")
 WORLD = 2
 NOISE_SEED = 5
 
@@ -283,27 +287,33 @@ def _kitti_batch(state, step, fcfg=None):
 
 def build(name: str):
     """(state, step, global numpy batch) of one of `STEPS` on the CPU, from
-    seed 0."""
+    seed 0; a name ending in "_aux" is its fused step with the aux
+    objectives."""
+    aux = name.endswith("_aux")
+    name = name.removesuffix("_aux")
     if name in ("centerpoint", "centerpoint_3ddf"):
         cfg = entry.mesh_cfg()
         if name == "centerpoint":
             state, step = entry.build_centerpoint_trainer(cfg, "cpu")
             return state, step, _nusc_batch(5)
         fcfg = _fused_centerpoint_config()
-        state, step = entry.build_centerpoint3ddf_trainer(cfg, fcfg, "cpu")
+        state, step = entry.build_centerpoint3ddf_trainer(cfg, fcfg, "cpu",
+                                                          aux=aux)
         return state, step, _nusc_batch(5, fcfg)
     if name.startswith("transfusion"):
         cfg, fcfg = _transfusion_configs()
         if name == "transfusion_l":
             state, step = entry.build_transfusion_trainer(cfg, "cpu")
             return state, step, _nusc_batch(4)
-        state, step = entry.build_transfusion3ddf_trainer(cfg, fcfg, "cpu")
+        state, step = entry.build_transfusion3ddf_trainer(cfg, fcfg, "cpu",
+                                                          aux=aux)
         return state, step, _nusc_batch(4, fcfg)
     lidar, fused, fcfg = _kitti_configs()
     if name == "voxel_rcnn":
         state, step = entry.build_voxelrcnn_trainer(lidar, "cpu")
         return state, step, _kitti_batch(state, step)
-    state, step = entry.build_voxelrcnn3ddf_trainer(fused, fcfg, "cpu")
+    state, step = entry.build_voxelrcnn3ddf_trainer(fused, fcfg, "cpu",
+                                                    aux=aux)
     with torch.no_grad():  # flax's initial zeros (see the module docstring)
         for m in state.model.modules():
             if isinstance(m, MSDeformAttnModule):
@@ -380,10 +390,21 @@ def plain_ddp_grads(step, state, batch, args, world):
     return logs, grads
 
 
+def loaded(path):
+    """(state, step, batch) of a step built by the other rank: its model
+    (saved before its one-process step) in a fresh state with the
+    trainers' `adam_onecycle(1e-3, 2000)`."""
+    model, step, batch = torch.load(path, weights_only=False)
+    return (create_train_state(model, entry.adam_onecycle(1e-3, 2000)), step,
+            batch)
+
+
 def steps_rank(rank, world, init_method, out_dir, names):
-    """Rank r first takes the one-process steps of names[r::world] (one
-    thread, as the ranks; `{name}_ref.pt`: the record and its decisions).
-    Then each named step over the ranks, data parallel (replaying the
+    """Rank r first builds the steps of names[r::world] and takes their
+    one-process steps (one thread, as the ranks; `{name}_ref.pt`: the
+    record and its decisions; `{name}_built.pt`: the built state, step and
+    batch, which the other rank loads rather than drawing the same seeded
+    weights again). Then each named step over the ranks, data parallel (replaying the
     one-process step's ReLU decisions and proposals on its rows) and as
     plain DDP, each from the state broadcast from rank 0. Rank 0 saves
     `{name}_dp0.pt` and `{name}_ddp0.pt` (records, the data-parallel one
@@ -395,6 +416,8 @@ def steps_rank(rank, world, init_method, out_dir, names):
         for name in names[rank::world]:
             state, step, batch = build(name)
             built[name] = (copy.deepcopy(state), step, batch)
+            torch.save((state.model, step, batch),
+                       os.path.join(out_dir, f"{name}_built.pt"))
             masks = {"relu": [], "proposals": []}
             ref = one_process(state, step, batch, masks)
             torch.save({"ref": ref, "masks": masks},
@@ -403,7 +426,8 @@ def steps_rank(rank, world, init_method, out_dir, names):
         for name in names:
             masks = torch.load(os.path.join(out_dir, f"{name}_ref.pt"))[
                 "masks"]
-            state, step, batch = built.pop(name, None) or build(name)
+            state, step, batch = built.pop(name, None) or loaded(
+                os.path.join(out_dir, f"{name}_built.pt"))
             ddp.broadcast_state(state)
             fresh = copy.deepcopy(state)
             mine = tensors(ddp.shard_batch(batch, rank, world))

@@ -65,6 +65,32 @@ def seeded_variables(shapes, rng: np.random.RandomState, out_scale=None):
     return jax.tree_util.tree_map(np.asarray, tree)
 
 
+# the logs the aux objectives add to a fused step's
+AUX_LOGS = ("aux_seg_loss", "aux_consistency_loss", "aux_loss")
+
+
+# the aux weights (seg, consistency) at which the fused step tests run
+# JAX's aux step: (0, 0) is its aux-off step
+AUX_WEIGHTS = {"aux_off": (0.0, 0.0), "aux_on": (1.0, 0.1)}
+
+
+def without_aux(tree):
+    """A tree of flax variables, their shapes or their gradients without
+    the aux segmentation head's `aux_seg` subtrees, at any depth (the top
+    of a fused model's collections, a Voxel R-CNN tree's "rpn")."""
+    if not hasattr(tree, "items"):
+        return tree
+    return {k: without_aux(v) for k, v in tree.items() if k != "aux_seg"}
+
+
+def new_without_aux(new):
+    """A JAX `TrainState` after a step (behind `record_grads`, whose state
+    holds the gradients) without the aux head's leaves."""
+    return new.replace(
+        params=without_aux(new.params),
+        opt_state=(without_aux(new.opt_state[0]),) + tuple(new.opt_state[1:]))
+
+
 @contextlib.contextmanager
 def recorded_jax_relus(store: list):
     """While the JAX package's modules are traced inside the block, each
@@ -86,21 +112,23 @@ def recorded_jax_relus(store: list):
 
 
 @contextlib.contextmanager
-def replayed_relus(jax_inputs, skip: torch.nn.Module | None = None):
+def replayed_relus(jax_inputs, skip=None):
     """Give the port's ReLUs (`torch.relu`, in call order) the decisions
     (x > 0) of the JAX package's ReLUs, whose inputs `recorded_jax_relus`
     gave (an NHWC map stands for the port's NCHW one, and the first of B
     equal rows for the port's one row): where the two
     disagree, the input takes JAX's sign at its own magnitude, and the
-    gradient passes through unchanged. The ReLUs inside `skip` (a module
-    whose JAX calls are not in `jax_inputs`) are left alone. Yields the
+    gradient passes through unchanged. The ReLUs inside `skip` (a module,
+    or a tuple of modules and Nones, whose JAX calls are not in
+    `jax_inputs`) are left alone. Yields the
     replayed disagreements, (call, elements, largest |x|) per call that had
     any; raises if a call has no JAX counterpart of its shape."""
     relu, flips, paused = torch.relu, [], []
     calls = iter(enumerate(jax_inputs))
-    hooks = [] if skip is None else [
-        skip.register_forward_pre_hook(lambda *_: paused.append(True)),
-        skip.register_forward_hook(lambda *_: paused.clear())]
+    skip = skip if isinstance(skip, tuple) else (skip,)
+    hooks = [h for m in skip if m is not None for h in (
+        m.register_forward_pre_hook(lambda *_: paused.append(True)),
+        m.register_forward_hook(lambda *_: paused.clear()))]
 
     def patched(x):
         if paused:
@@ -438,21 +466,28 @@ def record_grads():
         lambda updates, state, params=None: (updates, updates))
 
 
-def voxelrcnn_stop_gradient_step(model, head, cfg, fused: bool):
-    """The JAX package's `make_voxelrcnn_train_step` (aux off) composed from
-    its own functions with the proposals' gradient stopped, as pcdet's
+def voxelrcnn_stop_gradient_step(model, head, cfg, fused: bool,
+                                 aux_weights=None, image_hw=None):
+    """The JAX package's `make_voxelrcnn_train_step` composed from its own
+    functions with the proposals' gradient stopped, as pcdet's
     `torch.no_grad()` proposal and proposal-target layers stop it:
     `step(state, batch, rng) -> (state, logs, extra)`, extra holding the
     ReLU inputs of the training forward in call order (`relus`), the
     proposals (`proposals`: rois, scores, mask), the proposal target
-    layer's output (`targets`) and its noise (`noise`)."""
+    layer's output (`targets`), its noise (`noise`) and the consistency
+    pair the forward sows (`pair`, when there is one). With
+    `aux_weights` (seg, consistency), the step's aux branch
+    (`_fused_aux_terms`, the images `image_hw`) at those weights, which
+    may be traced."""
     from df3d.models.detectors.voxel_rcnn import (
         assign_rpn_targets, build_anchors, proposal_layer,
         voxel_rcnn_train_losses,
     )
     from df3d.models.heads.voxelrcnn_head import sample_rois_for_training
     from df3d.ops.voxelize import voxelize_batch
-    from df3d.train.trainer import _overflow_log
+    from df3d.train.trainer import (
+        _collect_sown, _fused_aux_terms, _overflow_log,
+    )
 
     anchors = build_anchors(cfg)
 
@@ -488,12 +523,22 @@ def voxelrcnn_stop_gradient_step(model, head, cfg, fused: bool):
                     train=True, mutable=["batch_stats"])
             total, logs = voxel_rcnn_train_losses(
                 cfg, preds, {"cls": cls, "reg": reg}, rpn_targets, targets)
+            if aux_weights is not None:
+                a_total, a_logs = _fused_aux_terms(
+                    updates, batch, image_hw, *aux_weights)
+                total = total + a_total
+                logs = dict(logs, **a_logs)
+                logs["loss"] = total
             logs["cap_overflow"] = _overflow_log(updates)
             noise = jax.vmap(lambda k: jax.random.uniform(
                 k, roi_scores.shape[1:]) * 1e-3)(keys)
-            return total, (logs, updates, r_updates,
-                           dict(relus=relus, targets=targets, noise=noise,
-                                proposals=(rois, roi_scores, roi_mask)))
+            extra = dict(relus=relus, targets=targets, noise=noise,
+                         proposals=(rois, roi_scores, roi_mask))
+            pairs = _collect_sown(updates.get("intermediates", {}),
+                                  "aux_consistency")
+            if pairs:
+                extra["pair"] = pairs[0]
+            return total, (logs, updates, r_updates, extra)
 
         (_, (logs, updates, r_updates, extra)), grads = jax.value_and_grad(
             loss_fn, has_aux=True)(state.params)
@@ -570,17 +615,56 @@ def gts_near_proposals(model, step, batch):
             "gt_valid": np.arange(4)[None].repeat(b, 0) < 3}
 
 
+def voxelrcnn_jax_runs(jmodel, jhead, jcfg, batch, variables, lr: float,
+                       total_steps: int, with_package_step: bool = True,
+                       aux_weights=None, image_hw=None) -> list:
+    """The JAX side of `voxelrcnn_step_run`: the stop-gradient composition
+    (`voxelrcnn_stop_gradient_step`) and, with `with_package_step`, the
+    JAX package's own `make_voxelrcnn_train_step`, in one jitted program
+    with `adam_onecycle(lr, total_steps)` behind a `record_grads`
+    transform, from the flax `variables` on the numpy `batch`. With
+    `aux_weights`, a list of (seg, consistency) weights, the composition
+    is the aux step with the weights as traced arguments, and the program
+    runs once per entry. -> a list of {"sg": (state, logs, extra), "pkg":
+    (state, logs)} in numpy, one per run."""
+    import jax.numpy as jnp
+    import optax
+
+    from df3d.train.schedules import adam_onecycle
+    from df3d.train.trainer import TrainState, make_voxelrcnn_train_step
+
+    tx = optax.chain(record_grads(), adam_onecycle(lr, total_steps))
+    jstate = TrainState.create(apply_fn=None, params=variables["params"],
+                               tx=tx, batch_stats=variables["batch_stats"])
+    fused = "images" in batch
+    package = make_voxelrcnn_train_step(jmodel, jhead, jcfg, fused=fused)
+
+    @jax.jit
+    def run(state, batch, rng, w):
+        composed = voxelrcnn_stop_gradient_step(
+            jmodel, jhead, jcfg, fused,
+            None if aux_weights is None else (w[0], w[1]), image_hw)
+        out = {"sg": composed(state, batch, rng)}
+        if with_package_step:
+            out["pkg"] = package(state, batch, rng)
+        return out
+
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    return [jax.tree_util.tree_map(np.array, run(
+        jstate, jbatch, jax.random.PRNGKey(2), jnp.float32(w)))
+        for w in (aux_weights or [(0.0, 0.0)])]
+
+
 def voxelrcnn_step_run(jmodel, jhead, jcfg, state, step, batch, variables,
                        lr: float, total_steps: int,
-                       with_package_step: bool = True) -> dict:
+                       with_package_step: bool = True,
+                       jax_out: dict | None = None) -> dict:
     """One Voxel R-CNN training step both ways, from the same flax
-    `variables` (already in the port's `state`) and numpy `batch`: the
-    stop-gradient composition (`voxelrcnn_stop_gradient_step`) and, with
-    `with_package_step`, the JAX package's own `make_voxelrcnn_train_step`,
-    in one jitted program with `adam_onecycle(lr, total_steps)` behind a
-    `record_grads` transform; then the port's `step` with JAX's noise
-    draws, ReLU decisions and proposals, the port's own proposals and its
-    proposal target layer's output recorded.
+    `variables` (already in the port's `state`) and numpy `batch`: the JAX
+    side (`voxelrcnn_jax_runs`, or `jax_out`, one of its runs), then the
+    port's `step` with JAX's noise draws, ReLU decisions and proposals,
+    the port's own proposals and its proposal target layer's output
+    recorded.
 
     The proposals carry no gradient, so the second stage reads them as an
     input, as it reads the noise: the port's second stage takes JAX's, and
@@ -588,48 +672,36 @@ def voxelrcnn_step_run(jmodel, jhead, jcfg, state, step, batch, variables,
     coordinates reach 30 m, and the first stage's f32 rounding moves them
     by ~1e-5 m, which the RoI grid's offsets and their batch statistics
     turn into gradient gaps of up to 3x the tolerance (seen on the fused
-    step).
+    step). The ReLUs of the frozen image branch and of an aux head are not
+    replayed (JAX's DeepLabV3 runs layer4 and ASPP too).
 
     -> dict: model, state, logs, grads (by name), new / jlogs / targets /
     proposals (the composition's state, logs, sampled targets and
     proposals), sampled and own_proposals (the port's), flips (the
     replayed ReLUs), before (the state dict ahead of the step), pkg (the
-    package step's (state, logs) or None)."""
-    import jax.numpy as jnp
-    import optax
+    package step's (state, logs) or None), jpair (the composition's
+    consistency pair or None), outputs (the aux outputs of the port's
+    forward, () without aux)."""
     import pytest
 
-    from df3d.train.schedules import adam_onecycle
-    from df3d.train.trainer import TrainState, make_voxelrcnn_train_step
     from df3d_torch.train import trainer as ttrainer
 
-    tx = optax.chain(record_grads(), adam_onecycle(lr, total_steps))
-    jstate = TrainState.create(apply_fn=None, params=variables["params"],
-                               tx=tx, batch_stats=variables["batch_stats"])
+    if jax_out is None:
+        jax_out = voxelrcnn_jax_runs(jmodel, jhead, jcfg, batch, variables,
+                                     lr, total_steps, with_package_step)[0]
+    new, jlogs, extra = jax_out["sg"]
     fused = "images" in batch
-    composed = voxelrcnn_stop_gradient_step(jmodel, jhead, jcfg, fused)
-    package = make_voxelrcnn_train_step(jmodel, jhead, jcfg, fused=fused)
-
-    @jax.jit
-    def run(state, batch, rng):
-        out = {"sg": composed(state, batch, rng)}
-        if with_package_step:
-            out["pkg"] = package(state, batch, rng)
-        return out
-
-    out = run(jstate, {k: jnp.asarray(v) for k, v in batch.items()},
-              jax.random.PRNGKey(2))
-    out = jax.tree_util.tree_map(np.array, out)
-    new, jlogs, extra = out["sg"]
 
     model = state.model
     relus, skip = extra["relus"], None
     if fused:  # the frozen image branch's ReLUs are not replayed
-        skip = model.rpn.image_branch
-        relus = relus[_image_branch_relus(jmodel, variables, batch):]
+        skip = (model.rpn.image_branch, getattr(model.rpn, "aux_seg", None))
+        n = _image_branch_relus(jmodel, variables, batch)
+        relus = relus[n + int(jmodel.fused.with_aux_seg):]
     before = {k: v.clone() for k, v in model.state_dict().items()}
     sample, sampled = ttrainer.sample_rois_for_training, []
     propose, proposed = ttrainer.proposal_layer, []
+    outputs = []
 
     def recording(*args):
         sampled.append(sample(*args))
@@ -639,6 +711,8 @@ def voxelrcnn_step_run(jmodel, jhead, jcfg, state, step, batch, variables,
         proposed.append(propose(*args, **kwargs))
         return tuple(torch.from_numpy(p) for p in extra["proposals"])
 
+    handle = model.rpn.register_forward_hook(
+        lambda mod, args, out: outputs.append(args[4:]))
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(ttrainer, "sample_rois_for_training", recording)
         mp.setattr(ttrainer, "proposal_layer", jax_proposals)
@@ -646,12 +720,14 @@ def voxelrcnn_step_run(jmodel, jhead, jcfg, state, step, batch, variables,
             logs, grads = step.grads(
                 state, {k: torch.from_numpy(v) for k, v in batch.items()},
                 noise=torch.from_numpy(extra["noise"]))
+    handle.remove()
     grads = dict(zip(state.param_names, [g.clone() for g in grads]))
     state = step.apply(state, list(grads.values()))
     return dict(model=model, state=state, logs=logs, grads=grads, new=new,
                 jlogs=jlogs, targets=extra["targets"], sampled=sampled[0],
                 proposals=extra["proposals"], own_proposals=proposed[0],
-                flips=flips, before=before, pkg=out.get("pkg"))
+                flips=flips, before=before, pkg=jax_out.get("pkg"),
+                jpair=extra.get("pair"), outputs=outputs[0])
 
 
 def _image_branch_relus(jmodel, variables, batch) -> int:
@@ -679,6 +755,11 @@ def check_relu_decisions(r):
 
 
 def check_logs(r, jlogs):
+    """Every log; JAX's aux logs where the port's step has none (its aux
+    step at weights 0) are exact zeros."""
+    if "aux_loss" in jlogs and "aux_loss" not in r["logs"]:
+        assert all(jlogs[k] == 0.0 for k in AUX_LOGS)
+        jlogs = {k: v for k, v in jlogs.items() if k not in AUX_LOGS}
     assert set(r["logs"]) == set(jlogs)
     assert int(r["logs"]["cap_overflow"]) == int(jlogs["cap_overflow"])
     assert int(jlogs["cap_overflow"]) > 0  # the caps drop rows here
