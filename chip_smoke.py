@@ -8,7 +8,9 @@ steps; then the training steps data parallel; then CenterPoint in the
 bf16 "tpu_v5e" serving profile beside "exact"; then the evaluation path:
 reference checkpoints imported, double-flip TTA, recalibration and the
 metrics; then the fused training steps with the aux objectives and
-TransFusion + 3D-DF with the Swin-T image branch.
+TransFusion + 3D-DF with the Swin-T image branch; then every preset of
+the registry built by name, and "tpu_v5e" on each of them beside
+"exact".
 
     python3 chip_smoke.py
 
@@ -307,6 +309,32 @@ any failure raises and the process exits non-zero:
 49. Swin training: the preset's step at batch 4 (K1 16 + 15, K2 2 + 2, each
    launch against its plain version), 2 warm-up + 3 timed steps, the split
    and peak memory.
+50. presets by name: each of the registry's eight presets
+   (`config.get_preset`), narrowed by `--set` overrides
+   (`config.apply_preset_overrides`) to its family's small config
+   (phases 3, 9 and 24's; a fused preset's cameras small through
+   `build_detector`'s `image_shape`), built by
+   `models.build.build_detector` on the card, serves one small input in
+   "exact" against a CPU copy of the same model: phases 3, 9 and 24's
+   checks, near ties replayed and counted.
+51. "tpu_v5e" on every preset but `centerpoint_nusc`: phase 50's models in
+   the profile, card against CPU (`profile_card_vs_cpu`: any number of
+   near-tie replays, TransFusion's peak test among them, each within
+   `PROFILE_TIE`; maps, boxes and scores within `PROFILE_MAP_REL` of their
+   largest value: the bf16 stages round an ulp apart where card and CPU
+   sum in other orders, and later layers carry it); K1's bf16 form at
+   KITTI's shapes (strided N_out < N_in, `conv_out`'s 3 taps to 128,
+   all-miss rows); then the six presets built by name at full width,
+   one frame each in "tpu_v5e" with every launch held against its plain
+   version (K1 f32 as phase 4, K1 bf16 within one ulp and bit for bit on
+   repeat, K2 as phase 7) and counted: K1 6 f32 and 10 bf16 launches a
+   nuScenes frame, 3 and 9 a KITTI one, K2 as in "exact".
+52. the six presets at full width in "exact" and "tpu_v5e" (one model
+   each, the profile switched, the same frames), each timed as phase 5
+   (2 warm-up, 3 timed frames, the split, peak memory, a one-frame
+   profile) with the launch counts asserted; then K1's bf16 launches of
+   a TransFusion-L and a Voxel R-CNN frame timed per launch against
+   phase 37's bound.
 
 TF32 is off for matmuls and cuDNN convs: the port serves in f32 (the JAX
 package's "exact" profile) and the comparisons need full f32; the
@@ -329,7 +357,9 @@ those of the KITTI training steps, phases 30 and 32, and "dp" phase 35's
 launches per rank and rank 0's kernel numbers; the third entry, K1_bf16,
 is K1's bf16 form: phase 37's numbers, phase 39's "tpu_v5e" launches;
 "tta" holds phases 41's (K1) and 42's (K2) numbers at the TTA's batch-4
-shapes, and "launches" adds phases 40-42's) and
+shapes, and "launches" adds phases 40-42's; "<preset>_<profile>" in
+"launches_by_path" counts phase 52's timed frames, and K1_bf16's
+"transfusion" and "kitti" hold phase 52's per-launch numbers) and
 the result line
 {"ok": true, "device": {...}}. With no CUDA device, or outside a checkout,
 the script exits non-zero without them.
@@ -560,11 +590,50 @@ def phase_small_input(dev):
                 cfg, [pts, valid], infer, dev)
 
 
-def full_width_frames(n):
+# the run's ray-cast frames: the serving frames (seeds 100-102) and the
+# training batch's (0-3); ~10 s each on the host, so `prefetch_frames`
+# casts them in worker processes while the kernels build
+SERVING_SEEDS, TRAIN_SEEDS = (100, 101, 102), (0, 1, 2, 3)
+_FRAMES = {}
+
+
+def _cast_frame(seed):
+    """One ray-cast frame (a worker process's job)."""
     from df3d_torch.utils.synth import make_raycast_frame
 
-    return [make_raycast_frame(np.random.RandomState(100 + i), NUM_POINTS)
-            for i in range(n)]
+    return make_raycast_frame(np.random.RandomState(seed), NUM_POINTS)
+
+
+def raycast_frame(seed):
+    """`utils.synth.make_raycast_frame(RandomState(seed), NUM_POINTS)`,
+    cast once a run."""
+    if seed not in _FRAMES:
+        _FRAMES[seed] = _cast_frame(seed)
+    return _FRAMES[seed]
+
+
+def prefetch_frames(seeds):
+    """Start casting `seeds` in worker processes, one each (spawned: the
+    parent has touched CUDA); -> a function that waits for them, puts
+    them in `raycast_frame`'s cache and stops the workers."""
+    import concurrent.futures
+    import multiprocessing
+
+    pool = concurrent.futures.ProcessPoolExecutor(
+        len(seeds), mp_context=multiprocessing.get_context("spawn"))
+    jobs = {s: pool.submit(_cast_frame, s) for s in seeds}
+
+    def collect():
+        try:
+            for seed, job in jobs.items():
+                _FRAMES[seed] = job.result()
+        finally:
+            pool.shutdown(cancel_futures=True)
+    return collect
+
+
+def full_width_frames(n):
+    return [raycast_frame(SERVING_SEEDS[0] + i) for i in range(n)]
 
 
 def k1_work(idx, n_in, k):
@@ -791,7 +860,8 @@ def phase_k1(model, cfg, frame, dev, infer_fn=None, edge_cases=True,
 
 def profile_frame(run_frame):
     """One frame, `run_frame()`, under torch.profiler: device-busy share of
-    the wall time and the kernels that take the most device time."""
+    the wall time and the kernels that take the most device time. Returns
+    (wall ms, device kernel ms)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -809,10 +879,11 @@ def profile_frame(run_frame):
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]:
         log(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} "
             f"{e.key[:100]}")
+    return wall_ms, busy_ms
 
 
 def timed_path(label, run, n_boxes, inputs, n_frames, per_frame,
-               box_dim=9):
+               box_dim=9, stats=None):
     """`run(*inputs[i])` on full-width frames: one warm-up pass over the
     inputs, then `n_frames` timed frames with every kernel's launch count
     set to 0 just before and read just after; `per_frame` maps each kernel
@@ -822,7 +893,9 @@ def timed_path(label, run, n_boxes, inputs, n_frames, per_frame,
     must hold `n_boxes` finite boxes. Prints ms/frame, launches, peak
     memory, overflows and kept boxes (those marked valid where the decode
     marks them), then a host-clock stage split and a one-frame profile of
-    inputs[0]. Boxes are `box_dim` wide. Returns the launch counts."""
+    inputs[0]. Boxes are `box_dim` wide. Returns the launch counts; a
+    `stats` dict gets the mean ms/frame, peak GiB, the split and the
+    profile's wall and device-kernel ms and idle share."""
     from df3d_torch.utils import stages
 
     for args in inputs:
@@ -874,7 +947,11 @@ def timed_path(label, run, n_boxes, inputs, n_frames, per_frame,
         run(*inputs[0])
     log(f"{label} stage split (ms, host clock, synchronised): "
         + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
-    profile_frame(lambda: run(*inputs[0]))
+    wall_ms, busy_ms = profile_frame(lambda: run(*inputs[0]))
+    if stats is not None:
+        stats.update(ms=float(np.mean(per_frame_ms)), peak_gib=peak / 2**30,
+                     split=dict(split), wall_ms=wall_ms, busy_ms=busy_ms,
+                     idle=max(0.0, 1 - busy_ms / wall_ms))
     return launches
 
 
@@ -906,7 +983,8 @@ def fused_inputs(frame, num_cams, image_shape, dev, seed):
 
 
 def small_fused_configs():
-    from df3d_torch.entry import centerpoint_3ddf_nusc, fused_config, small_cfg
+    from df3d_torch.entry import small_cfg
+    from df3d_torch.config.presets import centerpoint_3ddf_nusc, fused_config
 
     preset = centerpoint_3ddf_nusc()
     actr = dataclasses.replace(preset["actr"], lt_npoint=64)
@@ -929,7 +1007,7 @@ def phase_small_fused(dev):
 
 
 def full_fused_configs():
-    from df3d_torch.entry import centerpoint_3ddf_nusc, fused_config
+    from df3d_torch.config.presets import centerpoint_3ddf_nusc, fused_config
 
     preset = centerpoint_3ddf_nusc()
     cfg = dataclasses.replace(preset["lidar"],
@@ -1241,7 +1319,8 @@ def small_transfusion_config():
     """TransFusion-L on `entry.small_cfg()`'s grid, at the preset's head
     widths (10 classes, 200 proposals, hidden 128, 8 heads) on its 16x16
     BEV map."""
-    from df3d_torch.entry import small_cfg, transfusion_l_nusc
+    from df3d_torch.entry import small_cfg
+    from df3d_torch.config.presets import transfusion_l_nusc
 
     c = small_cfg()
     base = transfusion_l_nusc()
@@ -1270,9 +1349,9 @@ def phase_small_transfusion(dev):
 
 def phase_small_transfusion_fused(dev):
     from df3d_torch.entry import (
-        build_transfusion3ddf, fused_config, infer_transfusion_fused,
-        random_points, transfusion_3ddf_nusc,
+        build_transfusion3ddf, infer_transfusion_fused, random_points,
     )
+    from df3d_torch.config.presets import fused_config, transfusion_3ddf_nusc
 
     cfg = small_transfusion_config()
     preset = transfusion_3ddf_nusc()
@@ -1291,7 +1370,7 @@ def phase_small_transfusion_fused(dev):
 def full_transfusion_configs():
     """(TransFusion-L, its FusedConfig) of the `transfusion_3ddf_nusc`
     preset at the stage caps above (bench.py's for this model)."""
-    from df3d_torch.entry import fused_config, transfusion_3ddf_nusc
+    from df3d_torch.config.presets import fused_config, transfusion_3ddf_nusc
 
     preset = transfusion_3ddf_nusc()
     cfg = dataclasses.replace(preset["lidar"],
@@ -1444,14 +1523,10 @@ def compare_train_step(label, ref, got, strict):
         "updated parameters and batch statistics")
 
 
-@functools.lru_cache(maxsize=None)
 def training_frame(seed):
-    """`utils.synth.make_raycast_frame(RandomState(seed), NUM_POINTS)`,
-    cast once a run (~10 s a frame on the host) for the five phases that
+    """The ray-cast frame of `seed` (`raycast_frame`) for the phases that
     train on it."""
-    from df3d_torch.utils.synth import make_raycast_frame
-
-    return make_raycast_frame(np.random.RandomState(seed), NUM_POINTS)
+    return raycast_frame(seed)
 
 
 def full_train_batch(dev):
@@ -1470,8 +1545,8 @@ def full_train_setup(dev, transfusion=False):
     and `full_train_batch`."""
     from df3d_torch.entry import (
         build_centerpoint_trainer, build_transfusion_trainer,
-        transfusion_l_nusc,
     )
+    from df3d_torch.config.presets import transfusion_l_nusc
     from df3d_torch.models.detectors.centerpoint import CenterPointConfig
 
     if transfusion:
@@ -1774,18 +1849,37 @@ def fused_train_batch(points, boxes, classes, images, proj, dev):
 
 
 @contextlib.contextmanager
-def transfusion_decisions(store, replay):
+def transfusion_decisions(store, replay, peaks=False):
     """Patch TransFusion's head: record the queries' top-k indices and the
     Hungarian matches of each call in `store`, in call order; or, with
     `replay`, give each call the recorded indices or matches where its own
     differ. A replay is a near tie on this device: the top-k scores, or
     the batch's summed assignment costs, of the two choices lie within
-    `gap` of each other (the caller bounds it). Yields the replays,
-    (kind, entries that differ, gap) per call that had any."""
+    `gap` of each other (the caller bounds it). With `peaks` the heatmap's
+    peak test (`local_peaks`) is recorded and replayed too, its gap the
+    largest |heat - window max| of a cell whose test flips. Yields the
+    replays, (kind, entries that differ, gap) per call that had any."""
+    import torch.nn.functional as F
     from df3d_torch.models.heads import transfusion_head as H
 
     top_k, match, replays = H.top_k_stable, H.hungarian_match, []
+    local_peaks = H.local_peaks
     recorded = iter(store)
+
+    def recording_peaks(heatmap, cfg):
+        got = local_peaks(heatmap, cfg)
+        if not replay:
+            store.append(got.cpu())
+            return got
+        want = next(recorded).to(got.device)
+        if torch.equal(want, got):
+            return got
+        k = cfg.nms_kernel_size
+        window = F.max_pool2d(heatmap, k, stride=1, padding=k // 2)
+        flips = want != got
+        replays.append(("peaks", int(flips.sum()),
+                        float((window - heatmap).abs()[flips].max())))
+        return want
 
     def recording_top_k(x, k):
         vals, idx = top_k(x, k)
@@ -1817,10 +1911,13 @@ def transfusion_decisions(store, replay):
         return want
 
     H.top_k_stable, H.hungarian_match = recording_top_k, recording_match
+    if peaks:
+        H.local_peaks = recording_peaks
     try:
         yield replays
     finally:
         H.top_k_stable, H.hungarian_match = top_k, match
+        H.local_peaks = local_peaks
 
 
 @contextlib.contextmanager
@@ -2096,6 +2193,8 @@ def full_fused_train_setup(dev, transfusion=False, with_batch=True,
     and the rig of `utils.synth.camera_rig`."""
     from df3d_torch.entry import (
         build_centerpoint3ddf_trainer, build_transfusion3ddf_trainer,
+    )
+    from df3d_torch.config.presets import (
         centerpoint_3ddf_nusc, fused_config, transfusion_3ddf_nusc,
     )
 
@@ -2613,7 +2712,7 @@ def small_kitti_configs():
     grid, 16 RoIs, grid 4) and, for the fused path, the preset's ACTRv2
     (d_model 64, 8 heads, 3 levels, 4 points; LT at 64 centres) with a
     one-block DeepLabV3 on one 96x320 camera."""
-    from df3d_torch.entry import fused_config, voxel_rcnn_3ddf_kitti
+    from df3d_torch.config.presets import fused_config, voxel_rcnn_3ddf_kitti
     from df3d_torch.models.detectors.voxel_rcnn import VoxelRCNNConfig
     from df3d_torch.models.heads.voxelrcnn_head import (
         RoIPoolScaleCfg, VoxelRCNNHeadCfg,
@@ -2754,9 +2853,11 @@ def phase_kitti_paths(dev, frames):
     cases, then `infer_voxelrcnn_fused` timed, K1 12 and K2 1 launches a
     frame). Returns K1's and K2's entries and each path's launches."""
     from df3d_torch.entry import (
-        build_voxelrcnn, build_voxelrcnn3ddf, fused_config,
-        infer_voxelrcnn, infer_voxelrcnn_fused, voxel_rcnn_3ddf_kitti,
-        voxel_rcnn_car_kitti,
+        build_voxelrcnn, build_voxelrcnn3ddf, infer_voxelrcnn,
+        infer_voxelrcnn_fused,
+    )
+    from df3d_torch.config.presets import (
+        fused_config, voxel_rcnn_3ddf_kitti, voxel_rcnn_car_kitti,
     )
     from df3d_torch.ops import msda_kernel as K2
     from df3d_torch.ops import sparse_conv_kernel as K1
@@ -2811,21 +2912,28 @@ KITTI_TRAIN_BATCH = 2
 K1_BWD_PER_KITTI_STEP = 11
 
 
-@contextlib.contextmanager
 def kitti_train_decisions(store, replay):
-    """`voxelrcnn_decisions` (the proposal NMS and the RoI head's neighbour
-    searches, near ties replayed) and the proposals themselves: the
-    training step's proposals carry no gradient, so the second stage reads
-    them as an input; with `replay` each call returns the recorded
-    proposals, after its own roi_mask is checked equal to them and its
-    RoIs and scores within 1e-4 * max + 1e-5 (the RoIs' coordinates reach
-    70 m, and the card's rounding moves them by more than the tight
-    tolerance of the second stage's gradients allows)."""
+    """`proposal_decisions` of the training step's proposals
+    (`train.trainer.proposal_layer`): they carry no gradient, so the
+    second stage reads them as an input; the card's held within 1e-4 *
+    max + 1e-5 (the RoIs' coordinates reach 70 m, and the card's rounding
+    moves them by more than the tight tolerance of the second stage's
+    gradients allows)."""
     from df3d_torch.train import trainer as T
 
+    return proposal_decisions(store, replay, T)
+
+
+@contextlib.contextmanager
+def proposal_decisions(store, replay, module, rel=1e-4, floor=1e-5):
+    """`voxelrcnn_decisions` (the proposal NMS and the RoI head's neighbour
+    searches, near ties replayed) and the proposals themselves, as
+    `module.proposal_layer` gives them: with `replay` each call returns
+    the recorded proposals, after its own roi_mask is checked equal to
+    them and its RoIs and scores within `rel` * max + `floor`."""
     if not store:  # the searches' decisions, and the proposals
         store.extend([[], []])
-    propose, recorded = T.proposal_layer, iter(store[1])
+    propose, recorded = module.proposal_layer, iter(store[1])
 
     def proposals(*args, **kwargs):
         got = propose(*args, **kwargs)
@@ -2835,7 +2943,7 @@ def kitti_train_decisions(store, replay):
         want = tuple(t.to(got[0].device) for t in next(recorded))
         check(torch.equal(got[2], want[2]), "the card's roi_mask differs")
         for g, w in zip(got[:2], want[:2]):
-            tol = 1e-4 * w.abs().max().item() + 1e-5
+            tol = rel * w.abs().max().item() + floor
             err = (g - w).abs()
             at = np.unravel_index(int(err.argmax()), tuple(err.shape))
             check(err.max().item() <= tol,
@@ -2845,11 +2953,11 @@ def kitti_train_decisions(store, replay):
         return want
 
     with voxelrcnn_decisions(store[0], replay) as replays:
-        T.proposal_layer = proposals
+        module.proposal_layer = proposals
         try:
             yield replays
         finally:
-            T.proposal_layer = propose
+            module.proposal_layer = propose
 
 
 def small_kitti_train_configs():
@@ -3011,8 +3119,10 @@ def phase_kitti_train(dev):
     RoI sampler's noise comes from a seeded generator on the card.
     Returns K1's and K2's entries and each path's launch counts."""
     from df3d_torch.entry import (
-        build_voxelrcnn3ddf_trainer, build_voxelrcnn_trainer, fused_config,
-        voxel_rcnn_3ddf_kitti, voxel_rcnn_car_kitti,
+        build_voxelrcnn3ddf_trainer, build_voxelrcnn_trainer,
+    )
+    from df3d_torch.config.presets import (
+        fused_config, voxel_rcnn_3ddf_kitti, voxel_rcnn_car_kitti,
     )
 
     gen = torch.Generator(device=dev).manual_seed(7)
@@ -3462,11 +3572,9 @@ def phase_profile_k1(model, cfg, frame, dev):
     """Phase 37: every K1 launch of one full-width CenterPoint frame in the
     "tpu_v5e" profile: the f32 ones as phase 4 holds them, the bf16 ones
     against the bf16 plain version within one bf16 ulp and bit for bit on
-    repeat (`k1_bf16_check`), after K1's edge cases in bf16; per bf16
-    launch its times, the plain version's and its bound: 2 bytes per table
-    element the hits touch, per weight and per output, 4 per index, over
-    HBM's rate, or 2 x hit pairs x Cin x Cout FLOP at the dense bf16 peak,
-    whichever is larger. Returns the `kernels` entry of K1's bf16 form."""
+    repeat, after K1's edge cases in bf16; per bf16 launch its times, the
+    plain version's and its bound (`k1_bf16_table`). Returns the `kernels`
+    entry of K1's bf16 form."""
     from df3d_torch.ops import sparse_conv_kernel as K
 
     bf16 = []
@@ -3484,22 +3592,41 @@ def phase_profile_k1(model, cfg, frame, dev):
                  K.sparse_conv_plain, f, idx, w)
     launch, plain = K.sparse_conv_bf16_cuda, K.sparse_conv_bf16_plain
     k1_edge_cases(launch, plain, k1_bf16_check, torch.bfloat16)
-    log(f"K1 bf16 per launch of a tpu_v5e frame ({len(f32)} f32 launches "
-        "held as in phase 4 first; tolerance: one bf16 ulp of the plain "
-        "version, or 1e-6; a repeat launch equals the first bit for bit). "
-        "one_ulp = outputs one ulp from the plain version, past_half = "
-        "outputs past 2^-8 |plain| + 1e-6; bound = max(bytes / 3.35 TB/s, "
+    return dict(name="K1_bf16", route="cuda",
+                source="df3d_torch/csrc/sparse_conv.cu",
+                replaces="df3d/ops/pallas/sparse_conv_kernel.py:42",
+                library_ms=None, **k1_bf16_table(
+                    f"a tpu_v5e frame ({len(f32)} f32 launches held as in "
+                    "phase 4 first)", bf16))
+
+
+def k1_bf16_table(label, launches):
+    """K1's bf16 launches of one frame (`label`), each held against the
+    bf16 plain version (`k1_bf16_check`) and timed: back-to-back and
+    device time, the plain version's time and the bound: 2 bytes per
+    table element the hits touch, per weight and per output, 4 per index,
+    over HBM's rate, or 2 x hit pairs x Cin x Cout FLOP at the dense bf16
+    peak, whichever is larger. Logs a row per launch; returns the frame's
+    totals (ms, device_ms, plain_ms, bound_ms, bound_by, max_abs_err and
+    the outputs one ulp from the plain ones)."""
+    from df3d_torch.ops import sparse_conv_kernel as K
+
+    launch, plain = K.sparse_conv_bf16_cuda, K.sparse_conv_bf16_plain
+    log(f"K1 bf16 per launch of {label} (tolerance: one bf16 ulp of the "
+        "plain version, or 1e-6; a repeat launch equals the first bit for "
+        "bit). one_ulp = outputs one ulp from the plain version, past_half "
+        "= outputs past 2^-8 |plain| + 1e-6; bound = max(bytes / 3.35 TB/s, "
         "FLOP / 989 TFLOP/s bf16):")
     log("  #  N_in    N_out  K  Cin Cout  hit_pairs  touched_rows  "
         "kernel_ms  device_ms plain_ms  bound_ms  bound_by   max_abs_err "
         "one_ulp past_half")
     rows, max_err = [], 0.0
-    for i, (f, idx, w) in enumerate(bf16):
+    for i, (f, idx, w) in enumerate(launches):
         b, n_in, cin = f.shape
         k, _, cout = w.shape
         n_out = idx.shape[1] // k
         _, _, err, one_ulp, half = k1_bf16_check(
-            f"tpu_v5e bf16 launch {i}", launch, plain, f, idx, w)
+            f"{label}: bf16 launch {i}", launch, plain, f, idx, w)
         max_err = max(max_err, err)
         ms = cuda_ms(lambda: launch(f, idx, w), 20)
         dev_ms = device_ms(lambda: launch(f, idx, w), 20)
@@ -3524,21 +3651,18 @@ def phase_profile_k1(model, cfg, frame, dev):
             f"{err:<11.3g} {one_ulp:<7d} {half}")
     total = {key: sum(r[key] for r in rows) for key in rows[0]}
     bound_by = "operations" if total["t_ops"] >= total["t_bytes"] else "bytes"
-    log(f"K1 bf16 per tpu_v5e frame: {len(rows)} launches, kernel "
+    log(f"K1 bf16 per {label}: {len(rows)} launches, kernel "
         f"{total['ms']:.4f} ms (device time {total['device_ms']:.4f} ms), "
         f"plain {total['plain_ms']:.4f} ms, bound {total['bound_ms']:.5f} ms "
         f"({bound_by}: {total['nbytes'] / 1e6:.3f} MB, "
         f"{total['flops'] / 1e9:.3f} GFLOP in {total['pairs']} hit pairs); "
         f"{total['one_ulp']} of {total['outputs']} outputs one ulp from the "
         f"plain version, {total['past_half']} past 2^-8 |plain| + 1e-6")
-    return dict(
-        name="K1_bf16", route="cuda",
-        source="df3d_torch/csrc/sparse_conv.cu",
-        replaces="df3d/ops/pallas/sparse_conv_kernel.py:42",
-        max_abs_err=max_err, ms=total["ms"], plain_ms=total["plain_ms"],
-        bound_ms=total["bound_ms"], bound_by=bound_by, library_ms=None,
-        device_ms=total["device_ms"], one_ulp=total["one_ulp"],
-        past_half=total["past_half"], outputs=total["outputs"])
+    return dict(max_abs_err=max_err, ms=total["ms"],
+                plain_ms=total["plain_ms"], bound_ms=total["bound_ms"],
+                bound_by=bound_by, device_ms=total["device_ms"],
+                one_ulp=total["one_ulp"], past_half=total["past_half"],
+                outputs=total["outputs"])
 
 
 def phase_profile_small(dev):
@@ -3930,6 +4054,8 @@ def phase_imported_weights(dev, frames, kitti_frame):
     from df3d_torch.entry import (
         build_centerpoint, build_transfusion, build_voxelrcnn, infer,
         infer_transfusion, infer_voxelrcnn, random_points, small_cfg,
+    )
+    from df3d_torch.config.presets import (
         transfusion_l_nusc, voxel_rcnn_car_kitti,
     )
     from df3d_torch.models.detectors.centerpoint import CenterPointConfig
@@ -4328,18 +4454,23 @@ def phase_aux_small_train(dev):
               f"{label}, aux: the aux head's gradients {head}")
 
 
-def check_launches(label, run):
+def check_launches(label, run, bf16=None):
     """`run()` with every K1 launch (forward and input gradient) and K2
     launch (forward and backward) captured, then each held against its
     plain version (`k1_check`, `k2_check`, `k2_bwd_check`: the tolerances
-    of phases 4, 7 and 18, repeat launches bit for bit). Returns the
-    launch counts and the largest errors of K1 and K2."""
+    of phases 4, 7 and 18, repeat launches bit for bit). With a list
+    `bf16`, K1's bf16 launches are captured too (appended to it, counted
+    as "k1_bf16") and each held against the bf16 plain version within one
+    bf16 ulp (`k1_bf16_check`, its largest error under "k1_bf16"). Returns
+    the launch counts and the largest errors of K1 and K2."""
     from df3d_torch.ops import msda_kernel as K2
     from df3d_torch.ops import sparse_conv_kernel as K1
 
     launchers = {"k1_fwd": (K1, "sparse_conv_cuda"),
                  "k1_bwd": (K1, "sparse_conv_cuda_dx"),
                  "k2_fwd": (K2, "msda_cuda"), "k2_bwd": (K2, "msda_bwd_cuda")}
+    if bf16 is not None:
+        launchers["k1_bf16"] = (K1, "sparse_conv_bf16_cuda")
     saved = {k: getattr(m, a) for k, (m, a) in launchers.items()}
     captured = {k: [] for k in launchers}
 
@@ -4372,19 +4503,27 @@ def check_launches(label, run):
         err["k2"] = max(err["k2"], k2_bwd_check(
             f"{label}: K2 backward launch {i}", saved["k2_bwd"],
             K2.msda_bwd_plain, *args)[0])
+    if bf16 is not None:
+        err["k1_bf16"] = 0.0
+        for i, (f, idx, w) in enumerate(captured["k1_bf16"]):
+            err["k1_bf16"] = max(err["k1_bf16"], k1_bf16_check(
+                f"{label}: K1 bf16 launch {i}", saved["k1_bf16"],
+                K1.sparse_conv_bf16_plain, f, idx, w)[2])
+        bf16.extend(captured["k1_bf16"])
     counts = {k: len(v) for k, v in captured.items()}
     log(f"{label}: launches {counts}, each against its plain version: max "
-        f"abs err K1 {err['k1']:.3g}, K2 {err['k2']:.3g}; repeat launches "
-        "bit for bit")
+        f"abs err " + ", ".join(f"{k.upper()} {v:.3g}" for k, v in err.items())
+        + "; repeat launches bit for bit")
     return counts, err
 
 
 def aux_full_cases(dev):
     """(label, build(aux) -> (state, step), batch, step args, K2 per
     step, K1 counts) of phase 45's three presets at full width."""
-    from df3d_torch.entry import (
-        build_voxelrcnn3ddf_trainer, centerpoint_3ddf_nusc, fused_config,
-        transfusion_3ddf_nusc, voxel_rcnn_3ddf_kitti,
+    from df3d_torch.entry import build_voxelrcnn3ddf_trainer
+    from df3d_torch.config.presets import (
+        centerpoint_3ddf_nusc, fused_config, transfusion_3ddf_nusc,
+        voxel_rcnn_3ddf_kitti,
     )
 
     def nusc(transfusion):
@@ -4474,7 +4613,9 @@ def phase_aux_dp(dev):
 def swin_configs():
     """(TransFusion-L, its FusedConfig) of `transfusion_3ddf_swin_nusc` at
     the serving stage caps of `full_transfusion_configs`."""
-    from df3d_torch.entry import fused_config, transfusion_3ddf_swin_nusc
+    from df3d_torch.config.presets import (
+        fused_config, transfusion_3ddf_swin_nusc,
+    )
 
     preset = transfusion_3ddf_swin_nusc()
     cfg = dataclasses.replace(preset["lidar"],
@@ -4488,8 +4629,10 @@ def phase_swin_small(dev):
     TransFusion + 3D-DF input, card against the CPU's plain path, Swin-T
     narrowed (one block a stage, width 24) on two 64x112 cameras."""
     from df3d_torch.entry import (
-        build_transfusion3ddf, fused_config, infer_transfusion_fused,
-        random_points, transfusion_3ddf_swin_nusc,
+        build_transfusion3ddf, infer_transfusion_fused, random_points,
+    )
+    from df3d_torch.config.presets import (
+        fused_config, transfusion_3ddf_swin_nusc,
     )
 
     cfg = small_transfusion_config()
@@ -4567,7 +4710,7 @@ def phase_swin_train(dev):
     15, K2 2 + 2), then `phase_fused_train_path` (2 warm-up + 3 timed
     steps, the split, peak memory). Returns its counts and the largest
     errors."""
-    from df3d_torch.entry import transfusion_3ddf_swin_nusc
+    from df3d_torch.config.presets import transfusion_3ddf_swin_nusc
 
     _, fcfg, state, step, batch = full_fused_train_setup(
         dev, preset=transfusion_3ddf_swin_nusc())
@@ -4583,6 +4726,416 @@ def phase_swin_train(dev):
     del state, step, batch
     torch.cuda.empty_cache()
     return res, err
+
+
+# --- every preset by name (phases 50-52) ------------------------------------
+
+# the presets phase 51 and 52 serve in "tpu_v5e" (`centerpoint_nusc`'s are
+# phases 37-39), with their K1 launches a frame in that profile, (f32,
+# bf16), and K2's, the same as in "exact": the 32-channel gate leaves
+# conv_input, the first stage and the first downsample (Cin 5 and 16; 4
+# and 16 on KITTI) on the f32 form, and the hybrid tail's dense convs are
+# cuDNN's
+PROFILE_PRESETS = {
+    "centerpoint_3ddf_nusc": (6, 10, K2_PER_FUSED_FRAME),
+    "transfusion_l_nusc": (6, 10, 0),
+    "transfusion_3ddf_nusc": (6, 10, K2_PER_TRANSFUSION_FUSED_FRAME),
+    "transfusion_3ddf_swin_nusc": (6, 10, K2_PER_TRANSFUSION_FUSED_FRAME),
+    "voxel_rcnn_car_kitti": (3, 9, 0),
+    "voxel_rcnn_3ddf_kitti": (3, 9, K2_PER_KITTI_FUSED_FRAME),
+}
+# phase 50's small configs: each family's preset narrowed by `--set`
+# overrides to the small config of phases 3, 9 and 24 (the
+# `centerpoint_tiny_smoke` grid on nuScenes), a fused preset's LT to 64
+# centres and its cameras (all of them, the preset's image branch at
+# full depth) to `SMALL_IMAGE` through `build_detector`'s `image_shape`
+_SMALL_GRID = ["pc_range=[-25.6, -25.6, -2.4, 25.6, 25.6, 2.4]",
+               "voxel_size=[0.4, 0.4, 0.2]", "grid_size=[24, 128, 128]",
+               "max_voxels=2048", "stage_caps=[2048, 1024, 512, 256]"]
+SMALL_OVERRIDES = {
+    "centerpoint": _SMALL_GRID + [
+        "max_objs=32", "nms_pre_max_size=128", "nms_post_max_size=16",
+        "post_center_range=[-30.0, -30.0, -4.0, 30.0, 30.0, 4.0]"],
+    "transfusion": _SMALL_GRID + [
+        "head.bev_size=[16, 16]", "head.voxel_size=[0.4, 0.4]",
+        "head.pc_range=[-25.6, -25.6]"],
+    "voxelrcnn": [
+        "pc_range=[0.0, -16.0, -2.4, 32.0, 16.0, 2.4]",
+        "voxel_size=[0.5, 0.5, 0.2]", "grid_size=[24, 64, 64]",
+        "max_voxels=512", "stage_caps=[512, 384, 256, 128]",
+        "test_pre_nms=128", "test_post_nms=16", "rcnn.grid_size=4",
+        "rcnn.max_local=64"],
+}
+SMALL_IMAGE = {"nusc": (64, 112), "kitti": (96, 320)}
+
+
+def small_preset(name):
+    """The preset `name` from the registry narrowed to its family's small
+    config (`SMALL_OVERRIDES`; `centerpoint_tiny_smoke` as it is) ->
+    (preset, the overrides)."""
+    from df3d_torch.config import apply_preset_overrides, get_preset
+    from df3d_torch.models.detectors.transfusion import TransFusionConfig
+    from df3d_torch.models.detectors.voxel_rcnn import VoxelRCNNConfig
+
+    preset = get_preset(name)
+    if name == "centerpoint_tiny_smoke":
+        return preset, []
+    fused = isinstance(preset, dict)
+    lidar = preset["lidar"] if fused else preset
+    family = ("voxelrcnn" if isinstance(lidar, VoxelRCNNConfig) else
+              "transfusion" if isinstance(lidar, TransFusionConfig) else
+              "centerpoint")
+    sets = [("lidar." if fused else "") + o for o in SMALL_OVERRIDES[family]]
+    if fused:
+        sets.append("actr.lt_npoint=64")
+    return apply_preset_overrides(preset, sets), sets
+PRESET_TIMED_FRAMES = 3
+# bf16 against the CPU's bf16 (phase 51's small inputs): the card's conv
+# sums and the CPU's differ in order, so a bf16 output lands an ulp apart
+# at a rounding boundary and the later bf16 layers carry it on; held to
+# this share of each map's largest value, and a decision the card replays
+# to this gap (tests/test_torch_profile_presets.py measures the same
+# effect between the port and the JAX package on the CPU)
+PROFILE_MAP_REL = 5e-2
+PROFILE_TIE = 1e-2
+
+
+def serving_preset(name):
+    """The preset `name` from the registry; the nuScenes ones with the
+    serving caps the ray-cast frames were fitted to (REALISTIC_STAGE_CAPS),
+    set as `--set` overrides, the others as they are."""
+    from df3d_torch.config import apply_preset_overrides, get_preset
+
+    preset = get_preset(name)
+    if not name.endswith("_nusc"):
+        return preset
+    lidar = "lidar." if isinstance(preset, dict) else ""
+    return apply_preset_overrides(preset, [
+        f"{lidar}max_voxels={REALISTIC_STAGE_CAPS[0]}",
+        f"{lidar}stage_caps={list(REALISTIC_STAGE_CAPS)}"])
+
+
+def preset_small_inputs(name, ns):
+    """CPU tensors (points, valid[, images, proj]) of a small input for a
+    built small preset: 2000 random points over +-25 m (nuScenes, 5
+    features) or phase 24's 1500 in front of the car (KITTI, 4), and for
+    a fused preset seeded normalized images at its image shape with the
+    rig (or KITTI's front camera scaled to the image)."""
+    from df3d_torch.entry import random_points
+
+    rng = np.random.RandomState(0)
+    if ns.family == "voxelrcnn":
+        n = 1500
+        pts = np.concatenate([rng.uniform(0, 31, (n, 1)),
+                              rng.uniform(-15, 15, (n, 1)),
+                              rng.uniform(-1.8, 1.8, (n, 1)),
+                              rng.uniform(0, 1, (n, 1))],
+                             -1).astype(np.float32)
+        ins = kitti_inputs(pts, ns.image_shape or KITTI_IMAGE, "cpu", 0,
+                           scale=(ns.image_shape or KITTI_IMAGE)[1]
+                           / KITTI_IMAGE[1])
+        return list(ins if ns.fused else ins[:2])
+    pts = random_points(rng, 1, 2000, ns.lidar_cfg.num_point_features)[0]
+    if not ns.fused:
+        return [torch.from_numpy(pts[None]),
+                torch.ones(1, len(pts), dtype=torch.bool)]
+    return list(fused_inputs(pts, ns.num_cams, ns.image_shape, "cpu", 0))
+
+
+def _on_device(ns, cpu):
+    """`build(device)` for the card-against-CPU helpers: the built
+    preset's model (Voxel R-CNN: (first stage, head)) on the card, or its
+    copy `cpu` on the CPU."""
+    card = (ns.model, ns.head) if ns.family == "voxelrcnn" else ns.model
+    return lambda d: card if torch.device(d).type == "cuda" else cpu
+
+
+def _cpu_copy(ns):
+    import copy
+
+    if ns.family == "voxelrcnn":
+        return copy.deepcopy(ns.model).cpu(), copy.deepcopy(ns.head).cpu()
+    return copy.deepcopy(ns.model).cpu()
+
+
+def phase_presets_by_name(dev):
+    """Phase 50: every preset of the registry, by name and narrowed to its
+    family's small config (`small_preset`), built through
+    `models.build.build_detector` on the card, serves one small input in
+    "exact", card against a CPU copy of the same model (the plain
+    versions): phases 3, 9 and 24's checks by family, near ties replayed
+    and counted. Returns the built presets, which phase 51 reuses."""
+    from df3d_torch.config import PRESETS
+    from df3d_torch.models.build import build_detector
+
+    built = {}
+    for name in PRESETS:
+        t = time.perf_counter()
+        preset, sets = small_preset(name)
+        fused = isinstance(preset, dict)
+        small = SMALL_IMAGE["kitti" if "kitti" in name else "nusc"]
+        ns = build_detector(preset, device=dev, seed=0,
+                            image_shape=small if fused else None)
+        cpu = _cpu_copy(ns)
+        inputs = preset_small_inputs(name, ns)
+        label = f"{name} by name, small input"
+        build = _on_device(ns, cpu)
+        if ns.family == "centerpoint":
+            card_vs_cpu(label, build, ns.lidar_cfg, inputs, ns.serve, dev)
+        elif ns.family == "transfusion":
+            transfusion_card_vs_cpu(label, build, ns.lidar_cfg, inputs,
+                                    ns.serve, dev)
+        else:
+            kitti_card_vs_cpu(label, build, ns.lidar_cfg, inputs, ns.serve,
+                              dev)
+        log(f"{name}: family {ns.family}, fused {ns.fused}, cameras "
+            f"{ns.num_cams}, image {ns.image_shape}, --set {sets}; built "
+            f"and checked in {time.perf_counter() - t:.1f} s")
+        built[name] = (ns, cpu, inputs)
+    return built
+
+
+def _float_maps(preds):
+    """The float head maps of a forward's predictions, flat."""
+    if isinstance(preds, (list, tuple)):
+        return {f"task{i}.{k}": v for i, p in enumerate(preds)
+                for k, v in _float_maps(p).items()}
+    return {k: v for k, v in preds.items()
+            if torch.is_tensor(v) and v.is_floating_point()}
+
+
+def profile_card_vs_cpu(label, ns, cpu, inputs, dev):
+    """A built preset in "tpu_v5e" on a small input, card against its CPU
+    copy (both set to the profile): the CPU run records its decisions,
+    the card replays them where its own differ (any number, each a tie
+    within `PROFILE_TIE` of the score or cost it replaces; Voxel R-CNN's
+    second stage reads the CPU's proposals once the card's own are held
+    within `PROFILE_MAP_REL` of them, as phase 29 does, since a RoI moved
+    by the bf16 stages' rounding moves its neighbour sets); cap overflows,
+    kept sets and labels equal; every head map, box and score within
+    `PROFILE_MAP_REL` of the largest value of its kind. Logs the largest
+    gaps and the replays."""
+    from df3d_torch import entry
+
+    decide = {"centerpoint": centerpoint_decisions,
+              "transfusion": functools.partial(transfusion_decisions,
+                                               peaks=True),
+              "voxelrcnn": functools.partial(
+                  proposal_decisions, module=entry, rel=PROFILE_MAP_REL,
+                  floor=0.0)}[ns.family]
+    build = _on_device(ns, cpu)
+    store, runs = [], []
+    for d, replay in (("cpu", False), (dev, True)):
+        model = build(d)
+        first = model[0] if ns.family == "voxelrcnn" else model
+        seen = []
+        handle = first.register_forward_hook(
+            lambda m, a, o: seen.append(o[0]))
+        args = [t.to(d) for t in inputs]
+        try:
+            with torch.no_grad(), decide(store, replay) as replays:
+                det, overflow = (ns.serve(*model, ns.lidar_cfg, *args)
+                                 if ns.family == "voxelrcnn" else
+                                 ns.serve(model, ns.lidar_cfg, *args))
+        finally:
+            handle.remove()
+        runs.append(to_cpu((_float_maps(seen[0]), det, overflow)))
+    (c_maps, c_det, c_ov), (g_maps, g_det, g_ov) = runs
+    check(all(g < PROFILE_TIE for *_, g in replays),
+          f"{label}: a replayed decision is no tie within {PROFILE_TIE}: "
+          f"{replays}")
+    for k in c_ov:
+        check(torch.equal(c_ov[k], g_ov[k]), f"{label}: {k} differs")
+    # the kept detections (TransFusion keeps every query)
+    kept = c_det.get("valid", torch.ones_like(c_det["labels"], dtype=bool))
+    for k in ("valid", "roi_mask"):
+        if k in c_det:
+            check(torch.equal(c_det[k], g_det[k]), f"{label}: {k} differs")
+    check(torch.equal(c_det["labels"][kept], g_det["labels"][kept]),
+          f"{label}: kept labels differ")
+    gaps = {}
+    for tree_c, tree_g, rows in ((c_maps, g_maps, None),
+                                 (c_det, g_det, kept)):
+        for k, t in tree_c.items():
+            if not t.is_floating_point():
+                continue
+            g = tree_g[k]
+            if rows is not None and t.shape[:2] == rows.shape:
+                t, g = t[rows], g[rows]
+            check(torch.isfinite(g).all(), f"{label}: non-finite {k}")
+            top = max(t.abs().max().item(), 1e-30) if t.numel() else 1.0
+            gaps[k] = ((g - t).abs().max().item() / top if t.numel()
+                       else 0.0)
+    worst = max(gaps, key=gaps.get)
+    check(gaps[worst] <= PROFILE_MAP_REL,
+          f"{label}: {worst} {gaps[worst]:.3g} of its largest value apart")
+    log(f"{label}: card vs CPU in tpu_v5e agree: largest gap {worst} "
+        f"{gaps[worst]:.3g} of its largest value (bev maps and detections: "
+        + ", ".join(f"{k} {v:.2g}" for k, v in gaps.items()) + "); "
+        f"{sum(map(len, store)) if ns.family == 'voxelrcnn' else len(store)}"
+        " decisions recorded, replays "
+        f"{sum(n for _, n, _ in replays)} entries {replays}; cap overflow "
+        + ", ".join(f"{k}={int(v.sum())}" for k, v in c_ov.items()))
+
+
+K1_BF16_KITTI_EDGE_CASES = [
+    # (B, N_in, N_out, K, Cin, Cout, hit share) at KITTI's shapes: the
+    # submanifold 32- and 64-channel stacks, the strided downsamples
+    # (N_out < N_in), conv_out's 3 taps from 64 to 128 channels, rows with
+    # every tap missing, and a batch of two
+    (1, 12000, 12000, 27, 32, 32, (0.3,)),
+    (1, 12000, 8000, 27, 32, 64, (0.2,)),
+    (1, 8000, 8000, 27, 64, 64, (0.3,)),
+    (1, 8000, 4000, 27, 64, 64, (0.1,)),
+    (1, 4000, 4000, 3, 64, 128, (0.5,)),
+    (1, 4000, 2500, 3, 64, 128, (0.02,)),
+    (2, 4000, 4000, 3, 64, 128, (0.0, 0.4)),
+]
+
+
+def k1_bf16_kitti_edge_cases():
+    """K1's bf16 form against its plain version at KITTI's shapes
+    (`K1_BF16_KITTI_EDGE_CASES`, `k1_bf16_check`: one bf16 ulp, repeat
+    launches bit for bit); an all-miss sample must give zeros."""
+    from df3d_torch.ops import sparse_conv_kernel as K
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    for b, n_in, n_out, k, cin, cout, shares in K1_BF16_KITTI_EDGE_CASES:
+        f = torch.randn(b, n_in, cin, device="cuda", generator=g).bfloat16()
+        w = (0.3 * torch.randn(k, cin, cout, device="cuda",
+                               generator=g)).bfloat16()
+        rows = torch.randint(0, n_in, (b, k * n_out), device="cuda",
+                             generator=g, dtype=torch.int32)
+        idx = torch.full_like(rows, n_in)
+        for i, share in enumerate(shares):
+            keep = torch.rand(k * n_out, device="cuda", generator=g)
+            idx[i] = torch.where(keep < share, rows[i], idx[i])
+        out = k1_bf16_check(
+            f"K1 bf16 KITTI edge case B={b} N_in={n_in} N_out={n_out} K={k} "
+            f"Cin={cin} Cout={cout} hits={shares}", K.sparse_conv_bf16_cuda,
+            K.sparse_conv_bf16_plain, f, idx, w)[0]
+        for i, share in enumerate(shares):
+            check(share > 0 or not out[i].any(),
+                  "K1 bf16 KITTI edge case: an all-miss sample gave "
+                  "non-zeros")
+    log(f"K1 bf16 at KITTI's shapes ({len(K1_BF16_KITTI_EDGE_CASES)} cases: "
+        "Cin 32 and 64, strided N_out < N_in, conv_out's 3 taps to 128, "
+        "all-miss rows, B = 2): agree with the plain version within one "
+        "bf16 ulp, repeat launches bit for bit")
+
+
+def full_preset_inputs(ns, frames, dev):
+    """Full-width inputs on `dev` for a built preset: the ray-cast frames
+    (nuScenes) or KITTI frames, with random normalized images at the
+    preset's cameras for a fused one."""
+    if ns.family == "voxelrcnn":
+        return [kitti_inputs(f, KITTI_IMAGE, dev, 10 + i)[:4 if ns.fused
+                                                           else 2]
+                for i, f in enumerate(frames["kitti"])]
+    if not ns.fused:
+        return [(torch.from_numpy(f[None]).to(dev),
+                 torch.ones(1, len(f), dtype=torch.bool, device=dev))
+                for f in frames["nusc"]]
+    return [fused_inputs(f, ns.num_cams, ns.image_shape, dev, 10 + i)
+            for i, f in enumerate(frames["nusc"])]
+
+
+def phase_presets_profile(dev, built, frames):
+    """Phase 51: "tpu_v5e" on every preset but `centerpoint_nusc`. First
+    each of them (and `centerpoint_tiny_smoke`) as phase 50 built it, on
+    its small input, card against CPU in the profile
+    (`profile_card_vs_cpu`). Then K1's bf16 form at KITTI's shapes
+    (`k1_bf16_kitti_edge_cases`). Then each of the six presets built by
+    name at full width (six 448x800 cameras on nuScenes, one 384x1280 on
+    KITTI) serves one full-width frame in the profile with every K1 and K2
+    launch captured (`check_launches`): K1's f32 and bf16 launches and
+    K2's counted against `PROFILE_PRESETS`, each f32 launch held as in
+    phase 4, each bf16 one within one bf16 ulp of the plain version and
+    bit for bit on a repeat launch, each K2 launch as in phase 7. Returns
+    the full-width models and each preset's captured bf16 launches."""
+    from df3d_torch import serving
+    from df3d_torch.models.build import build_detector
+
+    for name in ("centerpoint_tiny_smoke", *PROFILE_PRESETS):
+        ns, cpu, inputs = built.pop(name)
+        for m in (ns.model, *(cpu if isinstance(cpu, tuple) else (cpu,))):
+            serving.apply_profile(m, "tpu_v5e")
+        profile_card_vs_cpu(f"{name} by name, small input, tpu_v5e", ns, cpu,
+                            inputs, dev)
+        del ns, cpu
+    built.clear()
+    torch.cuda.empty_cache()
+    k1_bf16_kitti_edge_cases()
+
+    full, bf16, err = {}, {}, {"k1": 0.0, "k2": 0.0, "k1_bf16": 0.0}
+    for name, (n32, n16, nk2) in PROFILE_PRESETS.items():
+        ns = build_detector(serving_preset(name), device=dev, seed=0,
+                            profile="tpu_v5e")
+        inputs = full_preset_inputs(ns, frames, dev)
+        bf16[name] = []
+        counts, e = check_launches(f"{name} tpu_v5e frame",
+                                   lambda: ns.infer(*inputs[0]),
+                                   bf16=bf16[name])
+        err = {k: max(err[k], e[k]) for k in err}
+        want = {"k1_fwd": n32, "k1_bwd": 0, "k1_bf16": n16, "k2_fwd": nk2,
+                "k2_bwd": 0}
+        check(counts == want, f"{name} tpu_v5e frame: launches {counts}, "
+              f"expected {want}")
+        check(all(f.shape[-1] >= 32 for f, _, _ in bf16[name]),
+              f"{name}: a bf16 launch under the 32-channel gate")
+        full[name] = (ns, inputs)
+    return full, bf16, err
+
+
+def phase_presets_timed(full, bf16):
+    """Phase 52: each of the six presets at full width in "exact" and in
+    "tpu_v5e" in this process, the same model (its profile switched by
+    `serving.apply_profile`), weights and frames: `timed_path` each (a
+    warm-up pass over the frames, `PRESET_TIMED_FRAMES` timed frames with
+    the launch counts set to 0 just before and read just after: K1 16 (12
+    on KITTI) f32 launches a frame in "exact", `PROFILE_PRESETS`' f32 and
+    bf16 ones in "tpu_v5e", K2 the same in both; the split, peak memory
+    and a one-frame profile). Then K1's bf16 launches of one
+    `transfusion_l_nusc` and one `voxel_rcnn_car_kitti` frame per launch
+    (`k1_bf16_table`, phase 37's bound). Returns each run's launches, the
+    two tables and the ms/frame of each preset and profile."""
+    from df3d_torch import serving
+    from df3d_torch.ops import msda_kernel as K2
+    from df3d_torch.ops import sparse_conv_kernel as K1
+
+    launches, summary = {}, {}
+    for name, (n32, n16, nk2) in PROFILE_PRESETS.items():
+        ns, inputs = full.pop(name)
+        kitti = ns.family == "voxelrcnn"
+        n_boxes = (ns.lidar_cfg.final_max_boxes if kitti else
+                   ns.lidar_cfg.head.num_proposals
+                   if ns.family == "transfusion" else
+                   len(ns.lidar_cfg.tasks) * ns.lidar_cfg.nms_post_max_size)
+        for profile in ("exact", "tpu_v5e"):
+            serving.apply_profile(ns.model, profile)
+            want = ({K1: K1_PER_KITTI_FRAME if kitti else K1_PER_FRAME,
+                     (K1, "bf16_launches"): 0, K2: nk2}
+                    if profile == "exact" else
+                    {K1: n32, (K1, "bf16_launches"): n16, K2: nk2})
+            stats = {}
+            got = timed_path(f"{name} {profile}",
+                             lambda *a: ns.infer(*a), n_boxes, inputs,
+                             PRESET_TIMED_FRAMES, want,
+                             box_dim=7 if kitti else 9, stats=stats)
+            launches[name, profile] = got
+            summary[name, profile] = stats
+        e, b = summary[name, "exact"], summary[name, "tpu_v5e"]
+        log(f"{name}: ms/frame exact {e['ms']:.3f}, tpu_v5e {b['ms']:.3f} "
+            f"({b['ms'] / e['ms']:.3f}x); peak GiB {e['peak_gib']:.3f} / "
+            f"{b['peak_gib']:.3f}; device kernels per frame "
+            f"{e['busy_ms']:.3f} / {b['busy_ms']:.3f} ms, idle share "
+            f"{e['idle']:.3f} / {b['idle']:.3f}")
+        del ns, inputs
+        torch.cuda.empty_cache()
+    tables = {key: k1_bf16_table(f"a {name} tpu_v5e frame", bf16[name])
+              for key, name in (("transfusion", "transfusion_l_nusc"),
+                                ("kitti", "voxel_rcnn_car_kitti"))}
+    return launches, tables, summary
 
 
 def f32_backends():
@@ -4619,6 +5172,7 @@ def main():
         f"{torch.cuda.get_device_name(0)}; TF32 off (matmul and cuDNN), "
         f"cudnn.benchmark on")
 
+    collect_frames = prefetch_frames(SERVING_SEEDS + TRAIN_SEEDS)
     t0 = time.perf_counter()
     libs = build.build_all()
     log(f"build: {', '.join(libs)} in {time.perf_counter() - t0:.2f} s "
@@ -4630,6 +5184,12 @@ def main():
                 log(f"  {name}: {line.split('entry function')[1].strip()}")
             elif "registers" in line or "spill" in line:
                 log(f"  {name}:   {line.strip()}")
+
+    t0 = time.perf_counter()
+    collect_frames()
+    log(f"ray-cast frames (seeds {SERVING_SEEDS + TRAIN_SEEDS}, one worker "
+        f"process each, begun before the build): ready "
+        f"{time.perf_counter() - t0:.2f} s after the build")
 
     phase_small_input(dev)
 
@@ -4754,7 +5314,8 @@ def main():
     torch.cuda.empty_cache()
 
     phase_small_kitti(dev)
-    kk1, kk2, klidar, kfused = phase_kitti_paths(dev, kitti_frames(3))
+    kframes = kitti_frames(3)
+    kk1, kk2, klidar, kfused = phase_kitti_paths(dev, kframes)
     for entry, kernel, extra in ((k1, K1, kk1), (k2, K2, kk2)):
         entry["launches_by_path"]["kitti_lidar"] = klidar[kernel]
         entry["launches_by_path"]["kitti_fused"] = kfused[kernel]
@@ -4822,7 +5383,7 @@ def main():
     del model
     phase_profile_small(dev)
     profile_counts = phase_profile_paths(cfg, frames, dev)
-    k1_bf16["launches"] = profile_counts["bf16"]
+    k1_bf16["launches_by_path"] = {"lidar_tpu_v5e": profile_counts["bf16"]}
     k1["launches_by_path"]["lidar_tpu_v5e"] = profile_counts["f32"]
     torch.cuda.empty_cache()
 
@@ -4873,7 +5434,32 @@ def main():
             swin_train[f"{name}_fwd"] + swin_train[f"{name}_bwd"])
         entry["max_abs_err"] = max(entry["max_abs_err"], aux_err[name],
                                    swin_err[name], swin_train_err[name])
-    for entry in (k1, k2):
+    torch.cuda.empty_cache()
+
+    # every preset by name (phases 50-52): "<preset>_<profile>" counts
+    # phase 52's timed frames of each preset in each profile (K1's f32
+    # launches under K1, its bf16 ones under K1_bf16), and K1_bf16's
+    # "transfusion" and "kitti" hold phase 52's per-launch numbers at
+    # TransFusion-L's and Voxel R-CNN's shapes
+    built = timed_phase(50, phase_presets_by_name, dev)
+    full, bf16, preset_err = timed_phase(
+        51, phase_presets_profile, dev, built,
+        {"nusc": frames[:2], "kitti": kframes[:2]})
+    preset_launches, bf16_tables, _ = timed_phase(
+        52, phase_presets_timed, full, bf16)
+    for (preset, profile), got in preset_launches.items():
+        k1["launches_by_path"][f"{preset}_{profile}"] = got[K1]
+        k2["launches_by_path"][f"{preset}_{profile}"] = got[K2]
+        if profile == "tpu_v5e":
+            k1_bf16["launches_by_path"][f"{preset}_{profile}"] = got[
+                K1, "bf16_launches"]
+    k1_bf16.update(bf16_tables)
+    k1["max_abs_err"] = max(k1["max_abs_err"], preset_err["k1"])
+    k2["max_abs_err"] = max(k2["max_abs_err"], preset_err["k2"])
+    k1_bf16["max_abs_err"] = max(
+        k1_bf16["max_abs_err"], preset_err["k1_bf16"],
+        *(t["max_abs_err"] for t in bf16_tables.values()))
+    for entry in (k1, k2, k1_bf16):
         entry["launches"] = sum(entry["launches_by_path"].values())
 
     print(f"card: {card}", flush=True)

@@ -54,10 +54,10 @@
   gloo CPU processes with `device="cpu"`.
 * `voxel_rcnn_car_kitti()`, `voxel_rcnn_3ddf_kitti()`,
   `centerpoint_3ddf_nusc()`, `transfusion_l_nusc()`,
-  `transfusion_3ddf_nusc()` and `transfusion_3ddf_swin_nusc()` are the
-  port's copies of the JAX package's presets of those names;
-  `fused_config(preset)` the `FusedConfig` the JAX package builds for a
-  fused preset. `build_transfusion3ddf(..., checkpoint=)` reads an mmdet
+  `transfusion_3ddf_nusc()`, `transfusion_3ddf_swin_nusc()` and
+  `fused_config(preset)` are imported from the presets registry
+  (`config.presets`); `models.build.build_detector` builds any preset by
+  name. `build_transfusion3ddf(..., checkpoint=)` reads an mmdet
   TransFusion + Swin checkpoint for a Swin preset
   (`train.import_transfusion.import_transfusion_3ddf_swin`).
 
@@ -77,6 +77,11 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from df3d_torch.config.presets import (  # noqa: F401  (entry's old names)
+    centerpoint_3ddf_nusc, fused_config, transfusion_3ddf_nusc,
+    transfusion_3ddf_swin_nusc, transfusion_l_nusc, voxel_rcnn_3ddf_kitti,
+    voxel_rcnn_car_kitti,
+)
 from df3d_torch.models.detectors.centerpoint import (
     CenterPoint, CenterPointConfig, centerpoint_predict,
 )
@@ -145,18 +150,25 @@ def build_centerpoint(cfg: CenterPointConfig, device=None, seed: int = 0,
     return model.to(device).eval()
 
 
+def _train_state(model, device, tx) -> TrainState:
+    """The state of `model` moved to `device` in training mode, with `tx`
+    (default: AdamW with OneCycle at the JAX package's `tools/train.py`
+    defaults, lr 1e-3 over 20 epochs of 100 steps)."""
+    return create_train_state(model.to(device).train(),
+                              tx or adam_onecycle(1e-3, 2000))
+
+
 def build_centerpoint_trainer(cfg: CenterPointConfig, device=None,
-                              seed: int = 0
+                              seed: int = 0, tx=None
                               ) -> tuple[TrainState, CenterPointTrainStep]:
     """(state, step) for training CenterPoint on `device` from random
-    weights drawn from `seed`: AdamW with OneCycle at the JAX package's
-    `tools/train.py` defaults (lr 1e-3, 20 epochs of 100 steps). Other
-    schedules: `create_train_state(model, adam_onecycle(...))`."""
+    weights drawn from `seed`, with the optimizer `tx`
+    (`train.schedules.adam_onecycle(...)`; default AdamW with OneCycle at
+    the JAX package's `tools/train.py` defaults, lr 1e-3, 20 epochs of 100
+    steps)."""
     device = resolve_device(device)
     model = CenterPoint(cfg).init_weights(torch.Generator().manual_seed(seed))
-    state = create_train_state(model.to(device).train(),
-                               adam_onecycle(1e-3, 2000))
-    return state, make_centerpoint_train_step(cfg)
+    return _train_state(model, device, tx), make_centerpoint_train_step(cfg)
 
 
 def _aux_fcfg(fcfg: FusedConfig, aux: bool,
@@ -170,14 +182,12 @@ def _aux_fcfg(fcfg: FusedConfig, aux: bool,
 
 
 def _fused_trainer(model_cls, cfg, fcfg, device, seed, aux, with_aux_seg,
-                   aux_seg_weight, aux_consistency_weight):
+                   aux_seg_weight, aux_consistency_weight, tx):
     device = resolve_device(device)
     fcfg = _aux_fcfg(fcfg, aux, with_aux_seg)
     model = model_cls(cfg, fcfg).init_weights(
         torch.Generator().manual_seed(seed))
-    state = create_train_state(model.to(device).train(),
-                               adam_onecycle(1e-3, 2000))
-    return state, make_fused_train_step(
+    return _train_state(model, device, tx), make_fused_train_step(
         cfg, aux, fcfg.image_shape, aux_seg_weight, aux_consistency_weight)
 
 
@@ -186,32 +196,31 @@ def build_centerpoint3ddf_trainer(cfg: CenterPointConfig, fcfg: FusedConfig,
                                   aux: bool = False,
                                   with_aux_seg: bool | None = None,
                                   aux_seg_weight: float = 1.0,
-                                  aux_consistency_weight: float = 0.1
+                                  aux_consistency_weight: float = 0.1,
+                                  tx=None
                                   ) -> tuple[TrainState, FusedTrainStep]:
     """(state, step) for training CenterPoint + 3D-DF on `device` from
     random weights drawn from `seed` (as `build_centerpoint3ddf` draws
     them), with `build_centerpoint_trainer`'s AdamW and OneCycle; the
     state's parameters leave out the frozen image branch. `aux` adds the
     aux objectives, the images being `fcfg.image_shape` (the aux head's
-    weights drawn after all others). Other schedules:
-    `create_train_state(model, adam_onecycle(...))`."""
+    weights drawn after all others). `tx` as for
+    `build_centerpoint_trainer`."""
     return _fused_trainer(CenterPoint3DDF, cfg, fcfg, device, seed, aux,
                           with_aux_seg, aux_seg_weight,
-                          aux_consistency_weight)
+                          aux_consistency_weight, tx)
 
 
 def build_transfusion_trainer(cfg: TransFusionConfig, device=None,
-                              seed: int = 0
+                              seed: int = 0, tx=None
                               ) -> tuple[TrainState, TransFusionTrainStep]:
     """(state, step) for training TransFusion-L on `device` from random
-    weights drawn from `seed` (as `build_transfusion` draws them), with
-    `build_centerpoint_trainer`'s AdamW and OneCycle."""
+    weights drawn from `seed` (as `build_transfusion` draws them); `tx` as
+    for `build_centerpoint_trainer`."""
     device = resolve_device(device)
     model = TransFusionL(cfg).init_weights(
         torch.Generator().manual_seed(seed))
-    state = create_train_state(model.to(device).train(),
-                               adam_onecycle(1e-3, 2000))
-    return state, make_transfusion_train_step(cfg)
+    return _train_state(model, device, tx), make_transfusion_train_step(cfg)
 
 
 def build_transfusion3ddf_trainer(cfg: TransFusionConfig, fcfg: FusedConfig,
@@ -219,16 +228,17 @@ def build_transfusion3ddf_trainer(cfg: TransFusionConfig, fcfg: FusedConfig,
                                   aux: bool = False,
                                   with_aux_seg: bool | None = None,
                                   aux_seg_weight: float = 1.0,
-                                  aux_consistency_weight: float = 0.1
+                                  aux_consistency_weight: float = 0.1,
+                                  tx=None
                                   ) -> tuple[TrainState, FusedTrainStep]:
     """(state, step) for training TransFusion + 3D-DF on `device` from
     random weights drawn from `seed` (as `build_transfusion3ddf` draws
     them), with `build_centerpoint_trainer`'s AdamW and OneCycle; the
-    state's parameters leave out the frozen image branch. `aux` as for
-    `build_centerpoint3ddf_trainer`."""
+    state's parameters leave out the frozen image branch. `aux` and `tx`
+    as for `build_centerpoint3ddf_trainer`."""
     return _fused_trainer(TransFusion3DDF, cfg, fcfg, device, seed, aux,
                           with_aux_seg, aux_seg_weight,
-                          aux_consistency_weight)
+                          aux_consistency_weight, tx)
 
 
 def _serve(model, cfg, predict, stage: str, points, valid, *model_inputs):
@@ -385,20 +395,21 @@ def build_voxelrcnn3ddf(cfg: VoxelRCNNConfig, fcfg: FusedConfig,
     return rpn, _voxelrcnn_head(cfg, g, device)
 
 
-def _voxelrcnn_trainer(rpn, head, cfg, fused: bool, **aux):
-    model = VoxelRCNNTwoStage(rpn, head).train()
-    state = create_train_state(model, adam_onecycle(1e-3, 2000))
-    return state, make_voxelrcnn_train_step(cfg, fused, **aux)
+def _voxelrcnn_trainer(rpn, head, cfg, fused: bool, tx, **aux):
+    model = VoxelRCNNTwoStage(rpn, head)
+    return (_train_state(model, next(rpn.parameters()).device, tx),
+            make_voxelrcnn_train_step(cfg, fused, **aux))
 
 
-def build_voxelrcnn_trainer(cfg: VoxelRCNNConfig, device=None, seed: int = 0
+def build_voxelrcnn_trainer(cfg: VoxelRCNNConfig, device=None,
+                            seed: int = 0, tx=None
                             ) -> tuple[TrainState, VoxelRCNNTrainStep]:
     """(state, step) for training Voxel R-CNN on `device`: both stages in
     one `VoxelRCNNTwoStage`, random weights drawn from `seed` as
-    `build_voxelrcnn` draws them, `build_centerpoint_trainer`'s AdamW and
-    OneCycle over both stages."""
+    `build_voxelrcnn` draws them, the optimizer `tx` (as for
+    `build_centerpoint_trainer`) over both stages."""
     return _voxelrcnn_trainer(*build_voxelrcnn(cfg, device, seed), cfg,
-                              fused=False)
+                              fused=False, tx=tx)
 
 
 def build_voxelrcnn3ddf_trainer(cfg: VoxelRCNNConfig, fcfg: FusedConfig,
@@ -406,7 +417,8 @@ def build_voxelrcnn3ddf_trainer(cfg: VoxelRCNNConfig, fcfg: FusedConfig,
                                 aux: bool = False,
                                 with_aux_seg: bool | None = None,
                                 aux_seg_weight: float = 1.0,
-                                aux_consistency_weight: float = 0.1
+                                aux_consistency_weight: float = 0.1,
+                                tx=None
                                 ) -> tuple[TrainState, VoxelRCNNTrainStep]:
     """As `build_voxelrcnn_trainer`, for Voxel R-CNN + 3D-DF (weights as
     `build_voxelrcnn3ddf` draws them); the state's parameters leave out the
@@ -415,7 +427,8 @@ def build_voxelrcnn3ddf_trainer(cfg: VoxelRCNNConfig, fcfg: FusedConfig,
     fcfg = _aux_fcfg(fcfg, aux, with_aux_seg)
     return _voxelrcnn_trainer(
         *build_voxelrcnn3ddf(cfg, fcfg, device, seed), cfg, fused=True,
-        aux=aux, image_hw=fcfg.image_shape, aux_seg_weight=aux_seg_weight,
+        tx=tx, aux=aux, image_hw=fcfg.image_shape,
+        aux_seg_weight=aux_seg_weight,
         aux_consistency_weight=aux_consistency_weight)
 
 
@@ -447,94 +460,6 @@ def infer_voxelrcnn(rpn: VoxelRCNN, head: VoxelRCNNHead,
 
 
 infer_voxelrcnn_fused = infer_voxelrcnn
-
-
-def voxel_rcnn_car_kitti() -> VoxelRCNNConfig:
-    """The JAX package's `voxel_rcnn_car_kitti` preset (pcdet's
-    tools/cfgs/kitti_models/voxel_rcnn_car.yaml)."""
-    return VoxelRCNNConfig()
-
-
-def voxel_rcnn_3ddf_kitti() -> dict:
-    """The JAX package's `voxel_rcnn_3ddf_kitti` preset (the reference's
-    voxel_rcnn_car_mm_mvx+actrv2_hybrid_ifat.yaml): Voxel R-CNN with one
-    384x1280 camera (KITTI's 375x1242 padded), MVX at stride 1 and an
-    ACTRv2 hybrid at d_model 64 over three DeepLabV3 levels at stride 8."""
-    return {
-        "lidar": VoxelRCNNConfig(),
-        "actr": ACTRConfig(
-            d_model=64, n_levels=3, num_layers=1, q_method="gating",
-            attn_layer="BiGateSum1D_2", model_name="ACTRv2",
-        ),
-        "max_ne_voxel": 13000,
-        "image_shape": (384, 1280),
-    }
-
-
-def centerpoint_3ddf_nusc() -> dict:
-    """The JAX package's `centerpoint_3ddf_nusc` preset
-    (df3d/config/presets.py): the LiDAR model of `centerpoint_nusc` with
-    the 6-camera ACTRv2 hybrid fusion of det3d's
-    nusc_centerpoint_voxelnet_0075voxel_fix_bn_z_multimodal_pfat_hybrid7_ifat
-    config."""
-    return {
-        "lidar": CenterPointConfig(),
-        "actr": ACTRConfig(
-            d_model=128, n_levels=3, num_layers=1, q_method="gating",
-            attn_layer="BiGateSum1D_2", model_name="ACTRv2",
-        ),
-        "max_ne_voxel": 26000,
-        "num_cams": 6,
-        "image_shape": (448, 800),
-    }
-
-
-def transfusion_l_nusc() -> TransFusionConfig:
-    """The JAX package's `transfusion_l_nusc` preset (TransFusion's
-    configs/transfusion_nusc_voxel_L.py)."""
-    return TransFusionConfig()
-
-
-def transfusion_3ddf_nusc() -> dict:
-    """The JAX package's `transfusion_3ddf_nusc` preset (TransFusion's
-    configs/transfusion_nusc_voxel_F.py with the 3D-DF fusion): the LiDAR
-    model of `transfusion_l_nusc` with six 448x800 cameras and an ACTRv2
-    hybrid of two layers on one image level."""
-    return {
-        "lidar": TransFusionConfig(),
-        "actr": ACTRConfig(
-            d_model=128, n_levels=1, num_layers=2, q_method="sum",
-            attn_layer="BiGateSum1D_2", model_name="ACTRv2", hybrid=True,
-        ),
-        "max_ne_voxel": 26000,
-        "num_cams": 6,
-        "image_shape": (448, 800),
-    }
-
-
-def transfusion_3ddf_swin_nusc() -> dict:
-    """The JAX package's `transfusion_3ddf_swin_nusc` preset (the
-    reference README's Swin-Tiny row): `transfusion_3ddf_nusc` with a
-    Swin-T + FPN image branch."""
-    return dict(transfusion_3ddf_nusc(), image_branch="swin")
-
-
-def fused_config(preset: dict, **overrides) -> FusedConfig:
-    """A `FusedConfig` for a fused preset, as the JAX package's
-    `build_detector` makes it: the preset's image branch, else ResNet-50
-    (ResNet + FPN for a TransFusion preset, DeepLabV3 taps at stride 8
-    otherwise), one camera unless the preset says otherwise, IFAT on,
-    fusion at the stage-4 stride. `overrides` set other fields (e.g.
-    `with_aux_seg`)."""
-    branch = preset.get("image_branch", (
-        "resnet_fpn" if isinstance(preset["lidar"], TransFusionConfig)
-        else "deeplabv3"))
-    fields = dict(image_shape=preset["image_shape"], image_branch=branch,
-                  image_layers=(3, 4, 6, 3), n_levels=preset["actr"].n_levels,
-                  num_cams=preset.get("num_cams", 1), actr=preset["actr"],
-                  use_ifat=True, fusion_downsample=8)
-    fields.update(overrides)
-    return FusedConfig(**fields)
 
 
 def small_cfg() -> CenterPointConfig:

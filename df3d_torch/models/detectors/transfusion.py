@@ -37,6 +37,7 @@ class TransFusionConfig:
     max_points_per_voxel: int = 10
     num_point_features: int = 5
     stage_caps: tuple = (120_000, 90_000, 60_000, 30_000)
+    dense_tail: bool = True   # the hybrid tail, the only one ported
     head: TransFusionHeadCfg = TransFusionHeadCfg()
 
     @property
@@ -54,6 +55,9 @@ class TransFusionL(nn.Module):
     def __init__(self, cfg: TransFusionConfig,
                  fusion_hook: nn.Module | None = None):
         super().__init__()
+        if not cfg.dense_tail:
+            raise NotImplementedError(
+                "only the hybrid dense tail (dense_tail=True) is ported")
         self.cfg = cfg
         self.middle_encoder = SparseEncoder(cfg.num_point_features,
                                             fusion_hook)

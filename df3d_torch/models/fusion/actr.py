@@ -7,8 +7,10 @@ are constructor arguments: `query_dim` (voxel features), `image_query_dim`
 (the per-voxel image query) and `image_channels` (one per camera level).
 Norms use flax's eps (1e-6 for LayerNorm and GroupNorm). There is no
 dropout, as in the JAX package's default. `ACTRConfig.exact_ops` (exact
-FPS and ball query for checkpoint parity) is not ported: the port's ball
-query is exact already, and its FPS follows the JAX package's default.
+FPS and ball query for checkpoint parity) is a field, so presets and
+overrides carry it, but only False is ported (True raises): the port's
+ball query is exact already, and its FPS follows the JAX package's
+default.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from torch import nn
 from df3d_torch.models.fusion.gates import GATES
 from df3d_torch.models.fusion.msda_module import MSDeformAttnModule
 from df3d_torch.models.fusion.pointformer import LN_EPS, LocalTransformer
+from df3d_torch.models.layers import promoted
 from df3d_torch.models.fusion.position_encoding import (
     position_embedding_sine_2d, position_embedding_sine_depth,
     position_embedding_sine_sparse,
@@ -51,6 +54,7 @@ class ACTRConfig:
     lt_nsample: int = 32
     lt_num_layers: int = 2
     lt_feat_agg: str = "replace"
+    exact_ops: bool = False
 
 
 class EncoderLayer(nn.Module):
@@ -140,6 +144,8 @@ class ACTR(nn.Module):
                  image_channels: Sequence[int]):
         super().__init__()
         c = self.cfg = cfg
+        if c.exact_ops:
+            raise NotImplementedError("ACTRConfig.exact_ops is not ported")
         if len(image_channels) != c.n_levels:
             raise ValueError("one image channel count per level")
         self.q_proj = nn.Linear(query_dim, c.d_model)
@@ -163,7 +169,7 @@ class ACTR(nn.Module):
     def forward(self, q_feat, q_i_feat, q_ref_coors, q_lidar_grid, q_mask,
                 i_feats):
         c = self.cfg
-        q = self.q_proj(q_feat)
+        q = self.q_proj(promoted(q_feat, self.q_proj))
         qi = self.i_input_proj(q_i_feat) if self.uses_image_query else None
         if c.pos_encode_method == "image_coor":
             q_pos = position_embedding_sine_sparse(q_ref_coors,

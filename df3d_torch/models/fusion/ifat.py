@@ -16,7 +16,7 @@ import torch
 from torch import nn
 
 from df3d_torch.models.fusion.projection import splat_to_image
-from df3d_torch.models.layers import FlaxBatchNorm2d
+from df3d_torch.models.layers import FlaxBatchNorm2d, promoted
 
 
 class IFATGate(nn.Module):
@@ -44,7 +44,8 @@ class IFATGate(nn.Module):
         for s in range(self.num_scales):
             h, w = img_feats[s].shape[1:3]
             g = splat_to_image(uv_norms[s], voxel_feats[s], masks[s], (h, w))
-            g = g.permute(0, 3, 1, 2)
+            # a bf16 splat (the bf16 serving profile) meets the f32 convs
+            g = promoted(g.permute(0, 3, 1, 2), getattr(self, f"s{s}_out"))
             for i in range(self.num_conv - 1):
                 g = getattr(self, f"s{s}_conv{i}")(g)
                 g = torch.relu(getattr(self, f"s{s}_bn{i}")(g))

@@ -123,6 +123,18 @@ class DecoderLayer(nn.Module):
         return self.norm3(q + h)
 
 
+def local_peaks(heatmap: torch.Tensor, cfg: TransFusionHeadCfg
+                ) -> torch.Tensor:
+    """The query candidates of a (B, ncls, H, W) heatmap: cells equal to
+    the max of their `nms_kernel_size` window (max_pool2d pads with -inf,
+    as flax's max_pool does), and every cell of the small classes."""
+    k = cfg.nms_kernel_size
+    local_max = F.max_pool2d(heatmap, k, stride=1, padding=k // 2)
+    is_peak = heatmap == local_max
+    is_peak[:, list(cfg.small_classes)] = True
+    return is_peak
+
+
 class TransFusionHead(nn.Module):
     def __init__(self, cfg: TransFusionHeadCfg, in_channels: int):
         super().__init__()
@@ -160,12 +172,7 @@ class TransFusionHead(nn.Module):
         dense_heatmap = self.hm_conv1(h)                     # (B, ncls, H, W)
 
         heatmap = torch.sigmoid(dense_heatmap)
-        k = c.nms_kernel_size
-        # max_pool2d pads with -inf, as flax's max_pool does
-        local_max = F.max_pool2d(heatmap, k, stride=1, padding=k // 2)
-        is_peak = heatmap == local_max
-        is_peak[:, list(c.small_classes)] = True
-        peaks = torch.where(is_peak, heatmap, 0.0)
+        peaks = torch.where(local_peaks(heatmap, c), heatmap, 0.0)
         _, top_idx = top_k_stable(peaks.reshape(b, -1), c.num_proposals)
         query_labels = torch.div(top_idx, hh * ww, rounding_mode="floor")
         pos_idx = top_idx % (hh * ww)

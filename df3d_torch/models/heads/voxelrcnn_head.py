@@ -30,7 +30,7 @@ from df3d_torch.core.iou import iou_3d
 from df3d_torch.core.nms import top_k_stable
 from df3d_torch.models.losses import weighted_smooth_l1
 from df3d_torch.models.backbones_3d import VoxelBackBone8x
-from df3d_torch.models.layers import MaskedBatchNorm
+from df3d_torch.models.layers import MaskedBatchNorm, promoted
 from df3d_torch.ops.roi_ops import (
     collect_local_voxels, grid_ball_query, roi_grid_points,
 )
@@ -113,8 +113,9 @@ class VoxelRCNNHead(nn.Module):
         """One scale's pooled grid features (B, R, G, mlp[1])."""
         c = self.cfg
         k = s.feature_key
+        mlp_in = getattr(self, f"{k}_mlp_in")
         feats = getattr(self, f"{k}_bn_in")(
-            getattr(self, f"{k}_mlp_in")(st.features), st.valid)
+            mlp_in(promoted(st.features, mlp_in)), st.valid)
         xyz = voxel_centers_fma(st.coords, self.voxel_size, self.pc_range,
                                 s.downsample)
         grid = roi_grid_points(rois, c.grid_size)               # (B, R, G, 3)

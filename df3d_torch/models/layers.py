@@ -41,6 +41,13 @@ def _update_running(bn: nn.Module, mean: torch.Tensor,
     bn.running_var.copy_(m * bn.running_var + (1 - m) * var)
 
 
+def promoted(x: torch.Tensor, layer: nn.Module) -> torch.Tensor:
+    """x in the dtype flax's promotion gives it against `layer`'s weight
+    (a bf16 input of an f32 layer becomes f32, exactly), where torch's
+    linear and conv layers refuse mixed dtypes."""
+    return x.to(torch.promote_types(x.dtype, layer.weight.dtype))
+
+
 class _FlaxNorm(nn.Module):
     """The parameters and running statistics of a flax `nn.BatchNorm`."""
 

@@ -12,9 +12,14 @@ A profile names the numerics a detector serves with:
 
 `apply_profile(model, name)` sets a profile on one built model: each of its
 `SubMConv3d` and `SparseConv3d` modules (sparse or on the dense tail) gets
-the profile's conv dtype and channel gate. Nothing process-wide changes,
-so two models in one process may serve in different profiles. Only
-CenterPoint (LiDAR only) takes a profile other than "exact" so far.
+the profile's conv dtype and channel gate, on any detector of the port
+(the JAX package sets its profile process-wide, on every model). Nothing
+process-wide changes, so two models in one process may serve in different
+profiles. Each module that bf16 features reach gives the JAX package's
+dtype at its output: the sparse blocks, norms and the fusion hook's sums
+stay in the dtype their operands promote to, and a linear or conv layer
+takes a bf16 input to its f32 weights' dtype as flax's layers promote it
+(`layers.promoted`).
 """
 
 from __future__ import annotations
@@ -24,7 +29,6 @@ import dataclasses
 import torch
 from torch import nn
 
-from df3d_torch.models.detectors.centerpoint import CenterPoint
 from df3d_torch.models.layers import SparseConv3d, SubMConv3d
 
 
@@ -52,15 +56,9 @@ _DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
 
 def apply_profile(model: nn.Module, name: str) -> ServingProfile:
     """Give every sparse conv module of `model` the profile's conv dtype and
-    channel gate; -> the profile. Raises for a profile the port cannot
-    serve on this model yet."""
+    channel gate; -> the profile."""
     p = PROFILES[name]
     dtype = _DTYPES[p.conv_dtype]
-    if dtype is not None and not (type(model) is CenterPoint
-                                  and model.backbone.fusion_hook is None):
-        raise NotImplementedError(
-            f"profile {name!r} is ported for CenterPoint (LiDAR only); "
-            f"{type(model).__name__} serves in 'exact'")
     for m in model.modules():
         if isinstance(m, (SubMConv3d, SparseConv3d)):
             m.compute_dtype = dtype

@@ -246,9 +246,8 @@ def capture_bwd_launches():
     """{step: its K2 backward launches}: one step each of the three fused
     trainers, built as chip_smoke.py's phases 18, 23 and 32 build them."""
     import chip_smoke
-    from df3d_torch.entry import (
-        build_voxelrcnn3ddf_trainer, fused_config, voxel_rcnn_3ddf_kitti,
-    )
+    from df3d_torch.config.presets import fused_config, voxel_rcnn_3ddf_kitti
+    from df3d_torch.entry import build_voxelrcnn3ddf_trainer
 
     sets = {}
     for label, transfusion in (("phase 18 step (L 3, warp path)", False),

@@ -1,9 +1,11 @@
 """Rules of the PyTorch port: df3d_torch (its training package, the
-reference-checkpoint importers and the evaluators too), chip_smoke.py,
-k1_ablate.py, k2_ablate.py and lidar_wall.py import nothing of JAX, optax
-or the JAX package, and scipy only in the host-side Hungarian assignment
-(df3d_torch/ops/assign.py, as the JAX package and the reference assign
-with it); in the package only the checkpoint loader (df3d_torch/train/
+reference-checkpoint importers, the evaluators, the presets, configs and
+`build_detector` too), chip_smoke.py, k1_ablate.py, k2_ablate.py and
+lidar_wall.py import nothing of JAX, optax or the JAX package, scipy only
+in the host-side Hungarian assignment (df3d_torch/ops/assign.py, as the
+JAX package and the reference assign with it) and PyYAML only in the
+config loader (df3d_torch/config/config.py, inside the functions that
+parse); in the package only the checkpoint loader (df3d_torch/train/
 torch_import.py) unpickles with `torch.load`; with no CUDA device the entry
 points raise rather than fall back, and the K1 and K2 launchers (K1's input
 gradient launch too) never answer with their plain versions. The ablation
@@ -18,6 +20,8 @@ import pytest
 import torch
 
 from df3d_torch import entry as entry_mod
+from df3d_torch.config import fused_config, get_preset
+from df3d_torch.models.build import build_detector
 from df3d_torch.ops import sparse as tsp
 from df3d_torch.ops import msda as tmsda
 from df3d_torch.ops import msda_kernel as k2
@@ -25,9 +29,13 @@ from df3d_torch.ops import sparse_conv_kernel as k1
 from torch_port_helpers import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "df3d", "scipy")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "df3d", "scipy", "yaml")
 # the one module that may import scipy: the assignment runs on the host
 SCIPY_ALLOWED = ROOT / "df3d_torch" / "ops" / "assign.py"
+# the one module that may import PyYAML: the config loader (the card's
+# machine is not known to have it)
+YAML_ALLOWED = ROOT / "df3d_torch" / "config" / "config.py"
+ALLOWED = {SCIPY_ALLOWED: "scipy", YAML_ALLOWED: "yaml"}
 # the one module that may call torch.load: the reference checkpoints
 TORCH_LOAD_ALLOWED = ROOT / "df3d_torch" / "train" / "torch_import.py"
 
@@ -40,6 +48,9 @@ def _port_files():
         f.name for f in files if f.parent.name == "train"}
     assert {"nuscenes_eval.py", "kitti_eval.py", "kitti.py"} <= {
         f.name for f in files if f.parent.name == "data"}
+    assert {"presets.py", "config.py"} <= {
+        f.name for f in files if f.parent.name == "config"}
+    assert ROOT / "df3d_torch" / "models" / "build.py" in files
     return files + [
         ROOT / "chip_smoke.py", ROOT / "k1_ablate.py",
         ROOT / "k2_ablate.py", ROOT / "lidar_wall.py"]
@@ -62,12 +73,26 @@ def _imported_roots(path):
 @pytest.mark.parametrize("path", _port_files(),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_jax_package_imports(path):
-    forbidden = set(FORBIDDEN) - ({"scipy"} if path == SCIPY_ALLOWED
-                                  else set())
+    forbidden = set(FORBIDDEN) - {ALLOWED.get(path)}
     bad = sorted({m for m in _imported_roots(path) if m in forbidden})
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
-    if path == SCIPY_ALLOWED:
-        assert "scipy" in set(_imported_roots(path))
+    if path in ALLOWED:
+        assert ALLOWED[path] in set(_imported_roots(path))
+
+
+def test_yaml_imported_only_where_a_config_is_parsed():
+    """PyYAML is imported inside `load_config` and `_parse_value`, never at
+    the config module's top level, so importing the port needs no PyYAML."""
+    tree = ast.parse(YAML_ALLOWED.read_text())
+    top = [n for n in tree.body if isinstance(n, (ast.Import, ast.ImportFrom))]
+    assert not any(a.name == "yaml" for n in top
+                   for a in getattr(n, "names", []))
+    inside = {f.name for f in ast.walk(tree)
+              if isinstance(f, ast.FunctionDef)
+              and any(isinstance(n, ast.Import)
+                      and any(a.name == "yaml" for a in n.names)
+                      for n in ast.walk(f))}
+    assert inside == {"load_config", "_parse_value"}
 
 
 def _torch_load_calls(path):
@@ -121,10 +146,10 @@ def test_entry_without_cuda_raises():
         entry_mod.build_centerpoint(entry_mod.small_cfg())
     fn, (feats, coords) = entry_mod.entry(device="cpu")
     assert feats.device.type == "cpu"
-    preset = entry_mod.centerpoint_3ddf_nusc()
+    preset = get_preset("centerpoint_3ddf_nusc")
     with pytest.raises(RuntimeError, match="CUDA"):
         entry_mod.build_centerpoint3ddf(preset["lidar"],
-                                        entry_mod.fused_config(preset))
+                                        fused_config(preset))
 
 
 def test_trainer_entry_without_cuda_raises():
@@ -142,20 +167,20 @@ def test_transfusion_trainer_entries_without_cuda_raise():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid")
     with pytest.raises(RuntimeError, match="CUDA"):
-        entry_mod.build_transfusion_trainer(entry_mod.transfusion_l_nusc())
-    preset = entry_mod.transfusion_3ddf_nusc()
+        entry_mod.build_transfusion_trainer(get_preset("transfusion_l_nusc"))
+    preset = get_preset("transfusion_3ddf_nusc")
     with pytest.raises(RuntimeError, match="CUDA"):
         entry_mod.build_transfusion3ddf_trainer(
-            preset["lidar"], entry_mod.fused_config(preset))
+            preset["lidar"], fused_config(preset))
 
 
 def test_transfusion_entries_without_cuda_raise():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid")
     with pytest.raises(RuntimeError, match="CUDA"):
-        entry_mod.build_transfusion(entry_mod.transfusion_l_nusc())
-    preset = entry_mod.transfusion_3ddf_nusc()
-    fcfg = entry_mod.fused_config(preset)
+        entry_mod.build_transfusion(get_preset("transfusion_l_nusc"))
+    preset = get_preset("transfusion_3ddf_nusc")
+    fcfg = fused_config(preset)
     assert fcfg.image_branch == "resnet_fpn" and fcfg.n_levels == 1
     with pytest.raises(RuntimeError, match="CUDA"):
         entry_mod.build_transfusion3ddf(preset["lidar"], fcfg)
@@ -164,15 +189,27 @@ def test_transfusion_entries_without_cuda_raise():
 def test_voxelrcnn_entries_without_cuda_raise():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid")
-    cfg = entry_mod.voxel_rcnn_car_kitti()
+    cfg = get_preset("voxel_rcnn_car_kitti")
     with pytest.raises(RuntimeError, match="CUDA"):
         entry_mod.build_voxelrcnn(cfg)
-    preset = entry_mod.voxel_rcnn_3ddf_kitti()
-    fcfg = entry_mod.fused_config(preset)
+    preset = get_preset("voxel_rcnn_3ddf_kitti")
+    fcfg = fused_config(preset)
     assert (fcfg.num_cams, fcfg.image_shape, fcfg.image_branch,
             fcfg.n_levels) == (1, (384, 1280), "deeplabv3", 3)
     with pytest.raises(RuntimeError, match="CUDA"):
         entry_mod.build_voxelrcnn3ddf(preset["lidar"], fcfg)
+
+
+def test_build_detector_without_cuda_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    for name in ("centerpoint_tiny_smoke", "voxel_rcnn_car_kitti"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            build_detector(get_preset(name))
+    from df3d_torch.train.schedules import adam_onecycle
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_detector(get_preset("centerpoint_tiny_smoke"),
+                       adam_onecycle(1e-3, 10))
 
 
 def test_k1_launcher_raises_on_cpu_tensors():

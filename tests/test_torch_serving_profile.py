@@ -74,8 +74,8 @@ def test_profiles_match_jax():
 
 def test_apply_profile_sets_modules_only():
     """The profile lives on the model's conv modules; "exact" after
-    "tpu_v5e" restores them. A model the profile is not ported for
-    refuses bf16 and takes "exact"."""
+    "tpu_v5e" restores them. Any module that holds sparse convs takes it,
+    as every detector does."""
     from df3d_torch.entry import small_cfg
     from df3d_torch.models.detectors.centerpoint import CenterPoint
 
@@ -91,9 +91,10 @@ def test_apply_profile_sets_modules_only():
     assert all(m.compute_dtype is None and m.min_channels == 0
                for m in convs)
     stack = torch.nn.Sequential(SubMConv3d(32, 32))
-    with pytest.raises(NotImplementedError, match="CenterPoint"):
-        serving.apply_profile(stack, "tpu_v5e")
+    assert serving.apply_profile(stack, "tpu_v5e").name == "tpu_v5e"
+    assert stack[0].compute_dtype == torch.bfloat16
     assert serving.apply_profile(stack, "exact").name == "exact"
+    assert stack[0].compute_dtype is None
 
 
 # (name, plan kind and geometry, input channels, output channels); Cin 16

@@ -32,6 +32,7 @@ from df3d.models.detectors.fused import ImageBranch as JImageBranch
 from df3d.models.image.swin import SwinTransformer as JSwin
 from df3d.train import import_transfusion as jimport
 from df3d.train import torch_import as jtorch_import
+from df3d_torch import config as tconfig
 from df3d_torch import entry
 from df3d_torch.models.detectors.fused import (
     FusedConfig, ImageBranch, TransFusion3DDF,
@@ -112,7 +113,7 @@ def test_swin_preset():
     """The port's preset is the JAX package's, and `fused_config` gives its
     Swin-T branch at JAX's defaults."""
     want = get_preset("transfusion_3ddf_swin_nusc")
-    preset = entry.transfusion_3ddf_swin_nusc()
+    preset = tconfig.get_preset("transfusion_3ddf_swin_nusc")
     assert set(preset) == set(want)
     for k in ("image_branch", "image_shape", "num_cams", "max_ne_voxel"):
         assert preset[k] == want[k], k
@@ -120,7 +121,7 @@ def test_swin_preset():
         got = dataclasses.asdict(preset[k])
         assert got == {f: v for f, v in dataclasses.asdict(want[k]).items()
                        if f in got}, k
-    fcfg = entry.fused_config(preset)
+    fcfg = tconfig.fused_config(preset)
     assert (fcfg.image_branch, fcfg.swin_depths, fcfg.swin_dim,
             fcfg.n_levels, fcfg.num_cams) == (
                 "swin", JFusedConfig.swin_depths, JFusedConfig.swin_dim, 1, 6)
