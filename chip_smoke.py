@@ -10,7 +10,8 @@ reference checkpoints imported, double-flip TTA, recalibration and the
 metrics; then the fused training steps with the aux objectives and
 TransFusion + 3D-DF with the Swin-T image branch; then every preset of
 the registry built by name, and "tpu_v5e" on each of them beside
-"exact".
+"exact"; then training and evaluation from datasets on disk through the
+train and test CLIs.
 
     python3 chip_smoke.py
 
@@ -335,6 +336,37 @@ any failure raises and the process exits non-zero:
    profile) with the launch counts asserted; then K1's bf16 launches of
    a TransFusion-L and a Voxel R-CNN frame timed per launch against
    phase 37's bound.
+53. the CLIs, small, card against CPU: a tiny nuScenes-layout dataset
+   (two ray-cast frames cut to 3000 points, each split into a key frame
+   and nine sweeps) and a tiny KITTI-layout one (two KITTI frames with
+   their cars) written into a temporary directory under build/;
+   `centerpoint_tiny_smoke` at its own widths, and `voxel_rcnn_car_kitti`
+   and `voxel_rcnn_3ddf_kitti` narrowed to phase 29's grid (pcdet's three
+   RoI pooling scales; the fused one with 96x320 PNGs, one camera). For
+   each, phase 14's check of one step on the CLI's model and the loader's
+   first batch from disk (`small_step_card_vs_cpu`; KITTI with the CLI's
+   RoI sampler noise, its proposal decisions replayed, and the CPU's step
+   in f64 as a witness of how far each f32 step lies from exact); then
+   the train CLI (`df3d_torch.tools.train.main`) for 2 steps on the CPU
+   and on the card, fed the same batches, the card replaying the CPU's
+   decisions at near ties in the first step (`compare_cli_runs` states
+   what is held after each step); the card run's checkpoint restored bit
+   for bit; a resumed run that starts at the saved step.
+54. `centerpoint_nusc` at full width from disk: 8 ray-cast frames (260k
+   points each, ~42 MB) with their boxes; the train CLI at batch 4 for
+   2 epochs of 2 steps (the first epoch's K1 launches, 16 + 15 a step,
+   each held against its plain version; the second epoch resumed from
+   the first's checkpoint), each step's data ms and step ms and the
+   checkpoint's save and restore seconds; then the test CLI on the last
+   checkpoint over 4 frames in "exact" (K1 16 a frame) and "tpu_v5e" (6
+   f32 and 10 bf16), each launch held against its plain version, the
+   metrics JSON written.
+55. `voxel_rcnn_3ddf_kitti` at full width, batch 2, from disk with
+   375x1242 PNGs (Pillow resizes them to 384x1280): the train CLI for 2
+   steps (K1 12 + 11, K2 1 + 1 on its general path a step, each launch
+   held against its plain version), then the test CLI once (K1 12, K2 1
+   a frame). Without Pillow on the machine, the preset trains through
+   the CLI's --synthetic and the test CLI is not run.
 
 TF32 is off for matmuls and cuDNN convs: the port serves in f32 (the JAX
 package's "exact" profile) and the comparisons need full f32; the
@@ -359,7 +391,9 @@ is K1's bf16 form: phase 37's numbers, phase 39's "tpu_v5e" launches;
 "tta" holds phases 41's (K1) and 42's (K2) numbers at the TTA's batch-4
 shapes, and "launches" adds phases 40-42's; "<preset>_<profile>" in
 "launches_by_path" counts phase 52's timed frames, and K1_bf16's
-"transfusion" and "kitti" hold phase 52's per-launch numbers) and
+"transfusion" and "kitti" hold phase 52's per-launch numbers;
+"cli_small_<preset>", "cli_train_<preset>" and
+"cli_test_<preset>[_<profile>]" count phases 53-55's CLI runs) and
 the result line
 {"ok": true, "device": {...}}. With no CUDA device, or outside a checkout,
 the script exits non-zero without them.
@@ -371,6 +405,7 @@ import functools
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -1461,11 +1496,16 @@ def phase_small_train(dev):
                        strict=False)
 
 
-def compare_train_step(label, ref, got, strict):
+def compare_train_step(label, ref, got, strict, exact=None):
     """Hold one step's (logs, gradients, state dict) against the
     reference's, with `phase_small_train`'s tolerances for its first run
     (`strict`) or its second, and print how far the gradient leaves are
-    from it."""
+    from it. `exact`: the reference's step in f64 (its gradients by name);
+    a strict leaf's tolerance then also takes twice the reference's own
+    f32 error, max|ref - exact|, so that the card may lie as far from the
+    exact step as the reference does, on the other side. Where the
+    reference's f32 is exact to phase 14's tolerance, that stays the
+    tolerance."""
     from df3d_torch.train.schedules import global_norm
 
     (c_logs, c_grads, c_sd, lr0), (g_logs, g_grads, g_sd, _) = ref, got
@@ -1491,6 +1531,8 @@ def compare_train_step(label, ref, got, strict):
         ref_p, cg = c_sd[name], c * clip
         if strict:
             tol = 1e-4 * scale + 1e-5
+            if exact is not None:
+                tol += 2 * (c.double() - exact[name]).abs().max().item()
             bad = err > tol
             t = tol * clip
         else:
@@ -1971,7 +2013,8 @@ def centerpoint_decisions(store, replay):
 
 def small_step_card_vs_cpu(label, build_trainer, batch, dev, k2_per_step,
                            decisions=None, grads_kwargs=None,
-                           k1_counts=(K1_PER_FRAME, K1_BWD_PER_STEP)):
+                           k1_counts=(K1_PER_FRAME, K1_BWD_PER_STEP),
+                           relu_limit=None, witness_f64=False):
     """One training step of `build_trainer(device) -> (state, step)` on the
     card against the same step on the CPU, on `batch(device)` (and
     `grads_kwargs`, CPU tensors, moved to the device: Voxel R-CNN's RoI
@@ -1997,7 +2040,13 @@ def small_step_card_vs_cpu(label, build_trainer, batch, dev, k2_per_step,
     their counts are printed. With no replay the card's queries and matches
     equal the CPU's as integers. `decisions` (default
     `transfusion_decisions`) records and replays the path's decisions;
-    K1 must launch `k1_counts` times forward and backward."""
+    K1 must launch `k1_counts` times forward and backward. `relu_limit`
+    (the CPU's recorded masks -> the ReLU replays allowed) stands for the
+    4 where a config is larger than the CPU tests' (`relu_flip_limit`).
+    With `witness_f64` the CPU also takes the step in f64 on the same
+    batch, replaying its f32 decisions; both f32 steps' distances from it
+    are printed, and the strict comparison takes it as `exact`
+    (`compare_train_step`)."""
     from df3d_torch.ops import msda_kernel as K2
     from df3d_torch.ops import sparse as S
     from df3d_torch.ops import sparse_conv_kernel as K
@@ -2020,10 +2069,11 @@ def small_step_card_vs_cpu(label, build_trainer, batch, dev, k2_per_step,
         for k, v in frozen.items():
             check(torch.equal(branch.state_dict()[k], v),
                   f"{label} on {d}: the frozen image branch moved ({k})")
-        check(sum(n for n, _ in flips) <= 4
+        limit = 4 if relu_limit is None else relu_limit(masks)
+        check(sum(n for n, _ in flips) <= limit
               and all(z < 1e-4 for _, z in flips),
-              f"{label} on {d}: more than 4 ReLU inputs disagree with the "
-              f"CPU's, or one lies more than 1e-4 from 0: {flips}")
+              f"{label} on {d}: more than {limit} ReLU inputs disagree with "
+              f"the CPU's, or one lies more than 1e-4 from 0: {flips}")
         check(sum(n for _, n, _ in replays) <= 4
               and all(gap < 1e-4 for *_, gap in replays),
               f"{label} on {d}: more than 4 queries or matches differ from "
@@ -2035,7 +2085,36 @@ def small_step_card_vs_cpu(label, build_trainer, batch, dev, k2_per_step,
         return (to_cpu(logs), dict(zip(state.param_names, grads)),
                 to_cpu(state.model.state_dict()), float(state.tx.lr(0)))
 
+    def run_f64():
+        state, step = build_trainer("cpu")
+        state.model.double()
+
+        def f64(t):
+            return t.double() if t.is_floating_point() else t
+        with relu_decisions(masks, True) as flips, \
+                decisions(picks, True) as replays:
+            _, grads = step.grads(
+                state, {k: f64(v) for k, v in batch("cpu").items()},
+                **{k: f64(v) for k, v in (grads_kwargs or {}).items()})
+        limit = 4 if relu_limit is None else relu_limit(masks)
+        check(sum(n for n, _ in flips) <= limit
+              and all(z < 1e-4 for _, z in flips)
+              and all(gap < 1e-4 for *_, gap in replays),
+              f"{label} in f64: the f32 step's decisions are no near ties "
+              f"of the f64 step: {flips}, {replays}")
+        log(f"{label} in f64 on the CPU: {sum(n for n, _ in flips)} ReLU "
+            f"decisions taken from the f32 step's, decision replays "
+            f"{replays}")
+        return dict(zip(state.param_names, grads))
+
+    def off_exact(grads, exact):  # in units of phase 14's tolerance
+        rel = sorted((((grads[k].double() - e).abs().max()
+                       / (1e-4 * e.abs().max() + 1e-5)).item(), k)
+                     for k, e in exact.items())[::-1]
+        return ", ".join(f"{k} {r:.3g}" for r, k in rel[:3])
+
     cpu = run("cpu", replay=False)
+    exact = run_f64() if witness_f64 else None
     body, fwd, bwd = S._conv_body, K2.msda_cuda, K2.msda_bwd_cuda
     S._conv_body = lambda f, idx, w, dx=False: K.sparse_conv_plain(f, idx, w)
     K2.msda_cuda, K2.msda_bwd_cuda = K2.msda_plain, K2.msda_bwd_plain
@@ -2045,8 +2124,13 @@ def small_step_card_vs_cpu(label, build_trainer, batch, dev, k2_per_step,
     finally:
         S._conv_body, K2.msda_cuda, K2.msda_bwd_cuda = body, fwd, bwd
         torch.backends.cudnn.enabled = True
+    if exact is not None:
+        log(f"{label}: max|f32 - f64| / (1e-4 max|f64| + 1e-5) over the "
+            f"gradient leaves, largest: the CPU's {off_exact(cpu[1], exact)}"
+            f"; the card's "
+            f"(plain K1 and K2, no cuDNN) {off_exact(card_plain[1], exact)}")
     compare_train_step(f"{label}, plain K1 and K2, no cuDNN", cpu,
-                       card_plain, strict=True)
+                       card_plain, strict=True, exact=exact)
     K.launches = K.bwd_launches = K2.launches = K2.bwd_launches = 0
     card = run(dev, replay=True)
     check(K.launches == k1_counts[0] and K.bwd_launches == k1_counts[1]
@@ -2940,7 +3024,8 @@ def proposal_decisions(store, replay, module, rel=1e-4, floor=1e-5):
         if not replay:
             store[1].append(tuple(t.cpu() for t in got))
             return got
-        want = tuple(t.to(got[0].device) for t in next(recorded))
+        want = tuple(t.to(g.device, g.dtype)
+                     for t, g in zip(next(recorded), got))
         check(torch.equal(got[2], want[2]), "the card's roi_mask differs")
         for g, w in zip(got[:2], want[:2]):
             tol = rel * w.abs().max().item() + floor
@@ -5138,6 +5223,580 @@ def phase_presets_timed(full, bf16):
     return launches, tables, summary
 
 
+# Training and evaluation from a dataset on disk (phases 53-55): the train
+# and test CLIs (`df3d_torch.tools.train`, `.test`) run in this process on
+# datasets written into a temporary directory laid out as the JAX
+# package's tools/create_data.py lays them out (`utils.synth.
+# write_nuscenes_dataset`, `write_kitti_dataset`)
+CLI_EXTRA_SEEDS = (4,)  # with TRAIN_SEEDS and SERVING_SEEDS, phase 54's 8
+CLI_SMALL_POINTS = 3000
+# `voxel_rcnn_car_kitti` narrowed to the CPU tests' training grid and
+# proposal counts (tests/torch_port_helpers.KITTI_SMALL_SETS)
+CLI_KITTI_SMALL_SETS = [
+    "pc_range=[0.0, -16.0, -2.4, 32.0, 16.0, 2.4]",
+    "voxel_size=[0.5, 0.5, 0.2]", "grid_size=[24, 64, 64]",
+    "max_voxels=256", "stage_caps=[256, 192, 128, 96]",
+    "train_pre_nms=64", "train_post_nms=16", "test_pre_nms=64",
+    "test_post_nms=16", "rcnn.grid_size=3", "rcnn.max_local=32",
+    "rcnn.roi_per_image=8"]
+CLI_LR = 1e-3  # the train CLI's default --lr, the schedule's peak
+# Phase 53's limits on the CLI's second step, card against CPU, in
+# relative L2: (its update of the trainable parameters, its change of the
+# batch statistics), by preset. 1.5-2.5 times the largest readings of
+# sound runs on the card (PERF.md §6: CenterPoint 0.131 and 2.4e-4, the
+# LiDAR-only KITTI preset 0.45 and 0.20, the fused one 0.45 and 0.061);
+# each run also computes two controls from the card's own run, its second
+# step skipped (1.0 and 1.0) and sign-flipped (~2 and ~2), which must
+# fail them.
+CLI_STEP2_L2 = {"centerpoint_tiny_smoke": (0.25, 5e-4),
+                "voxel_rcnn_car_kitti": (0.7, 0.5),
+                "voxel_rcnn_3ddf_kitti": (0.7, 0.15)}
+
+
+def relu_flip_limit(masks):
+    """Phase 14's limit of 4 replayed ReLU decisions, set on its config's
+    794,624 ReLU inputs a step, as a density over the step's ReLU inputs
+    (`relu_decisions`' recorded `masks`): 4 per 2**20, at least 4.
+    `centerpoint_tiny_smoke` at its own widths (six tasks over +-25.6 m)
+    has 3,964,928 a step, so 16."""
+    n = sum(m.numel() for m in masks)
+    return max(4, -(-4 * n // 2**20))
+
+
+def nusc_samples(seeds, n_points=None):
+    """(frame, its scene's 79 boxes, their nuScenes names) of each ray-cast
+    frame of `seeds`, cut to its first `n_points` rows (random already)."""
+    from df3d_torch.data.nuscenes_eval import NUSC_CLASSES
+
+    names = np.asarray(NUSC_CLASSES)[list(SCENE_CLASSES)]
+    return [(raycast_frame(s)[:n_points], scene_boxes(s), names)
+            for s in seeds]
+
+
+def kitti_samples(n, n_points=None):
+    """(points, cars in view) of `utils.synth.make_kitti_sample` for seeds
+    100.., the frames of phase 25 (the first `n_points` rows when given,
+    cut evenly)."""
+    from df3d_torch.utils.synth import make_kitti_sample
+
+    out = []
+    for i in range(n):
+        pts, boxes, _, valid = make_kitti_sample(np.random.RandomState(100 + i))
+        if n_points:
+            pts = pts[np.linspace(0, len(pts) - 1, n_points).astype(int)]
+        out.append((pts, boxes[valid]))
+    return out
+
+
+@contextlib.contextmanager
+def quiet_stdout(label):
+    """The block's standard output (the CLIs' metric lines) logged with the
+    script's seconds instead of printed bare, so that the JSON lines at the
+    end stay the only bare ones."""
+    import io
+
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            yield
+    finally:
+        for line in buf.getvalue().splitlines():
+            log(f"{label}: {line}")
+
+
+def cli_state(runner_or_state):
+    state = getattr(runner_or_state, "state", runner_or_state)
+    return ({k: v.detach().cpu().clone()
+             for k, v in state.model.state_dict().items()},
+            [t.cpu().clone() for t in state.opt_state.mu + state.opt_state.nu],
+            state.opt_state.count, state.step)
+
+
+def cli_logs(work_dir):
+    with open(Path(work_dir) / "train_log.jsonl") as f:
+        return [json.loads(line) for line in f]
+
+
+def compare_cli_runs(label, cpu, card, trainable, relu_limit, limits):
+    """The train CLI's two steps on the card against the CPU's. Both runs
+    must have trained on the same batches, bit for bit (the data path).
+    The first step (same weights, same batch) is held as phase 14 holds
+    it: the card replays the CPU's decisions at near ties (at most
+    `relu_limit` ReLU inputs, each within 1e-4 of 0, and at most 4 of the
+    path's near ties, each within 1e-4), every log within rtol 1e-4, and
+    the batch statistics after it within 1e-4 * max|cpu| + 1e-6. After it
+    the runs part: Adam's first update g / (|g| + eps) jumps by 2 lr where
+    g is rounding noise (a bias ahead of a BatchNorm, whose gradients
+    differ by ~1.4 of their size between the devices), so the second step
+    starts from other weights and its decisions differ beyond near ties
+    (an earlier design that replayed both steps met 70 ReLU disagreements
+    up to 1.9e-3). Held after the second step: every log finite; the
+    second step's update of the trainable parameters and its change of
+    the batch statistics each within its limit (`limits`, CLI_STEP2_L2)
+    of the CPU's in relative L2. Two controls made from the card's own
+    run, its second step skipped and its second step's sign flipped, must
+    fail both limits, or the check could not tell a sound step from
+    either. Phase 14's check of the first step's gradients, parameters
+    and statistics runs on the same first batch just before
+    (`small_step_card_vs_cpu`)."""
+    flips, picks = card["replays"]
+    check(sum(n for n, _ in flips) <= relu_limit
+          and all(z < 1e-4 for _, z in flips),
+          f"{label}: first step: ReLU decisions replayed beyond "
+          f"{relu_limit}, or one past 1e-4 of 0: {flips}")
+    check(sum(n for _, n, _ in picks) <= 4
+          and all(gap < 1e-4 for *_, gap in picks),
+          f"{label}: first step: near ties replayed beyond 4: {picks}")
+    check(len(cpu["fed"]) == len(card["fed"]) == 2,
+          f"{label}: {len(cpu['fed'])} and {len(card['fed'])} batches fed")
+    for a, b in zip(cpu["fed"], card["fed"]):
+        check(a.keys() == b.keys() and all(np.array_equal(a[k], b[k])
+                                           for k in a),
+              f"{label}: the card's run was fed other batches")
+    c_logs, g_logs = cli_logs(cpu["dir"]), cli_logs(card["dir"])
+    check(len(c_logs) == len(g_logs) == 2, f"{label}: two logged steps")
+    for i, (c, g) in enumerate(zip(c_logs, g_logs)):
+        for k, v in c.items():
+            if k.endswith("_ms") or k in ("epoch", "step"):
+                continue
+            check(np.isfinite(g[k]), f"{label} step {i}: {k} {g[k]}")
+            check(i > 0 or abs(g[k] - v) <= 1e-4 * abs(v),
+                  f"{label} step 0: {k} {g[k]} against the CPU's {v}")
+
+    c1, c2 = cpu["first"][0], cli_state(cpu["runner"])[0]
+    g1, g2 = card["first"][0], cli_state(card["runner"])[0]
+    stats = [k for k in c2 if k.endswith(("running_mean", "running_var"))]
+    over = []
+    for k in stats:
+        tol = 1e-4 * c1[k].abs().max().item() + 1e-6
+        err = (g1[k] - c1[k]).abs().max().item()
+        if err > tol:
+            over.append(f"{k} off by {err} > {tol}")
+    check(not over, f"{label}: batch statistics after the first step: "
+          + "; ".join(over[:10]))
+
+    def change(after, before, keys):
+        return torch.cat([(after[k] - before[k]).double().flatten()
+                          for k in keys])
+
+    flipped = {k: 2 * g1[k] - g2[k] for k in g2}
+    readings = {
+        "update": (limits[0], change(c2, c1, trainable), {
+            "card": change(g2, g1, trainable),
+            "second step skipped": change(g1, g1, trainable),
+            "second step sign-flipped": change(flipped, g1, trainable)}),
+        "statistics": (limits[1], change(c2, c1, stats), {
+            "card": change(g2, g1, stats),
+            "second step skipped": change(g1, g1, stats),
+            "second step sign-flipped": change(flipped, g1, stats)})}
+    got = {(what, run): rel_l2(x, ref)
+           for what, (_, ref, runs) in readings.items()
+           for run, x in runs.items()}
+    log(f"{label}: the CLI's two steps on the card beside the CPU's, the "
+        f"same batches: losses {[round(r['loss'], 6) for r in g_logs]} (CPU "
+        f"{[round(r['loss'], 6) for r in c_logs]}); first step replays "
+        f"{sum(n for n, _ in flips)} ReLU (limit {relu_limit}), {picks}; "
+        f"{len(stats)} batch statistics within phase 14's tolerance after "
+        f"it; relative L2 against the CPU's of the second step's update "
+        f"of {len(trainable)} parameters (limit {limits[0]}) / of its "
+        f"change of the statistics (limit {limits[1]}): "
+        + "; ".join(f"{run} {got['update', run]:.4g} / "
+                    f"{got['statistics', run]:.4g}"
+                    for run in readings["update"][2]))
+    for what, (limit, _, runs) in readings.items():
+        check(got[what, "card"] <= limit,
+              f"{label}: the second step's {what} differs from the CPU's "
+              f"by {got[what, 'card']} in relative L2 > {limit}")
+        for run in runs:
+            check(run == "card" or got[what, run] > limit,
+                  f"{label}: the control '{run}' passes the {what} limit "
+                  f"{limit} ({got[what, run]})")
+
+
+def phase_cli_small(dev, root):
+    """Phase 53: tiny datasets on disk, the train CLI on the CPU and on the
+    card, for `centerpoint_tiny_smoke` at its own widths (a tiny
+    nuScenes-layout dataset: two ray-cast frames cut to CLI_SMALL_POINTS
+    rows, split into a key frame and nine sweeps, with their scenes'
+    boxes), and `voxel_rcnn_car_kitti` and `voxel_rcnn_3ddf_kitti`
+    narrowed by `--set` (tiny KITTI-layout datasets: two KITTI frames with
+    their cars, the fused one with a 375x1242 PNG each, resized to 96x320;
+    pcdet's three RoI pooling scales). For each, first phase 14's check of
+    one step (`small_step_card_vs_cpu`) on the CLI's model
+    (`build_detector`) and the loader's first batch from disk, for KITTI
+    with the CLI's RoI sampler noise of step 0, `kitti_train_decisions`
+    and the f64 witness; ReLU replays up to `relu_flip_limit`. Then the
+    CLI itself for 2 steps (batch 2, 2 epochs) on both devices, the card
+    replaying the CPU's decisions in the first step (`compare_cli_runs`);
+    each checkpoint of the card run restored into a fresh state bit for
+    bit; and a resumed run (one more epoch) that starts at the saved step.
+    Returns the card runs' launch counts."""
+    from df3d_torch.config import apply_preset_overrides, get_preset
+    from df3d_torch.data.pipeline import PrefetchLoader
+    from df3d_torch.models.build import build_detector
+    from df3d_torch.ops import msda_kernel as K2
+    from df3d_torch.ops import sparse_conv_kernel as K1
+    from df3d_torch.tools import train as train_cli
+    from df3d_torch.train import checkpoint as C
+    from df3d_torch.train.loop import Hook
+    from df3d_torch.train.schedules import adam_onecycle
+    from df3d_torch.utils.synth import (
+        write_kitti_dataset, write_nuscenes_dataset,
+    )
+
+    nusc_root, kitti_root = root / "nusc_small", root / "kitti_small"
+    nusc_info = write_nuscenes_dataset(
+        nusc_root, nusc_samples(TRAIN_SEEDS[:2], CLI_SMALL_POINTS))
+    kitti_info = write_kitti_dataset(kitti_root,
+                                     kitti_samples(2, CLI_SMALL_POINTS))
+    kitti_img_root = root / "kitti_small_images"
+    kitti_img_info = write_kitti_dataset(
+        kitti_img_root, kitti_samples(2, CLI_SMALL_POINTS), images=True,
+        image_rng=np.random.RandomState(21))
+    kitti_counts = (K1_PER_KITTI_FRAME, K1_BWD_PER_KITTI_STEP)
+    # (label, preset, --set, dataset, info pkl, decisions, K1's launches a
+    # step, --image-shape, K2's launches a step)
+    cases = [
+        ("CLI centerpoint_tiny_smoke", "centerpoint_tiny_smoke", [],
+         nusc_root, nusc_info, centerpoint_decisions,
+         (K1_PER_FRAME, K1_BWD_PER_STEP), None, 0),
+        ("CLI voxel_rcnn_car_kitti narrowed", "voxel_rcnn_car_kitti",
+         CLI_KITTI_SMALL_SETS, kitti_root, kitti_info,
+         kitti_train_decisions, kitti_counts, None, 0),
+        ("CLI voxel_rcnn_3ddf_kitti narrowed", "voxel_rcnn_3ddf_kitti",
+         [f"lidar.{o}" for o in CLI_KITTI_SMALL_SETS]
+         + ["actr.lt_npoint=64"], kitti_img_root, kitti_img_info,
+         kitti_train_decisions, kitti_counts, SMALL_IMAGE["kitti"],
+         K2_PER_KITTI_FUSED_FRAME)]
+    counts = {}
+    for (label, name, sets, data_root, info, decisions, k1_counts,
+         image_shape, k2) in cases:
+        def cli_argv(epochs, device, work_dir=None):
+            argv = ["--preset", name, "--data-root", str(data_root),
+                    "--info-path", str(info), "--batch-size", "2",
+                    "--epochs", str(epochs), "--steps-per-epoch", "1",
+                    "--log-interval", "1", "--max-points",
+                    str(CLI_SMALL_POINTS), "--device", str(device)]
+            if work_dir is not None:
+                argv += ["--work-dir", str(work_dir)]
+            if image_shape is not None:
+                argv += ["--image-shape", *map(str, image_shape)]
+            return argv + (["--set", *sets] if sets else [])
+
+        def build(d):
+            built = build_detector(preset, adam_onecycle(CLI_LR, 2),
+                                   image_shape=image_shape, device=d)
+            return built.state, built.step
+
+        args = train_cli.parse_args(cli_argv(2, "cpu"))
+        preset = apply_preset_overrides(get_preset(name), sets)
+        lidar = preset["lidar"] if isinstance(preset, dict) else preset
+        extra = (1, image_shape) if image_shape is not None else None
+        dataset, max_points = train_cli.build_dataset(args, extra, lidar)
+        max_gt = min(args.max_gt, getattr(lidar, "max_objs", args.max_gt))
+        loader = PrefetchLoader(dataset, 2, train_cli.make_collate(
+            extra, max_points, max_gt, lidar.num_point_features))
+        it = iter(loader)
+        first = next(it)
+        it.close()
+        if extra is not None:  # one camera: the step takes (B, H, W, 3)
+            first = dict(first, images=first["images"][:, 0],
+                         proj=first["proj"][:, 0])
+
+        noise = ({"noise": train_cli.roi_noise(0, 2, lidar.train_post_nms)}
+                 if hasattr(lidar, "rcnn") else None)
+        small_step_card_vs_cpu(
+            f"{label}, first batch from disk", build,
+            lambda d: train_cli.to_device(first, d), dev, k2_per_step=k2,
+            decisions=decisions, grads_kwargs=noise, k1_counts=k1_counts,
+            relu_limit=relu_flip_limit,
+            witness_f64=noise is not None)
+
+        masks, picks, runs = [], [], {}
+        to_device = train_cli.to_device
+        for d, replay in (("cpu", False), (dev, True)):
+            wd = root / f"{name}_{'card' if replay else 'cpu'}"
+            fed, seen = [], {}
+            stack = contextlib.ExitStack()
+
+            def first_step_decisions(runner, replay=replay):
+                if runner.epoch == 0:
+                    seen["flips"] = stack.enter_context(
+                        relu_decisions(masks, replay))
+                    seen["picks"] = stack.enter_context(
+                        decisions(picks, replay))
+
+            def after_first(runner):
+                if runner.global_step == 1:
+                    stack.close()
+                    seen["first"] = cli_state(runner)
+
+            def recording(batch, device, fed=fed):
+                fed.append({k: v.copy() for k, v in batch.items()})
+                return to_device(batch, device)
+
+            K1.launches = K1.bwd_launches = K2.launches = K2.bwd_launches = 0
+            train_cli.to_device = recording
+            try:
+                with stack, quiet_stdout(label):
+                    runner = train_cli.main(cli_argv(2, d, wd), hooks=[
+                        Hook(0, "decisions", before_epoch=first_step_decisions,
+                             after_iter=after_first)])
+            finally:
+                train_cli.to_device = to_device
+            runs["card" if replay else "cpu"] = dict(
+                dir=wd, runner=runner, first=seen["first"],
+                fed=fed, replays=(seen["flips"], seen["picks"]),
+                counts=(K1.launches, K1.bwd_launches, K2.launches,
+                        K2.bwd_launches))
+        got = runs["card"]["counts"]
+        check(got == (2 * k1_counts[0], 2 * k1_counts[1], 2 * k2, 2 * k2),
+              f"{label}: launches {got} in two steps, expected "
+              f"{k1_counts} and K2's {k2} a step")
+        counts[name] = got
+        trainable = runs["cpu"]["runner"].state.param_names
+        compare_cli_runs(label, runs["cpu"], runs["card"], trainable,
+                         relu_flip_limit(masks), CLI_STEP2_L2[name])
+
+        card = runs["card"]["runner"]
+        saved = C.list_checkpoints(runs["card"]["dir"] / "ckpt")
+        check([s for s, _ in saved] == [1, 2],
+              f"{label}: checkpoints {saved}")
+        fresh = build(dev)[0]
+        t0 = time.perf_counter()
+        C.restore_checkpoint(saved[-1][1], fresh)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        want, got_state = cli_state(card), cli_state(fresh)
+        check(all(torch.equal(want[0][k], got_state[0][k]) for k in want[0])
+              and all(torch.equal(a, b) for a, b in zip(want[1],
+                                                        got_state[1]))
+              and want[2:] == got_state[2:],
+              f"{label}: the checkpoint of step 2 does not restore bit for "
+              "bit")
+        with quiet_stdout(label):
+            resumed = train_cli.main(cli_argv(3, dev, runs["card"]["dir"]))
+        check(resumed.global_step == 3
+              and [t[0] for t in resumed.timings] == [2],
+              f"{label}: the resumed run took steps "
+              f"{[t[0] for t in resumed.timings]}, expected [2]")
+        log(f"{label}: checkpoints {[s for s, _ in saved]} saved in "
+            f"{[round(s, 4) for s in card.ckpt_seconds]} s; step 2 restored "
+            f"bit for bit in {restore_s:.4f} s; resumed at step 2, epoch 2 "
+            f"(restore {resumed.restore_seconds:.4f} s)")
+    return counts
+
+
+def cli_launches(label, run, bf16=None, hold=True):
+    """`run()` under `check_launches` (every launch held against its plain
+    version afterwards; not with `hold=False`), with the counters also set
+    to 0 just before and read just after the run (forward, backward, K2,
+    K2 backward, bf16); the two counts must agree. -> (counts, largest
+    errors, what `run` returned)."""
+    from df3d_torch.ops import msda_kernel as K2
+    from df3d_torch.ops import sparse_conv_kernel as K1
+
+    seen = {}
+
+    def counted():
+        K1.launches = K1.bwd_launches = K1.bf16_launches = 0
+        K2.launches = K2.bwd_launches = 0
+        with quiet_stdout(label):
+            seen["out"] = run()
+        seen["counts"] = dict(k1_fwd=K1.launches, k1_bwd=K1.bwd_launches,
+                              k2_fwd=K2.launches, k2_bwd=K2.bwd_launches,
+                              k1_bf16=K1.bf16_launches)
+
+    if not hold:
+        counted()
+        return seen["counts"], {}, seen["out"]
+    captured, err = check_launches(label, counted, bf16)
+    got = seen["counts"]
+    for k, v in captured.items():
+        check(got[k] == v, f"{label}: counter {k} {got[k]}, captured {v}")
+    return got, err, seen["out"]
+
+
+def phase_cli_nusc_full(dev, root):
+    """Phase 54: `centerpoint_nusc` at full width and its training caps
+    from disk. Eight ray-cast frames (TRAIN_SEEDS, CLI_EXTRA_SEEDS,
+    SERVING_SEEDS; 260k points each, split into a key frame and nine
+    sweeps with identity transforms, ~42 MB) with their scenes' boxes; the
+    train CLI at batch 4 for 2 epochs of 2 steps: the first epoch under
+    `check_launches` (every K1 launch of both steps held against its plain
+    version, K1 16 + 15 a step) and stopped after its checkpoint, then the
+    run resumed for the second epoch; the counts set to 0 just before and
+    read just after each (16 + 15 a step); each logged step's data ms and
+    step ms, the checkpoints' save and restore seconds. Then the test CLI
+    on the last checkpoint over four of the frames in "exact" (K1 16 a
+    frame) and "tpu_v5e" (6 f32 and 10 bf16 a frame), every launch held
+    against its plain version, the metrics JSON written. Returns the
+    launch counts by run and the largest errors."""
+    from df3d_torch.tools import test as test_cli
+    from df3d_torch.tools import train as train_cli
+    from df3d_torch.train.loop import Hook
+    from df3d_torch.utils.synth import write_nuscenes_dataset
+
+    data = root / "nusc_full"
+    seeds = TRAIN_SEEDS + CLI_EXTRA_SEEDS + SERVING_SEEDS
+    t0 = time.perf_counter()
+    samples = nusc_samples(seeds)
+    info = write_nuscenes_dataset(data, samples, "train")
+    val = write_nuscenes_dataset(data, samples[:4], "val")
+    size = sum(p.stat().st_size for p in data.rglob("*.bin"))
+    log(f"CLI centerpoint_nusc: {len(seeds)} frames written in "
+        f"{time.perf_counter() - t0:.2f} s ({size / 1e6:.1f} MB of .bin)")
+    wd = root / "centerpoint_nusc_cli"
+    argv = ["--preset", "centerpoint_nusc", "--data-root", str(data),
+            "--info-path", str(info), "--batch-size", str(TRAIN_BATCH),
+            "--epochs", "2", "--steps-per-epoch", "2", "--log-interval", "1",
+            "--work-dir", str(wd), "--device", str(dev)]
+
+    class Stop(Exception):
+        pass
+
+    def stop(runner):
+        raise Stop
+
+    def first_epoch():
+        try:
+            train_cli.main(argv, hooks=[Hook(0, "stop", after_epoch=stop)])
+        except Stop:
+            pass
+
+    err = {"k1": 0.0, "k2": 0.0, "k1_bf16": 0.0}
+    counts = {}
+    got, e, _ = cli_launches("CLI centerpoint_nusc epoch 1", first_epoch)
+    counts["cli_train_centerpoint_nusc"] = got
+    err.update({k: max(err[k], v) for k, v in e.items()})
+    got, _, runner = cli_launches("CLI centerpoint_nusc epoch 2 (resumed)",
+                                  lambda: train_cli.main(argv), hold=False)
+    for k, v in got.items():
+        counts["cli_train_centerpoint_nusc"][k] += v
+    c = counts["cli_train_centerpoint_nusc"]
+    check((c["k1_fwd"], c["k1_bwd"], c["k2_fwd"], c["k1_bf16"])
+          == (4 * K1_PER_FRAME, 4 * K1_BWD_PER_STEP, 0, 0),
+          f"CLI centerpoint_nusc: launches {c} in 4 steps, expected "
+          f"{K1_PER_FRAME} + {K1_BWD_PER_STEP} a step")
+    logs = cli_logs(wd)
+    check(len(logs) == 4 and all(np.isfinite(r["loss"]) for r in logs),
+          f"CLI centerpoint_nusc: logs {logs}")
+    check([t[0] for t in runner.timings] == [2, 3],
+          f"CLI centerpoint_nusc: resumed steps {runner.timings}")
+    log("CLI centerpoint_nusc (NVIDIA card, batch 4, 260k points a frame): "
+        "per step data ms / step ms as the Runner logs them "
+        + ", ".join(f"step {r['step']} {r['data_ms']:.1f} / "
+                    f"{r['step_ms']:.1f}" for r in logs)
+        + f"; losses {[round(r['loss'], 4) for r in logs]}; checkpoint "
+        f"save {runner.ckpt_seconds[0]:.3f} s (epoch 2), restore "
+        f"{runner.restore_seconds:.3f} s")
+
+    for profile, per_frame in (("exact", (K1_PER_FRAME, 0)),
+                               ("tpu_v5e", (K1_F32_PER_PROFILE_FRAME,
+                                            K1_BF16_PER_FRAME))):
+        out = root / f"metrics_{profile}.json"
+        t0 = time.perf_counter()
+        got, e, step = cli_launches(
+            f"CLI test centerpoint_nusc {profile}",
+            lambda: test_cli.main([
+                "--preset", "centerpoint_nusc", "--data-root", str(data),
+                "--info-path", str(val), "--ckpt", str(wd / "ckpt"),
+                "--out", str(out), "--serving-profile", profile,
+                "--device", str(dev)]), bf16=[])
+        seconds = time.perf_counter() - t0
+        err.update({k: max(err[k], v) for k, v in e.items()})
+        check((got["k1_fwd"], got["k1_bf16"], got["k1_bwd"], got["k2_fwd"])
+              == (4 * per_frame[0], 4 * per_frame[1], 0, 0),
+              f"CLI test {profile}: launches {got} on 4 frames, expected "
+              f"{per_frame} a frame")
+        metrics = json.loads(out.read_text())
+        check(step == 4 and metrics["step"] == 4
+              and np.isfinite(metrics["mAP"]) and np.isfinite(metrics["NDS"]),
+              f"CLI test {profile}: {step}, {metrics.get('mAP')}")
+        counts[f"cli_test_centerpoint_nusc_{profile}"] = got
+        log(f"CLI test centerpoint_nusc {profile}: 4 frames in "
+            f"{seconds:.2f} s (the model's build and the launch checks "
+            f"included), mAP {metrics['mAP']:.4f}, NDS "
+            f"{metrics['NDS']:.4f} (random weights), metrics JSON written")
+    return counts, err
+
+
+def phase_cli_kitti_full(dev, root, pillow):
+    """Phase 55: `voxel_rcnn_3ddf_kitti` at full width, batch 2, from disk:
+    two KITTI frames with their cars and 375x1242 PNGs in image_2 (decoded
+    and resized to 384x1280 by Pillow through `finalize_camera_sample`);
+    the train CLI for 2 steps (2 epochs of one) with every K1 and K2
+    launch held against its plain version (K1 12 + 11, K2 1 + 1 on its
+    general path a step), then the test CLI once over both frames (K1 12,
+    K2 1 a frame). Without Pillow on this machine, the same preset trains
+    through the CLI's `--synthetic` (no image decoded) and the test CLI is
+    not run. Returns the launch counts and the largest errors."""
+    from df3d_torch.tools import test as test_cli
+    from df3d_torch.tools import train as train_cli
+    from df3d_torch.utils.synth import write_kitti_dataset
+
+    data = root / "kitti_full"
+    wd = root / "kitti_full_cli"
+    common = ["--preset", "voxel_rcnn_3ddf_kitti", "--max-points", "40000",
+              "--device", str(dev)]
+    if pillow:
+        info = write_kitti_dataset(data, kitti_samples(KITTI_TRAIN_BATCH),
+                                   images=True,
+                                   image_rng=np.random.RandomState(20))
+        source = ["--data-root", str(data), "--info-path", str(info)]
+    else:
+        source = ["--synthetic", "--synthetic-points", "20000"]
+        log("CLI voxel_rcnn_3ddf_kitti: Pillow is not installed here; the "
+            "preset trains on the CLI's --synthetic samples instead")
+    argv = common + source + [
+        "--batch-size", str(KITTI_TRAIN_BATCH), "--epochs", "2",
+        "--steps-per-epoch", "1", "--log-interval", "1", "--work-dir",
+        str(wd)]
+    counts, err = {}, {}
+    got, e, runner = cli_launches("CLI voxel_rcnn_3ddf_kitti train",
+                                  lambda: train_cli.main(argv))
+    err.update(e)
+    check((got["k1_fwd"], got["k1_bwd"], got["k2_fwd"], got["k2_bwd"])
+          == (2 * K1_PER_KITTI_FRAME, 2 * K1_BWD_PER_KITTI_STEP, 2, 2),
+          f"CLI voxel_rcnn_3ddf_kitti: launches {got} in 2 steps")
+    counts["cli_train_voxel_rcnn_3ddf_kitti"] = got
+    logs = cli_logs(wd)
+    check(len(logs) == 2 and all(np.isfinite(r["loss"]) for r in logs),
+          f"CLI voxel_rcnn_3ddf_kitti: logs {logs}")
+    log("CLI voxel_rcnn_3ddf_kitti (batch 2"
+        + (", 375x1242 PNGs resized to 384x1280" if pillow else
+           ", --synthetic") + "): data ms / step ms "
+        + ", ".join(f"step {r['step']} {r['data_ms']:.1f} / "
+                    f"{r['step_ms']:.1f}" for r in logs)
+        + f"; losses {[round(r['loss'], 4) for r in logs]}; checkpoint "
+        f"save {[round(s, 3) for s in runner.ckpt_seconds]} s")
+    if pillow:
+        out = root / "metrics_kitti.json"
+        got, e, step = cli_launches(
+            "CLI test voxel_rcnn_3ddf_kitti",
+            lambda: test_cli.main(common + source + [
+                "--ckpt", str(wd / "ckpt"), "--out", str(out)]))
+        err = {k: max(err[k], v) for k, v in e.items()}
+        check((got["k1_fwd"], got["k2_fwd"], got["k1_bwd"])
+              == (2 * K1_PER_KITTI_FRAME, 2, 0),
+              f"CLI test voxel_rcnn_3ddf_kitti: launches {got} on 2 frames")
+        metrics = json.loads(out.read_text())
+        check(step == 2 and "Car_3d_moderate" in metrics,
+              f"CLI test voxel_rcnn_3ddf_kitti: {sorted(metrics)[:5]}")
+        counts["cli_test_voxel_rcnn_3ddf_kitti"] = got
+        log(f"CLI test voxel_rcnn_3ddf_kitti: Car 3D AP moderate "
+            f"{metrics['Car_3d_moderate']:.4f}, final recall at 0.7 "
+            f"{metrics.get('final_recall_0.7', 0.0):.4f} (random weights)")
+    return counts, err
+
+
+def pillow_available():
+    import importlib.util
+
+    return importlib.util.find_spec("PIL") is not None
+
+
 def f32_backends():
     """TF32 off for matmuls and cuDNN convs, cuDNN's algorithms timed: the
     settings of every process that runs a phase (a spawned rank too)."""
@@ -5172,7 +5831,8 @@ def main():
         f"{torch.cuda.get_device_name(0)}; TF32 off (matmul and cuDNN), "
         f"cudnn.benchmark on")
 
-    collect_frames = prefetch_frames(SERVING_SEEDS + TRAIN_SEEDS)
+    collect_frames = prefetch_frames(SERVING_SEEDS + TRAIN_SEEDS
+                                     + CLI_EXTRA_SEEDS)
     t0 = time.perf_counter()
     libs = build.build_all()
     log(f"build: {', '.join(libs)} in {time.perf_counter() - t0:.2f} s "
@@ -5187,7 +5847,8 @@ def main():
 
     t0 = time.perf_counter()
     collect_frames()
-    log(f"ray-cast frames (seeds {SERVING_SEEDS + TRAIN_SEEDS}, one worker "
+    log(f"ray-cast frames (seeds "
+        f"{SERVING_SEEDS + TRAIN_SEEDS + CLI_EXTRA_SEEDS}, one worker "
         f"process each, begun before the build): ready "
         f"{time.perf_counter() - t0:.2f} s after the build")
 
@@ -5459,6 +6120,36 @@ def main():
     k1_bf16["max_abs_err"] = max(
         k1_bf16["max_abs_err"], preset_err["k1_bf16"],
         *(t["max_abs_err"] for t in bf16_tables.values()))
+    torch.cuda.empty_cache()
+
+    # training and evaluation from a dataset on disk through the CLIs
+    # (phases 53-55): "cli_small_<preset>" counts phase 53's card runs,
+    # "cli_train_<preset>" and "cli_test_<preset>[_<profile>]" phases 54's
+    # and 55's runs (the launches of phase 54's first epoch and of both
+    # phases' test runs each held against their plain versions)
+    pillow = pillow_available()
+    log(f"Pillow on this machine: {pillow}")
+    build_dir = Path(__file__).resolve().parent / "build"
+    build_dir.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="cli_", dir=build_dir) as tmp:
+        small = timed_phase(53, phase_cli_small, dev, Path(tmp))
+        nusc_cli, nusc_err = timed_phase(54, phase_cli_nusc_full, dev,
+                                         Path(tmp))
+        kitti_cli, kitti_err = timed_phase(55, phase_cli_kitti_full, dev,
+                                           Path(tmp), pillow)
+    for name, (fwd, bwd, k2f, k2b) in small.items():
+        k1["launches_by_path"][f"cli_small_{name}"] = fwd + bwd
+        k2["launches_by_path"][f"cli_small_{name}"] = k2f + k2b
+    for path, got in {**nusc_cli, **kitti_cli}.items():
+        k1["launches_by_path"][path] = got["k1_fwd"] + got["k1_bwd"]
+        k2["launches_by_path"][path] = got["k2_fwd"] + got["k2_bwd"]
+        if got["k1_bf16"]:
+            k1_bf16["launches_by_path"][path] = got["k1_bf16"]
+    for err in (nusc_err, kitti_err):
+        k1["max_abs_err"] = max(k1["max_abs_err"], err.get("k1", 0.0))
+        k2["max_abs_err"] = max(k2["max_abs_err"], err.get("k2", 0.0))
+        k1_bf16["max_abs_err"] = max(k1_bf16["max_abs_err"],
+                                     err.get("k1_bf16", 0.0))
     for entry in (k1, k2, k1_bf16):
         entry["launches"] = sum(entry["launches_by_path"].values())
 

@@ -138,13 +138,17 @@ class _CameraLidar3DDF(nn.Module):
 
     def forward(self, voxel_features: torch.Tensor,
                 voxel_coords: torch.Tensor, images: torch.Tensor,
-                proj: torch.Tensor, aux: dict | None = None):
+                proj: torch.Tensor, aux: dict | None = None,
+                noise_rot=None, noise_scale=None, flip_x=None, flip_y=None):
         """images (B, n_cam, H, W, 3) normalized; proj (B, n_cam, 3, 4)
         lidar -> image. Returns what the detector returns. With an `aux`
         dict (a training step's aux objectives), the forward also puts the
         head's logits over the cameras folded into the batch, (B * n_cam,
         Hf, Wf, 1), under "seg_logits", and the fusion hook's consistency
-        pairs, a list, under "consistency"."""
+        pairs, a list, under "consistency". noise_rot, noise_scale, flip_x
+        and flip_y (B,): each sample's world augmentation, which the hook
+        undoes before it projects (none by default; the training steps
+        pass none, as the JAX package's do)."""
         b, nc = images.shape[:2]
         flat = images.reshape(b * nc, *images.shape[2:])
         with torch.no_grad():
@@ -160,8 +164,11 @@ class _CameraLidar3DDF(nn.Module):
             stages.mark("aux")
         feats = [f.reshape(b, nc, *f.shape[1:]) for f in feats]
         return self.detector(voxel_features, voxel_coords,
-                             fusion_kwargs=dict(image_feats=feats, proj=proj,
-                                                **fusion_kwargs))
+                             fusion_kwargs=dict(
+                                 image_feats=feats, proj=proj,
+                                 noise_rot=noise_rot, noise_scale=noise_scale,
+                                 flip_x=flip_x, flip_y=flip_y,
+                                 **fusion_kwargs))
 
     def train(self, mode: bool = True):
         """As `nn.Module.train`, but the frozen image branch stays in eval
@@ -228,12 +235,14 @@ class VoxelRCNN3DDF(_CameraLidar3DDF):
 
     def forward(self, voxel_features: torch.Tensor,
                 voxel_coords: torch.Tensor, images: torch.Tensor,
-                proj: torch.Tensor, aux: dict | None = None):
+                proj: torch.Tensor, aux: dict | None = None,
+                noise_rot=None, noise_scale=None, flip_x=None, flip_y=None):
         """images (B, H, W, 3) normalized; proj (B, 3, 4) lidar -> image.
-        -> (preds, overflow) as `VoxelRCNN`; `aux` as for the
-        multi-camera detectors."""
+        -> (preds, overflow) as `VoxelRCNN`; `aux` and the augmentation
+        inputs as for the multi-camera detectors."""
         return super().forward(voxel_features, voxel_coords,
-                               images[:, None], proj[:, None], aux)
+                               images[:, None], proj[:, None], aux,
+                               noise_rot, noise_scale, flip_x, flip_y)
 
 
 class CenterPoint3DDF(_CameraLidar3DDF):

@@ -79,7 +79,10 @@ class MultiCamACTRFusionHook(nn.Module):
     lidar -> image matrices; st the stage's SparseTensor, whose features
     are `voxel_channels` wide (`mvx_channels` wide at `stage="conv1"`,
     where the MVX sum runs if `mvx_channels` is given; any other stage
-    runs ACTR)."""
+    runs ACTR). noise_rot, noise_scale, flip_x and flip_y (B,), when given,
+    are each sample's world augmentation, undone on the voxel centres
+    before they are projected (`core.calib.augmented_lidar_to_raw`), at
+    both fusion points."""
 
     def __init__(self, spec: ACTRFusionSpec, voxel_size, pc_range,
                  image_shape, num_cams: int, voxel_channels: int,
@@ -100,13 +103,13 @@ class MultiCamACTRFusionHook(nn.Module):
                                  "hook's")
             self.mvx_proj = nn.Linear(sum(image_channels), mvx_channels)
 
-    def _project(self, st, image_feats, proj, downsample):
+    def _project(self, st, image_feats, proj, downsample, aug):
         """Per camera (folded into the batch): uv (B*n_cam, N, 2), mask
         (B*n_cam, N), the image feature maps and the image query."""
         b, n, _ = st.features.shape
         uv, _, mask = project_voxels_to_image(
             st.coords, st.valid, proj, self.image_shape, self.voxel_size,
-            self.pc_range, downsample=downsample)
+            self.pc_range, downsample=downsample, **aug)
         uv = uv.reshape(b * self.num_cams, n, 2)
         mask_f = mask.reshape(b * self.num_cams, n)
         cam_feats = [f.reshape(-1, *f.shape[2:]) for f in image_feats]
@@ -114,19 +117,23 @@ class MultiCamACTRFusionHook(nn.Module):
                                                          mask_f)
 
     def forward(self, st: SparseTensor, image_feats, proj, stage=None,
-                aux_pairs: list | None = None) -> SparseTensor:
+                aux_pairs: list | None = None, noise_rot=None,
+                noise_scale=None, flip_x=None, flip_y=None) -> SparseTensor:
         b, n, c = st.features.shape
         nc = self.num_cams
+        aug = dict(noise_rot=noise_rot, noise_scale=noise_scale,
+                   flip_x=flip_x, flip_y=flip_y)
         if stage == "conv1":
             if not hasattr(self, "mvx_proj"):
                 return st
-            _, mask_f, _, i_query = self._project(st, image_feats, proj, 1)
+            _, mask_f, _, i_query = self._project(st, image_feats, proj, 1,
+                                                  aug)
             iq = self.mvx_proj(i_query) * mask_f[..., None]
             stages.mark("mvx")
             return st.with_features(st.features
                                     + iq.reshape(b, nc, n, c).sum(1))
         uv, mask_f, cam_feats, i_query = self._project(
-            st, image_feats, proj, self.spec.downsample)
+            st, image_feats, proj, self.spec.downsample, aug)
         q_feat_rep = st.features.repeat_interleave(nc, 0)
 
         feats_for_actr = cam_feats

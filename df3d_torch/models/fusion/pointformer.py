@@ -93,7 +93,7 @@ class LocalTransformer(nn.Module):
         g_xyz = xyz[rows[..., None], idx] - centers[:, :, None, :]
         g_feat = features[rows[..., None], idx]                # (B, S, K, C)
 
-        h = g_feat + self.pe1(torch.relu(self.pe0(g_xyz)))
+        h = g_feat + self.pe1(torch.relu(self.pe0(g_xyz.to(g_feat.dtype))))
         for i in range(self.num_layers):
             h = getattr(self, f"enc{i}")(h, mask)
         h = torch.where(mask[..., None], h, 0.0)

@@ -1,0 +1,2 @@
+"""The port's command-line tools (the JAX package's tools/): `python -m
+df3d_torch.tools.train` and `python -m df3d_torch.tools.test`."""

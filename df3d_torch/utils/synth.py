@@ -299,3 +299,155 @@ def _kitti_frame_and_cars(rng, n_azimuth, n_beams):
     p = p[m]
     points = np.concatenate([p, rng.rand(len(p), 1)], 1).astype(np.float32)
     return points, (c[is_car], dims[is_car], yaw[is_car])
+
+
+# ---------------------------------------------------------------------------
+# datasets on disk, laid out as the JAX package's tools/create_data.py and
+# pcdet / det3d lay them out, for the data pipeline and the CLIs
+
+
+def write_png(path, rgb: np.ndarray) -> None:
+    """(H, W, 3) uint8 -> an 8-bit RGB PNG file (no filter, zlib), written
+    without an image library."""
+    import struct
+    import zlib
+
+    h, w, _ = rgb.shape
+    raw = b"".join(b"\x00" + np.ascontiguousarray(rgb[y]).tobytes()
+                   for y in range(h))
+
+    def chunk(kind: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(raw, 1))
+                + chunk(b"IEND", b""))
+
+
+def kitti_calib() -> dict:
+    """The calib of `kitti_camera()`: P2 (3, 4), R0 (identity) and V2C
+    (3, 4) as KITTI's calib files hold them."""
+    rot = np.array([[0.0, -1.0, 0.0], [0.0, 0.0, -1.0], [1.0, 0.0, 0.0]])
+    v2c = np.concatenate([rot, np.asarray(KITTI_VELO_TO_CAM_T)[:, None]], 1)
+    return {"P2": np.asarray(KITTI_P2, np.float32),
+            "R0": np.eye(3, dtype=np.float32),
+            "V2C": v2c.astype(np.float32)}
+
+
+def _pad4(m: np.ndarray) -> np.ndarray:
+    out = np.eye(4, dtype=np.float32)
+    out[:m.shape[0], :m.shape[1]] = m
+    return out
+
+
+def write_kitti_dataset(root, samples, split: str = "train",
+                        images: bool = False,
+                        image_rng: np.random.RandomState | None = None):
+    """A KITTI-layout dataset under `root`: for each (points (P, 4), car
+    boxes (M, 7) lidar gravity centre) of `samples`, training/velodyne/
+    NNNNNN.bin, training/calib/NNNNNN.txt (`kitti_calib`) and, with
+    `images`, a 375x1242 PNG in training/image_2 (random pixels from
+    `image_rng`); and kitti_infos_<split>.pkl with create_data.py's fields
+    and, as pcdet's infos carry them, each anno's location, dimensions,
+    rotation_y and alpha. -> the info pkl's path."""
+    import pathlib
+    import pickle
+
+    from df3d_torch.data.kitti import (
+        camera_box_to_lidar, lidar_boxes_to_kitti_annos, lidar_to_rect,
+    )
+
+    root = pathlib.Path(root)
+    for d in ("velodyne", "calib", "image_2"):
+        (root / "training" / d).mkdir(parents=True, exist_ok=True)
+    calib = kitti_calib()
+    calib_txt = "\n".join(
+        f"{k}: " + " ".join(f"{v:.9e}" for v in np.ravel(m))
+        for k, m in (("P2", calib["P2"]), ("R0_rect", calib["R0"]),
+                     ("Tr_velo_to_cam", calib["V2C"]))) + "\n"
+    infos = []
+    for i, (points, boxes) in enumerate(samples):
+        idx = f"{i:06d}"
+        np.ascontiguousarray(points, np.float32).tofile(
+            root / "training" / "velodyne" / f"{idx}.bin")
+        (root / "training" / "calib" / f"{idx}.txt").write_text(calib_txt)
+        if images:
+            write_png(root / "training" / "image_2" / f"{idx}.png",
+                      image_rng.randint(0, 256, KITTI_IMAGE + (3,),
+                                        dtype=np.uint8))
+        boxes = np.asarray(boxes, np.float32).reshape(-1, 7)
+        n = len(boxes)
+        bottom = boxes[:, :3].copy()
+        bottom[:, 2] -= boxes[:, 5] / 2
+        cam = np.concatenate(
+            [lidar_to_rect(calib, bottom), boxes[:, [3, 5, 4]],
+             (-boxes[:, 6] - np.pi / 2)[:, None]], 1).astype(np.float32)
+        det = lidar_boxes_to_kitti_annos(boxes, np.ones(n), np.zeros(n),
+                                         calib, KITTI_IMAGE, ("Car",))
+        infos.append({
+            "point_cloud": {"lidar_idx": idx, "num_features": 4},
+            "calib": {"P2": np.vstack([calib["P2"], [0, 0, 0, 1]]),
+                      "R0_rect": _pad4(calib["R0"]),
+                      "Tr_velo_to_cam": np.vstack([calib["V2C"],
+                                                   [0, 0, 0, 1]])},
+            "image": {"image_idx": idx, "image_shape": np.array(KITTI_IMAGE)},
+            "annos": {
+                "name": np.array(["Car"] * n), "truncated": np.zeros(n),
+                "occluded": np.zeros(n), "bbox": det["bbox"],
+                "alpha": det["alpha"], "location": cam[:, :3],
+                "dimensions": cam[:, 3:6], "rotation_y": cam[:, 6],
+                "gt_boxes_lidar": (camera_box_to_lidar(cam, calib) if n
+                                   else np.zeros((0, 7), np.float32)),
+            },
+        })
+    path = root / f"kitti_infos_{split}.pkl"
+    with open(path, "wb") as f:
+        pickle.dump(infos, f)
+    return path
+
+
+def write_nuscenes_dataset(root, samples, name: str = "train"):
+    """A nuScenes-layout dataset under `root`: each (frame (N, 5) x, y, z,
+    intensity, sweep time lag, gt boxes (M, 7 or 9), gt names) of `samples`
+    split by its time-lag channel into a key frame (lag 0) and one sweep
+    per other lag, each a .bin of (n, 5) float32 under samples/ and
+    sweeps/, with identity transforms and the lags as time_lag, so that
+    `accumulate_sweeps` gives the frame's points back (key frame first);
+    and infos_<name>.pkl as create_data.py writes it ({"infos": [...]},
+    7-dof boxes with gt_velocity). -> the info pkl's path."""
+    import pathlib
+    import pickle
+
+    root = pathlib.Path(root)
+    for d in ("samples", "sweeps"):
+        (root / d).mkdir(parents=True, exist_ok=True)
+    infos = []
+    for i, (frame, boxes, names) in enumerate(samples):
+        lags = np.unique(frame[:, 4])
+        paths = []
+        for s, lag in enumerate(lags):
+            pts = frame[frame[:, 4] == lag].copy()
+            pts[:, 4] = 0.0  # the ring index column of a nuScenes .bin
+            rel = f"{'samples' if s == 0 else 'sweeps'}/{i:04d}_{s}.bin"
+            pts.astype(np.float32).tofile(root / rel)
+            paths.append((rel, float(lag)))
+        boxes = np.asarray(boxes, np.float32)
+        vel = (boxes[:, 7:9] if boxes.shape[1] >= 9
+               else np.zeros((len(boxes), 2), np.float32))
+        infos.append({
+            "token": f"sample_{i:04d}", "lidar_path": paths[0][0],
+            "timestamp": 1_000_000 * i,
+            "sweeps": [{"lidar_path": rel,
+                        "transform_matrix": np.eye(4, dtype=np.float32),
+                        "time_lag": lag} for rel, lag in paths[1:]],
+            "cams": {},
+            "gt_boxes": boxes[:, :7].copy(), "gt_names": np.asarray(names),
+            "gt_velocity": vel.astype(np.float32),
+        })
+    path = root / f"infos_{name}.pkl"
+    with open(path, "wb") as f:
+        pickle.dump({"infos": infos, "version": "synthetic"}, f)
+    return path

@@ -3,10 +3,15 @@ reference-checkpoint importers, the evaluators, the presets, configs and
 `build_detector` too), chip_smoke.py, k1_ablate.py, k2_ablate.py and
 lidar_wall.py import nothing of JAX, optax or the JAX package, scipy only
 in the host-side Hungarian assignment (df3d_torch/ops/assign.py, as the
-JAX package and the reference assign with it) and PyYAML only in the
-config loader (df3d_torch/config/config.py, inside the functions that
-parse); in the package only the checkpoint loader (df3d_torch/train/
-torch_import.py) unpickles with `torch.load`; with no CUDA device the entry
+JAX package and the reference assign with it), PyYAML only in the config
+loader (df3d_torch/config/config.py, inside the functions that parse) and
+Pillow only in the camera-image module (df3d_torch/data/images.py, inside
+the functions that decode and resize); in the package only the reference
+checkpoint loader (df3d_torch/train/torch_import.py) and the training
+checkpoints (train/checkpoint.py) unpickle with `torch.load`, each with
+torch's `weights_only` loader; no port module names the JAX package's
+prebuilt point-loader library or builds anything next to csrc/'s sources;
+with no CUDA device the entry
 points raise rather than fall back, and the K1 and K2 launchers (K1's input
 gradient launch too) never answer with their plain versions. The ablation
 scripts' source edits still apply to the kernels they copy."""
@@ -29,15 +34,21 @@ from df3d_torch.ops import sparse_conv_kernel as k1
 from torch_port_helpers import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "df3d", "scipy", "yaml")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "df3d", "scipy", "yaml",
+             "PIL")
 # the one module that may import scipy: the assignment runs on the host
 SCIPY_ALLOWED = ROOT / "df3d_torch" / "ops" / "assign.py"
 # the one module that may import PyYAML: the config loader (the card's
 # machine is not known to have it)
 YAML_ALLOWED = ROOT / "df3d_torch" / "config" / "config.py"
-ALLOWED = {SCIPY_ALLOWED: "scipy", YAML_ALLOWED: "yaml"}
-# the one module that may call torch.load: the reference checkpoints
-TORCH_LOAD_ALLOWED = ROOT / "df3d_torch" / "train" / "torch_import.py"
+# the one module that may import Pillow: camera images are decoded and
+# resized on the host (the card's machine is not known to have it)
+PIL_ALLOWED = ROOT / "df3d_torch" / "data" / "images.py"
+ALLOWED = {SCIPY_ALLOWED: "scipy", YAML_ALLOWED: "yaml", PIL_ALLOWED: "PIL"}
+# the modules that may call torch.load: the reference checkpoints and the
+# training checkpoints
+TORCH_LOAD_ALLOWED = {ROOT / "df3d_torch" / "train" / "torch_import.py",
+                      ROOT / "df3d_torch" / "train" / "checkpoint.py"}
 
 
 def _port_files():
@@ -46,8 +57,14 @@ def _port_files():
             "import_centerpoint.py", "import_voxelrcnn.py",
             "import_transfusion.py", "evaluate.py"} <= {
         f.name for f in files if f.parent.name == "train"}
-    assert {"nuscenes_eval.py", "kitti_eval.py", "kitti.py"} <= {
+    assert {"checkpoint.py", "loop.py"} <= {
+        f.name for f in files if f.parent.name == "train"}
+    assert {"nuscenes_eval.py", "kitti_eval.py", "kitti.py", "native.py",
+            "images.py", "nuscenes.py", "augment.py", "transforms.py",
+            "pipeline.py"} <= {
         f.name for f in files if f.parent.name == "data"}
+    assert {"train.py", "test.py"} <= {
+        f.name for f in files if f.parent.name == "tools"}
     assert {"presets.py", "config.py"} <= {
         f.name for f in files if f.parent.name == "config"}
     assert ROOT / "df3d_torch" / "models" / "build.py" in files
@@ -80,6 +97,24 @@ def test_no_jax_or_jax_package_imports(path):
         assert ALLOWED[path] in set(_imported_roots(path))
 
 
+def _importing_functions(path, module):
+    """(whether the module's top level imports `module`, the names of the
+    functions that import it)."""
+    tree = ast.parse(path.read_text())
+
+    def imports(node):
+        return (isinstance(node, ast.Import)
+                and any(a.name.split(".")[0] == module for a in node.names)
+                ) or (isinstance(node, ast.ImportFrom)
+                      and (node.module or "").split(".")[0] == module)
+
+    top = any(imports(n) for n in tree.body)
+    inside = {f.name for f in ast.walk(tree)
+              if isinstance(f, ast.FunctionDef)
+              and any(imports(n) for n in ast.walk(f))}
+    return top, inside
+
+
 def test_yaml_imported_only_where_a_config_is_parsed():
     """PyYAML is imported inside `load_config` and `_parse_value`, never at
     the config module's top level, so importing the port needs no PyYAML."""
@@ -93,6 +128,31 @@ def test_yaml_imported_only_where_a_config_is_parsed():
                       and any(a.name == "yaml" for a in n.names)
                       for n in ast.walk(f))}
     assert inside == {"load_config", "_parse_value"}
+
+
+def test_pillow_imported_only_inside_image_functions():
+    """Pillow is imported inside `decode_image` and `resize_normalize_pad`
+    of the camera-image module, never at its top level, so importing the
+    port needs no Pillow (nor does an image already at its target size)."""
+    top, inside = _importing_functions(PIL_ALLOWED, "PIL")
+    assert not top
+    assert inside == {"decode_image", "resize_normalize_pad"}
+
+
+def test_no_prebuilt_point_loader_and_no_build_in_csrc():
+    """No port file names the JAX package's prebuilt `libdf3dio.so` or runs
+    `make`; the point loader's library is built under build/df3d_torch,
+    from csrc/pointio.cc as it is."""
+    from df3d_torch.data import native
+
+    for path in _port_files():
+        text = path.read_text()
+        assert "libdf3dio" not in text, path
+        assert '"make"' not in text and "'make'" not in text, path
+    out = native.library_path()
+    assert out.parent == ROOT / "build" / "df3d_torch"
+    assert native.SOURCE == ROOT / "csrc" / "pointio.cc"
+    assert "-march=native" not in native.CXX_FLAGS
 
 
 def _torch_load_calls(path):
@@ -116,8 +176,9 @@ def _torch_load_calls(path):
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_torch_load_only_in_the_checkpoint_loader(path):
     calls = list(_torch_load_calls(path))
-    if path == TORCH_LOAD_ALLOWED:
+    if path in TORCH_LOAD_ALLOWED:
         assert len(calls) == 1
+        assert "weights_only=True" in path.read_text()
     else:
         assert not calls, f"{path.relative_to(ROOT)}:{calls} calls torch.load"
 

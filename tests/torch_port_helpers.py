@@ -861,3 +861,143 @@ def check_package_step(r):
            > tol(sg[n].numpy())]
     assert "rpn.dense_head.conv_box.weight" in off, off
     return off
+
+
+def assert_same(a, b):
+    """Nested dicts, lists, tuples, arrays and the augmentation records of
+    either package's data pipeline equal bit for bit (dtype, shape,
+    values)."""
+    if isinstance(a, dict):
+        assert set(a) == set(b)
+        for k in a:
+            assert_same(a[k], b[k])
+    elif isinstance(a, (list, tuple)):
+        assert len(a) == len(b)
+        for x, y in zip(a, b):
+            assert_same(x, y)
+    elif hasattr(a, "noise_rot"):  # WorldAugParams of either package
+        assert_same((a.flip_x, a.flip_y, a.noise_rot, a.noise_scale,
+                     a.noise_translate), (b.flip_x, b.flip_y, b.noise_rot,
+                                          b.noise_scale, b.noise_translate))
+    elif a is None or isinstance(a, (str, int, float, bool)):
+        assert a == b
+    else:
+        a, b = np.asarray(a), np.asarray(b)
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert np.array_equal(a, b), (a, b)
+
+
+# ---------------------------------------------------------------------------
+# tiny datasets on disk for the data pipeline and the CLIs, written with
+# the port's own writers (`df3d_torch.utils.synth`)
+
+# the narrowed KITTI preset of the runtime tests: tests/
+# test_torch_voxelrcnn_train_step.py's grid and proposal counts as `--set`
+# overrides of `voxel_rcnn_car_kitti`
+KITTI_SMALL_SETS = [
+    "pc_range=[0.0, -16.0, -2.4, 32.0, 16.0, 2.4]",
+    "voxel_size=[0.5, 0.5, 0.2]", "grid_size=[24, 64, 64]",
+    "max_voxels=256", "stage_caps=[256, 192, 128, 96]",
+    "train_pre_nms=64", "train_post_nms=16", "test_pre_nms=64",
+    "test_post_nms=16", "rcnn.grid_size=3", "rcnn.max_local=32",
+    "rcnn.roi_per_image=8"]
+
+
+def tiny_kitti_samples(rng: np.random.RandomState, n: int,
+                       n_points: int = 400, n_boxes: int = 3):
+    """n (points (P, 4), car boxes (M, 7)) in KITTI's lidar frame: points
+    ahead of the car and some behind it (outside the camera's view), cars
+    within the small KITTI grid, in view."""
+    out = []
+    for _ in range(n):
+        pts = np.concatenate([
+            rng.uniform(-6.0, 30.0, (n_points, 1)),
+            rng.uniform(-14.0, 14.0, (n_points, 1)),
+            rng.uniform(-2.2, 1.0, (n_points, 1)),
+            rng.rand(n_points, 1)], 1).astype(np.float32)
+        boxes = np.concatenate([
+            rng.uniform(8.0, 26.0, (n_boxes, 1)),
+            rng.uniform(-5.0, 5.0, (n_boxes, 1)),
+            rng.uniform(-1.2, -0.6, (n_boxes, 1)),
+            rng.uniform(3.5, 4.5, (n_boxes, 1)),
+            rng.uniform(1.5, 1.9, (n_boxes, 1)),
+            rng.uniform(1.4, 1.7, (n_boxes, 1)),
+            rng.uniform(-3.0, 3.0, (n_boxes, 1))], 1).astype(np.float32)
+        out.append((pts, boxes))
+    return out
+
+
+def write_tiny_kitti(root, n: int = 4, seed: int = 0, images: bool = False,
+                     split: str = "train"):
+    """`tiny_kitti_samples` written as a KITTI dataset (`synth.
+    write_kitti_dataset`; 375x1242 PNGs with `images`) -> the info pkl."""
+    from df3d_torch.utils.synth import write_kitti_dataset
+
+    rng = np.random.RandomState(seed)
+    return write_kitti_dataset(root, tiny_kitti_samples(rng, n), split=split,
+                               images=images, image_rng=rng)
+
+
+def tiny_nusc_samples(rng: np.random.RandomState, n: int,
+                      n_points: int = 600, n_boxes: int = 6):
+    """n (frame (P, 5) with ten sweep lags, 9-dof boxes, class names) over
+    the `centerpoint_tiny_smoke` range (+-25.6 m)."""
+    from df3d_torch.data.nuscenes_eval import NUSC_CLASSES
+
+    out = []
+    for _ in range(n):
+        frame = np.concatenate([
+            rng.uniform(-25.0, 25.0, (n_points, 2)),
+            rng.uniform(-1.8, 1.8, (n_points, 1)), rng.rand(n_points, 1),
+            rng.randint(0, 10, (n_points, 1)) * np.float32(0.05)],
+            1).astype(np.float32)
+        boxes = np.concatenate([
+            rng.uniform(-20.0, 20.0, (n_boxes, 2)),
+            rng.uniform(-1.0, 0.0, (n_boxes, 1)),
+            rng.uniform(1.0, 4.0, (n_boxes, 3)),
+            rng.uniform(-3.0, 3.0, (n_boxes, 1)),
+            rng.uniform(-1.0, 1.0, (n_boxes, 2))], 1).astype(np.float32)
+        names = np.asarray(NUSC_CLASSES)[rng.randint(0, 10, n_boxes)]
+        out.append((frame, boxes, names))
+    return out
+
+
+def write_tiny_nuscenes(root, n: int = 4, seed: int = 0, cams: int = 0,
+                        image_hw=(45, 80), name: str = "train"):
+    """`tiny_nusc_samples` written as a nuScenes dataset (`synth.
+    write_nuscenes_dataset`); with `cams`, each sample also gets that many
+    random PNG cameras of `image_hw` under `cams` in its info (the rig of
+    `synth.camera_rig` as lidar2cam and camera_intrinsics). -> the info
+    pkl."""
+    import pickle
+
+    from df3d_torch.utils.synth import write_nuscenes_dataset, write_png
+
+    rng = np.random.RandomState(seed)
+    path = write_nuscenes_dataset(root, tiny_nusc_samples(rng, n), name)
+    if not cams:
+        return path
+    with open(path, "rb") as f:
+        data = pickle.load(f)
+    h, w = image_hw
+    f_px = 0.8 * w
+    intr = np.array([[f_px, 0, w / 2], [0, f_px, h / 2], [0, 0, 1]],
+                    np.float32)
+    (root / "cams").mkdir(exist_ok=True)
+    for i, info in enumerate(data["infos"]):
+        info["cams"] = {}
+        for c in range(cams):
+            yaw = 2 * np.pi * c / cams
+            fwd = np.array([np.cos(yaw), np.sin(yaw), 0.0])
+            right = np.array([np.sin(yaw), -np.cos(yaw), 0.0])
+            rot = np.stack([right, [0.0, 0.0, -1.0], fwd])
+            l2c = np.eye(4, dtype=np.float32)
+            l2c[:3, :3] = rot
+            rel = f"cams/{i:04d}_CAM{c}.png"
+            write_png(root / rel, rng.randint(0, 256, (h, w, 3), np.uint8))
+            key = "lidar2cam" if c % 2 == 0 else "lidar2cam_matrix"
+            info["cams"][f"CAM_{chr(ord('F') - c)}"] = {
+                "data_path": rel, key: l2c, "camera_intrinsics": intr}
+    with open(path, "wb") as f:
+        pickle.dump(data["infos"], f)  # a list, as older infos are
+    return path
