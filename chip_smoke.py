@@ -11,7 +11,9 @@ metrics; then the fused training steps with the aux objectives and
 TransFusion + 3D-DF with the Swin-T image branch; then every preset of
 the registry built by name, and "tpu_v5e" on each of them beside
 "exact"; then training and evaluation from datasets on disk through the
-train and test CLIs.
+train and test CLIs; then infos made from raw KITTI and nuScenes files
+by `create_data` and trained on, the train CLI over 2 ranks, the demo
+and fit_caps.
 
     python3 chip_smoke.py
 
@@ -367,6 +369,29 @@ any failure raises and the process exits non-zero:
    held against its plain version), then the test CLI once (K1 12, K2 1
    a frame). Without Pillow on the machine, the preset trains through
    the CLI's --synthetic and the test CLI is not run.
+56. `create_data nuscenes` from raw tables (`utils.synth.
+   write_nuscenes_raw`: 8 samples, each a ray-cast key frame and 9 sweeps
+   in their own LiDAR frames, six 1600x900 JPEG cameras, the scenes'
+   boxes under raw category names; Pillow must write and read JPEG), then
+   the train CLI on `centerpoint_3ddf_nusc` at batch 4 for 2 steps (K1
+   16 + 15, K2 1 + 1 a step) and the test CLI on 4 frames (K1 16, K2 1),
+   every launch held against its plain version; step ms beside data ms.
+57. `create_data kitti --with-gt-database --with-image-crops` from raw
+   KITTI files (4 frames, labels, 375x1242 PNGs), then the train CLI on
+   `voxel_rcnn_3ddf_kitti` at batch 2 for 2 steps (K1 12 + 11, K2 1 + 1
+   a step), every launch held against its plain version.
+58. the train CLI over 2 ranks sharing the card (`--nprocs 2`, gloo),
+   `centerpoint_nusc`, global batch 4, 2 steps, against the one-process
+   CLI: logs, statistics after step 1, and each step's update and change
+   of the statistics in relative L2 (`phase_cli_ranks`); each rank's
+   ms/step, split with its `allreduce` stage and launches (16 + 15 a
+   step).
+59. the demo on the card: `centerpoint_nusc` on a 260k-point .bin with
+   phase 54's checkpoint, equal to the test CLI's eval step (K1 16, held
+   against the plain version); `centerpoint_tiny_smoke` card against CPU.
+60. fit_caps on the card: `centerpoint_nusc --synthetic --frames 8`, the
+   four stage occupancies of each frame equal to the CPU's; the fitted
+   caps beside bench.py's REALISTIC_STAGE_CAPS.
 
 TF32 is off for matmuls and cuDNN convs: the port serves in f32 (the JAX
 package's "exact" profile) and the comparisons need full f32; the
@@ -393,7 +418,9 @@ shapes, and "launches" adds phases 40-42's; "<preset>_<profile>" in
 "launches_by_path" counts phase 52's timed frames, and K1_bf16's
 "transfusion" and "kitti" hold phase 52's per-launch numbers;
 "cli_small_<preset>", "cli_train_<preset>" and
-"cli_test_<preset>[_<profile>]" count phases 53-55's CLI runs) and
+"cli_test_<preset>[_<profile>]" count phases 53-55's CLI runs,
+"create_data_<train|test>_<preset>" phases 56-57's, "cli_ranks" phase
+58's over both ranks and "demo_<preset>" phase 59's) and
 the result line
 {"ok": true, "device": {...}}. With no CUDA device, or outside a checkout,
 the script exits non-zero without them.
@@ -403,6 +430,7 @@ import contextlib
 import dataclasses
 import functools
 import json
+import pickle
 import subprocess
 import sys
 import tempfile
@@ -5791,6 +5819,637 @@ def phase_cli_kitti_full(dev, root, pillow):
     return counts, err
 
 
+# Dataset preparation and the remaining tools (phases 56-60): raw KITTI and
+# nuScenes files written into the phases' temporary directory
+# (`utils.synth.write_kitti_raw`, `write_nuscenes_raw`), turned into infos
+# by `df3d_torch.tools.create_data`, then the train and test CLIs on them;
+# the train CLI over 2 ranks, the demo and fit_caps
+FIT_CAPS_SEEDS = (5, 6, 7)  # with TRAIN_SEEDS and CLI_EXTRA_SEEDS: 0-7
+RAW_NUSC_VERSION = "v1.0-trainval"
+# Phase 58's limits on each step of the 2-rank CLI run against a
+# one-process step from the same state, in relative L2 (the step's update
+# of the trainable parameters, its change of the batch statistics; on the
+# card, with the first step's ReLU near ties replayed, the first step read
+# 0.0034-0.056 and 8.8e-7-1.0e-6, the second 0.0021-0.0061 and
+# 6.6e-7-8.1e-7), and on each statistic after the first step (phase 35's
+# per-leaf bound); the controls (a step skipped: 1.0; sign-flipped: ~2)
+# must fail the first two. The second step of the unbroken runs, which
+# start it from weights that Adam's first signs on rounding noise set
+# apart, read 0.072-0.20 and 7.5e-5-2.1e-3.
+RANKS_STEP_L2 = (0.3, 1e-3)
+RANKS_STAT_L2 = 1e-3
+# phase 59: the tiny demo's replays of the CPU's top-k and NMS decisions on
+# the card, each a near tie within 1e-4
+DEMO_MAX_REPLAYS = 16
+
+
+def jpeg_works(tmp):
+    """Whether this machine's Pillow writes a JPEG and reads it back (one
+    small colour gradient, its pixels within 3 of the original on the
+    mean)."""
+    from df3d_torch.data.images import decode_image, write_jpeg
+
+    y, x = np.mgrid[0:90, 0:160]
+    img = np.stack([x * 255 // 159, y * 255 // 89, np.full_like(x, 128)],
+                   -1).astype(np.uint8)
+    try:
+        write_jpeg(tmp / "probe.jpg", img)
+        back = decode_image(tmp / "probe.jpg")
+    except (ImportError, OSError) as e:
+        log(f"JPEG probe: {type(e).__name__}: {e}")
+        return False
+    return back.shape == img.shape and np.abs(
+        back.astype(int) - img).mean() < 3
+
+
+def phase_create_data_nusc(dev, root):
+    """Phase 56: raw nuScenes tables for 8 samples (the ray-cast frames of
+    TRAIN_SEEDS, CLI_EXTRA_SEEDS and SERVING_SEEDS, each a key frame and 9
+    sweeps in their own LiDAR frames, six 1600x900 JPEG cameras on the
+    rig of `utils.synth.camera_rig`, the scenes' boxes under raw nuScenes
+    category names), `create_data nuscenes` on them, then the train CLI
+    on `centerpoint_3ddf_nusc` (448x800 after the loader's resize, batch
+    4) for 2 steps, every K1 and K2 launch held against its plain version
+    (16 + 15 and 1 + 1 a step), each step's step ms beside its data ms
+    (the loader's wait: 40 .bin reads and 24 JPEG decodes a batch), and
+    the test CLI on 4 of the frames (K1 16, K2 1 a frame). Returns the
+    launch counts by run and the largest errors."""
+    from df3d_torch.data.images import read_image_shape
+    from df3d_torch.data.nuscenes import NUSC_CLASSES
+    from df3d_torch.tools import create_data
+    from df3d_torch.tools import test as test_cli
+    from df3d_torch.tools import train as train_cli
+    from df3d_torch.utils.synth import NUSC_CATEGORY, write_nuscenes_raw
+
+    data = root / "nusc_raw"
+    data.mkdir()
+    check(jpeg_works(data), "Pillow on this machine does not write and "
+          "read JPEG; the raw nuScenes cameras are JPEGs (no PNG stand-in)")
+    seeds = TRAIN_SEEDS + CLI_EXTRA_SEEDS + SERVING_SEEDS
+    raw_names = [NUSC_CATEGORY[NUSC_CLASSES[c]] for c in SCENE_CLASSES]
+    t0 = time.perf_counter()
+    write_nuscenes_raw(data, [(raycast_frame(s), scene_boxes(s), raw_names)
+                              for s in seeds], RAW_NUSC_VERSION,
+                       image_rng=np.random.RandomState(30))
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with quiet_stdout("create_data nuscenes"):
+        infos = create_data.main(["nuscenes", "--root", str(data),
+                                  "--version", RAW_NUSC_VERSION])
+    convert_s = time.perf_counter() - t0
+    info = data / f"df3d_nusc_infos_{RAW_NUSC_VERSION}.pkl"
+    val = data / "infos_val.pkl"
+    with open(val, "wb") as f:
+        pickle.dump({"infos": infos[:4], "version": RAW_NUSC_VERSION}, f)
+    check(len(infos) == 8 and all(
+        len(i["sweeps"]) == 9 and len(i["cams"]) == 6
+        and set(i["gt_names"]) == {"car", "truck", "pedestrian"}
+        for i in infos), "create_data nuscenes: infos")
+    cam = infos[0]["cams"]["CAM_FRONT"]
+    check(read_image_shape(data / cam["data_path"]) == (900, 1600),
+          "create_data nuscenes: the cameras are not 1600x900")
+    size = sum(p.stat().st_size for p in data.rglob("*") if p.is_file())
+    log(f"create_data nuscenes: 8 samples of raw tables, 80 .bin and 48 "
+        f"1600x900 JPEGs written in {write_s:.2f} s ({size / 1e6:.1f} MB); "
+        f"infos in {convert_s:.2f} s")
+
+    wd = root / "create_data_nusc_cli"
+    argv = ["--preset", "centerpoint_3ddf_nusc", "--data-root", str(data),
+            "--info-path", str(info), "--batch-size", str(TRAIN_BATCH),
+            "--epochs", "1", "--steps-per-epoch", "2", "--log-interval", "1",
+            "--work-dir", str(wd), "--device", str(dev)]
+    counts, err = {}, {}
+    got, e, _ = cli_launches("create_data centerpoint_3ddf_nusc train",
+                             lambda: train_cli.main(argv))
+    err.update(e)
+    check((got["k1_fwd"], got["k1_bwd"], got["k2_fwd"], got["k2_bwd"])
+          == (2 * K1_PER_FRAME, 2 * K1_BWD_PER_STEP, 2, 2),
+          f"create_data centerpoint_3ddf_nusc: launches {got} in 2 steps")
+    counts["create_data_train_centerpoint_3ddf_nusc"] = got
+    logs = cli_logs(wd)
+    check(len(logs) == 2 and all(np.isfinite(r["loss"]) for r in logs),
+          f"create_data centerpoint_3ddf_nusc: logs {logs}")
+    log("create_data centerpoint_3ddf_nusc (batch 4, six 1600x900 JPEGs a "
+        "sample decoded and resized to 448x800 by the loader's one thread)"
+        ": data ms / step ms " + ", ".join(
+            f"step {r['step']} {r['data_ms']:.1f} / {r['step_ms']:.1f}"
+            for r in logs) + f"; losses {[round(r['loss'], 4) for r in logs]}")
+
+    out = root / "metrics_create_data.json"
+    t0 = time.perf_counter()
+    got, e, step = cli_launches(
+        "create_data test centerpoint_3ddf_nusc",
+        lambda: test_cli.main(["--preset", "centerpoint_3ddf_nusc",
+                               "--data-root", str(data), "--info-path",
+                               str(val), "--ckpt", str(wd / "ckpt"),
+                               "--out", str(out), "--device", str(dev)]))
+    seconds = time.perf_counter() - t0
+    err = {k: max(err.get(k, 0.0), v) for k, v in e.items()}
+    check((got["k1_fwd"], got["k2_fwd"], got["k1_bwd"])
+          == (4 * K1_PER_FRAME, 4, 0),
+          f"create_data test centerpoint_3ddf_nusc: launches {got}")
+    metrics = json.loads(out.read_text())
+    check(step == 2 and np.isfinite(metrics["mAP"])
+          and np.isfinite(metrics["NDS"]),
+          f"create_data test: {step}, {metrics.get('mAP')}")
+    counts["create_data_test_centerpoint_3ddf_nusc"] = got
+    log(f"create_data test centerpoint_3ddf_nusc: 4 frames in {seconds:.2f} "
+        f"s (the build and the launch checks included), mAP "
+        f"{metrics['mAP']:.4f}, NDS {metrics['NDS']:.4f} (random weights)")
+    return counts, err
+
+
+def phase_create_data_kitti(dev, root):
+    """Phase 57: raw KITTI files (4 frames of `make_kitti_sample`, their
+    cars in label_2, 375x1242 PNGs), `create_data kitti
+    --with-gt-database --with-image-crops` on them, then the train CLI on
+    `voxel_rcnn_3ddf_kitti` (batch 2) for 2 steps, every K1 and K2 launch
+    held against its plain version (12 + 11 and 1 + 1 a step). Returns
+    the launch counts and the largest errors."""
+    from df3d_torch.tools import create_data
+    from df3d_torch.tools import train as train_cli
+    from df3d_torch.utils.synth import KITTI_IMAGE as RAW, write_kitti_raw
+
+    data = root / "kitti_raw"
+    samples = kitti_samples(4)
+    t0 = time.perf_counter()
+    write_kitti_raw(data, samples, image_rng=np.random.RandomState(21))
+    with quiet_stdout("create_data kitti"):
+        infos = create_data.main(["kitti", "--root", str(data),
+                                  "--with-gt-database", "--with-image-crops"])
+    with open(data / "kitti_dbinfos_train.pkl", "rb") as f:
+        db = pickle.load(f)["Car"]
+    check(len(infos) == 4 and all(
+        i["image"]["image_shape"].tolist() == list(RAW)
+        and len(i["annos"]["name"]) == len(s[1])
+        and {"location", "dimensions", "rotation_y"} <= set(i["annos"])
+        for i, s in zip(infos, samples)), "create_data kitti: infos")
+    crops = sum("image_crop_path" in d for d in db)
+    check(len(db) > 0 and crops > 0, f"create_data kitti: {len(db)} gt "
+          f"objects, {crops} crops")
+    log(f"create_data kitti: 4 frames, {sum(len(s[1]) for s in samples)} "
+        f"labelled cars, gt database of {len(db)} objects ({crops} image "
+        f"crops, {sum(d['num_points'] for d in db)} points) in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    wd = root / "create_data_kitti_cli"
+    argv = ["--preset", "voxel_rcnn_3ddf_kitti", "--max-points", "40000",
+            "--device", str(dev), "--data-root", str(data), "--info-path",
+            str(data / "kitti_infos_train.pkl"), "--batch-size",
+            str(KITTI_TRAIN_BATCH), "--epochs", "1", "--steps-per-epoch",
+            "2", "--log-interval", "1", "--work-dir", str(wd)]
+    got, err, _ = cli_launches("create_data voxel_rcnn_3ddf_kitti train",
+                               lambda: train_cli.main(argv))
+    check((got["k1_fwd"], got["k1_bwd"], got["k2_fwd"], got["k2_bwd"])
+          == (2 * K1_PER_KITTI_FRAME, 2 * K1_BWD_PER_KITTI_STEP, 2, 2),
+          f"create_data voxel_rcnn_3ddf_kitti: launches {got} in 2 steps")
+    logs = cli_logs(wd)
+    check(len(logs) == 2 and all(np.isfinite(r["loss"]) for r in logs),
+          f"create_data voxel_rcnn_3ddf_kitti: logs {logs}")
+    log("create_data voxel_rcnn_3ddf_kitti (batch 2, 375x1242 PNGs): data "
+        "ms / step ms " + ", ".join(f"step {r['step']} {r['data_ms']:.1f} / "
+                                    f"{r['step_ms']:.1f}" for r in logs)
+        + f"; losses {[round(r['loss'], 4) for r in logs]}")
+    return {"create_data_train_voxel_rcnn_3ddf_kitti": got}, err
+
+
+RELU_TIE_BAND = 1e-4  # phase 58: a ReLU input this close to 0 is a near tie
+
+
+@contextlib.contextmanager
+def relu_near_ties(store, shard=None, band=RELU_TIE_BAND):
+    """Patch `torch.relu` as `relu_decisions` does, for its near ties
+    only: record each call's input size and the positions and signs of
+    its inputs within `band` of 0 but not 0 (a padded row's inputs are 0
+    on every rank) in `store`, in call order; or, with
+    `shard` = (rank, world), give this rank's inputs the recorded sign
+    where theirs differs, at their own magnitude. A rank of a loader
+    shard holds the global batch's rows rank, rank + world, ...: a call
+    whose rows are the recorded call's divided by `world` takes those
+    rows of the record, any other call all of it. Yields the replays,
+    (elements, largest |x|) per call that had any."""
+    relu, flips = torch.relu, []
+    recorded = iter(store)
+
+    def patched(x):
+        z = x.detach()
+        if shard is None:
+            near = ((z.abs() < band) & (z != 0)).nonzero()
+            store.append((tuple(z.shape), near.cpu(),
+                          (z[tuple(near.T)] > 0).cpu()))
+            return relu(x)
+        shape, near, want = next(recorded)
+        rank, world = shard
+        if shape != tuple(z.shape):
+            check(shape[0] == z.shape[0] * world and shape[1:] == z.shape[1:],
+                  f"ReLU near ties: a call of {tuple(z.shape)} against the "
+                  f"recorded {shape}")
+            keep = near[:, 0] % world == rank
+            near, want = near[keep].clone(), want[keep]
+            near[:, 0] //= world
+        idx = tuple(near.to(z.device).T)
+        want = want.to(z.device)
+        at = z[idx]
+        flip = (at > 0) != want
+        if not flip.any():
+            return relu(x)
+        flips.append((int(flip.sum()), float(at[flip].abs().max())))
+        nudge = torch.zeros_like(z)
+        nudge[idx] = torch.where(flip, torch.where(want, at.abs(),
+                                                   -at.abs()) - at, 0.0)
+        return relu(x + nudge)
+
+    torch.relu = patched
+    try:
+        yield flips
+    finally:
+        torch.relu = relu
+
+
+class RankRecord:
+    """A train-CLI hook that every rank of phase 58 runs: the first step
+    under `relu_near_ties` replaying this rank's rows of the one-process
+    run's near ties (read from `ties_path`), the second step's host-clock
+    split (`stages.recording`, with the all-reduces' `allreduce` stage),
+    the steps' ms and the rank's kernel launch counts (the ranks are new
+    processes: counted from 0), saved with the replays to
+    `out_dir/rank<r>.pt` after the last step."""
+
+    def __init__(self, out_dir, steps, ties_path):
+        self.out_dir, self.steps = str(out_dir), steps
+        self.ties_path = str(ties_path)
+        self.rec, self.split, self.ms, self.t0 = None, None, [], None
+        self.ties, self.flips = None, None
+
+    @staticmethod
+    def _sync():
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+
+    def before_epoch(self, runner):
+        if self.t0 is None:
+            dist = torch.distributed
+            self.ties = relu_near_ties(
+                torch.load(self.ties_path),
+                (dist.get_rank(), dist.get_world_size()))
+            self.flips = self.ties.__enter__()
+            self._sync()
+            self.t0 = time.perf_counter()
+
+    def __call__(self, runner):
+        from df3d_torch.ops import msda_kernel as K2
+        from df3d_torch.ops import sparse_conv_kernel as K1
+        from df3d_torch.utils import stages
+
+        self._sync()
+        now = time.perf_counter()
+        self.ms.append(1e3 * (now - self.t0))
+        self.t0 = now
+        step = runner.global_step  # steps taken
+        if step == 1:
+            self.ties.__exit__(None, None, None)
+        if self.rec is not None:
+            self.rec.__exit__(None, None, None)
+            self.rec = None
+        if step == self.steps - 1:  # record the last step
+            self.rec = stages.recording()
+            self.split = self.rec.__enter__()
+        if step == self.steps:
+            torch.save({"ms": self.ms, "split": dict(self.split),
+                        "flips": self.flips,
+                        "counts": dict(k1_fwd=K1.launches,
+                                       k1_bwd=K1.bwd_launches,
+                                       k2_fwd=K2.launches,
+                                       k2_bwd=K2.bwd_launches)},
+                       Path(self.out_dir)
+                       / f"rank{torch.distributed.get_rank()}.pt")
+
+
+def phase_cli_ranks(dev, root):
+    """Phase 58: the train CLI over 2 ranks sharing the card (`--nprocs 2`:
+    gloo, as phase 34), `centerpoint_nusc` at global batch 4 (2 samples a
+    rank) for 2 steps (2 epochs of one: phase 54's four val frames),
+    against the one-process CLI on the same infos and global batch. Each
+    step is held against a one-process step from the same state: the
+    first against the one-process run's first step, the second against
+    the one-process CLI resumed from the 2-rank run's own step-1
+    checkpoint (after the first step the runs part, as phase 53's do:
+    Adam's first update of a gradient of rounding noise takes either
+    sign, and the second step of an unbroken one-process run read 7.5e-5
+    to 2.1e-3 in its statistics' change). Held: each step's logs within
+    rtol 1e-4 (cap overflow equal); after the first step every batch
+    statistic within RANKS_STAT_L2 of the one process's in relative L2
+    (phase 35's bound); each step's update of the trainable parameters
+    and its change of the batch statistics within RANKS_STEP_L2 in
+    relative L2, with the controls of a skipped and a sign-flipped step
+    failing them. The second step of the unbroken one-process run is
+    printed beside it. In the first step each rank replays the one process's
+    ReLU decisions at near ties on its rows (`relu_near_ties`, inputs
+    within RELU_TIE_BAND of 0; at most `relu_flip_limit` of the step's
+    ReLU inputs, as phase 53).
+    Each rank launches K1 16 + 15 a step; a rank's ms/step and its split
+    with the `allreduce` stage are printed (two ranks on one card take
+    turns on it: not a two-card number). Returns each rank's counts."""
+    from df3d_torch.tools import train as train_cli
+    from df3d_torch.train.loop import Hook
+
+    data = root / "nusc_full"
+    info = data / "infos_val.pkl"
+    check(info.exists(), "phase 58 reads phase 54's frames")
+    argv = ["--preset", "centerpoint_nusc", "--data-root", str(data),
+            "--info-path", str(info), "--batch-size", str(TRAIN_BATCH),
+            "--epochs", "2", "--steps-per-epoch", "1", "--log-interval", "1",
+            "--device", str(dev)]
+    initial, ties, recording = {}, [], []
+
+    def first_step(runner):  # the initial state; the step's near ties
+        if not initial:
+            initial.update({k: v.detach().cpu().clone() for k, v in
+                            runner.state.model.state_dict().items()})
+            recording.append(relu_near_ties(ties))
+            recording[0].__enter__()
+
+    def after_step(runner):
+        if runner.global_step == 1:
+            recording[0].__exit__(None, None, None)
+
+    t0 = time.perf_counter()
+    with quiet_stdout("CLI 1 process"):
+        one = train_cli.main(argv + ["--work-dir", str(root / "ranks_one")],
+                             hooks=[Hook(0, "ties", before_epoch=first_step,
+                                         after_iter=after_step)])
+    one_s = time.perf_counter() - t0
+    ties_path = root / "ranks_ties.pt"
+    torch.save(ties, ties_path)
+    n_inputs = sum(int(np.prod(shape)) for shape, _, _ in ties)
+    flip_limit = max(4, -(-4 * n_inputs // 2**20))
+    trainable = [n for n, _ in one.state.model.named_parameters()
+                 if _.requires_grad]
+    del one
+    torch.cuda.empty_cache()
+    out_dir = root / "ranks_out"
+    out_dir.mkdir()
+    record = RankRecord(out_dir, 2, ties_path)
+    t0 = time.perf_counter()
+    with quiet_stdout("CLI 2 ranks"):
+        train_cli.main(argv + ["--work-dir", str(root / "ranks_two"),
+                               "--nprocs", "2"],
+                       hooks=[Hook(0, "record", after_iter=record,
+                                   before_epoch=record.before_epoch)])
+    two_s = time.perf_counter() - t0
+    ranks = [torch.load(out_dir / f"rank{r}.pt") for r in range(DP_WORLD)]
+    for r, got in enumerate(ranks):
+        check(got["counts"] == dict(k1_fwd=2 * K1_PER_FRAME,
+                                    k1_bwd=2 * K1_BWD_PER_STEP, k2_fwd=0,
+                                    k2_bwd=0),
+              f"CLI rank {r}: launches {got['counts']} in 2 steps")
+        check(sum(n for n, _ in got["flips"]) <= flip_limit,
+              f"CLI rank {r}: ReLU near ties replayed beyond {flip_limit}: "
+              f"{got['flips']}")
+        log(f"CLI rank {r} of 2 sharing one card (not a two-card number): "
+            f"ms/step {[round(x, 3) for x in got['ms']]} (from one step's "
+            "end to the next's: the first with the rank's cuDNN algorithm "
+            "search, each with its epoch's first batch, the second with "
+            "rank 0's checkpoint); the second step's split (ms, host "
+            f"clock, synchronised): " + ", ".join(
+                f"{k} {v:.3f}" for k, v in got["split"].items())
+            + f"; launches {got['counts']}; first step's ReLU near ties "
+            f"replayed {sum(n for n, _ in got['flips'])} (limit {flip_limit}"
+            f", {sum(len(n) for _, n, _ in ties)} recorded within "
+            f"{RELU_TIE_BAND} of {n_inputs} inputs)")
+
+    def states(wd):
+        out = [initial]
+        for s in (1, 2):
+            blob = torch.load(Path(wd) / "ckpt" / f"step_{s:08d}",
+                              map_location="cpu", weights_only=True)
+            out.append(blob["model"])
+        return out
+
+    # the second step's reference: the one-process CLI resumed from the
+    # 2-rank run's step-1 checkpoint (same weights, moments and epoch)
+    resumed = root / "ranks_resumed"
+    (resumed / "ckpt").mkdir(parents=True)
+    (resumed / "ckpt" / "step_00000001").write_bytes(
+        (root / "ranks_two" / "ckpt" / "step_00000001").read_bytes())
+    t0 = time.perf_counter()
+    with quiet_stdout("CLI 1 process from the 2 ranks' step 1"):
+        train_cli.main(argv + ["--work-dir", str(resumed)])
+    resumed_s = time.perf_counter() - t0
+    c, g = states(root / "ranks_one"), states(root / "ranks_two")
+    r2 = torch.load(resumed / "ckpt" / "step_00000002", map_location="cpu",
+                    weights_only=True)["model"]
+    stats = [k for k in c[1] if k.endswith(("running_mean", "running_var"))]
+    over = []
+    for k in stats:
+        err, norm = ((g[1][k] - c[1][k]).double().norm().item(),
+                     c[1][k].double().norm().item())
+        if err > RANKS_STAT_L2 * norm + 1e-6 * c[1][k].numel() ** 0.5:
+            over.append(f"{k}: L2 gap {err:.4g}, L2 {norm:.4g}")
+    check(not over, "CLI 2 ranks: statistics after step 1: "
+          + "; ".join(over[:10]))
+    c_logs, g_logs = cli_logs(root / "ranks_one"), cli_logs(root
+                                                            / "ranks_two")
+    r_logs = cli_logs(resumed)
+    check(len(c_logs) == len(g_logs) == 2 and len(r_logs) == 1,
+          "CLI 2 ranks: two logged steps, one resumed")
+    for i, (a, b) in enumerate(zip((c_logs[0], r_logs[0]), g_logs)):
+        for k, v in a.items():
+            if k.endswith("_ms") or k in ("epoch", "step"):
+                continue
+            check(np.isfinite(b[k]), f"CLI 2 ranks step {i}: {k} {b[k]}")
+            check(abs(b[k] - v) <= 1e-4 * abs(v) if k != "cap_overflow"
+                  else b[k] == v,
+                  f"CLI 2 ranks step {i}: {k} {b[k]} against {v}")
+
+    def change(after, before, keys):
+        return torch.cat([(after[k] - before[k]).double().flatten()
+                          for k in keys])
+
+    # (reference after, reference before) of each step: the same state
+    refs = {1: (c[1], c[0]), 2: (r2, g[1])}
+    unbroken = []
+    for what, keys in (("update", trainable), ("statistics", stats)):
+        gap = rel_l2(change(g[2], g[1], keys), change(c[2], c[1], keys))
+        unbroken.append(f"{what} {gap:.4g}")
+    readings = []
+    for s in (1, 2):
+        for what, keys, limit in (("update", trainable, RANKS_STEP_L2[0]),
+                                  ("statistics", stats, RANKS_STEP_L2[1])):
+            ref = change(*refs[s], keys)
+            runs = {"2 ranks": change(g[s], g[s - 1], keys),
+                    "step skipped": torch.zeros_like(ref),
+                    "step sign-flipped": -change(g[s], g[s - 1], keys)}
+            got = {run: rel_l2(x, ref) for run, x in runs.items()}
+            readings.append(f"step {s} {what} " + ", ".join(
+                f"{run} {v:.4g}" for run, v in got.items())
+                + f" (limit {limit})")
+            check(got["2 ranks"] <= limit,
+                  f"CLI 2 ranks: step {s}'s {what} differs from the one "
+                  f"process's by {got['2 ranks']} in relative L2 > {limit}")
+            for run, v in got.items():
+                check(run == "2 ranks" or v > limit,
+                      f"CLI 2 ranks: control '{run}' passes {limit} ({v})")
+    log(f"CLI 2 ranks against 1 process (centerpoint_nusc, global batch 4, "
+        f"2 steps; {one_s:.1f} s and {two_s:.1f} s with the ranks' start, "
+        f"{resumed_s:.1f} s for the resumed step): losses "
+        f"{[round(r['loss'], 6) for r in g_logs]} (1 process "
+        f"{[round(r['loss'], 6) for r in (c_logs[0], r_logs[0])]}); "
+        f"{len(stats)} statistics within {RANKS_STAT_L2} after step 1; "
+        "relative L2 against the one process from the same state: "
+        + "; ".join(readings) + "; step 2 against the unbroken one-process "
+        "run (not held): " + ", ".join(unbroken))
+    return [r["counts"] for r in ranks]
+
+
+def phase_demo(dev, root):
+    """Phase 59: the demo on the card. `centerpoint_nusc` on one 260k-point
+    .bin (serving frame 100) with the checkpoint phase 54's train CLI
+    wrote: its detections equal the test CLI's eval step on the same
+    frame and weights (`tools.test.build_eval`; the eval step's top-k and
+    NMS decisions replayed at near ties within 1e-4; boxes and scores
+    within phase 3's 1e-3 * |ref| + 1e-3), K1 16 launches, each held
+    against its plain version. Then `centerpoint_tiny_smoke` (seed-0
+    weights) on 20000 of the frame's points on the card against the CPU:
+    equal kept sets and labels, boxes and scores to 1e-3, the CPU's
+    decisions replayed at near ties (at most DEMO_MAX_REPLAYS, each within
+    1e-4). Returns the launch counts and the largest errors."""
+    import argparse
+
+    from df3d_torch.config import get_preset
+    from df3d_torch.tools import demo
+    from df3d_torch.tools import test as test_cli
+    from df3d_torch.tools.train import make_collate, to_device
+    from df3d_torch.train.checkpoint import restore_latest
+
+    frame = raycast_frame(SERVING_SEEDS[0])
+    path = root / "frame.bin"
+    frame.tofile(path)
+    ckpt_dir = root / "centerpoint_nusc_cli" / "ckpt"
+    args = argparse.Namespace(image_shape=None, aux_loss=False, tta=None,
+                              serving_profile="exact")
+    state, eval_step, cfg, _, _ = test_cli.build_eval(
+        args, get_preset("centerpoint_nusc"), dev)
+    _, step = restore_latest(ckpt_dir, state)
+    batch = make_collate(None, NUM_POINTS, 500, 5)([{"points": frame}])
+    store = []
+    with centerpoint_decisions(store, False):
+        want = to_cpu(eval_step(to_device(batch, dev)))
+    del state, eval_step
+
+    def run_demo(argv, device, replay):
+        t = time.perf_counter()
+        with centerpoint_decisions(store, replay) as replays:
+            det = demo.main(argv + ["--device", str(device)])
+        return det, replays, time.perf_counter() - t
+
+    got_counts, err, (det, replays, seconds) = cli_launches(
+        "demo centerpoint_nusc", lambda: run_demo(
+            ["--preset", "centerpoint_nusc", "--bin", str(path), "--ckpt",
+             str(ckpt_dir)], dev, True))
+    check(got_counts["k1_fwd"] == K1_PER_FRAME and got_counts["k1_bwd"] == 0,
+          f"demo centerpoint_nusc: launches {got_counts}")
+    check(all(gap < 1e-4 for *_, gap in replays),
+          f"demo centerpoint_nusc: decisions differ beyond near ties "
+          f"{replays}")
+    m = want["valid"][0].numpy()
+    check(np.array_equal(det["valid"], m)
+          and np.array_equal(det["labels"][m], want["labels"][0][m].numpy()),
+          "demo centerpoint_nusc: kept sets or labels differ from the test "
+          "CLI's eval step")
+    # within phase 3's 1e-3 * |ref| + 1e-3 (a few steps from random weights
+    # leave box sizes of ~1e9, exponentials of the head's outputs; the
+    # voxels' mean features sum with atomics, so two runs on one card
+    # round apart): the largest gap as a share of that bound
+    gap = max(float((np.abs(det[k][m] - want[k][0][m].numpy())
+                     / (1e-3 * np.abs(want[k][0][m].numpy()) + 1e-3)).max(
+        initial=0.0)) for k in ("boxes", "scores"))
+    check(gap <= 1, f"demo centerpoint_nusc: boxes or scores {gap} times "
+          "1e-3 * |ref| + 1e-3 from the test CLI's eval step")
+    log(f"demo centerpoint_nusc (checkpoint step {step}, 260k points): "
+        f"{int(m.sum())} kept detections equal to the test CLI's eval step "
+        f"(largest gap {gap:.3g} of 1e-3 * |ref| + 1e-3, replays "
+        f"{replays}); the demo's run {seconds:.3f} s (the model's build, "
+        "the checkpoint's restore, the .bin read, one frame); K1 "
+        f"{got_counts['k1_fwd']} launches")
+
+    small = frame[np.linspace(0, len(frame) - 1, 20000).astype(int)]
+    small_path = root / "frame_small.bin"
+    small.tofile(small_path)
+    argv = ["--preset", "centerpoint_tiny_smoke", "--bin", str(small_path),
+            "--score-thresh", "0.0"]
+    store = []
+    with quiet_stdout("demo centerpoint_tiny_smoke CPU"):
+        cpu, _, _ = run_demo(argv, "cpu", False)
+    tiny_counts, e, (card, replays, _) = cli_launches(
+        "demo centerpoint_tiny_smoke", lambda: run_demo(argv, dev, True))
+    err = {k: max(err.get(k, 0.0), v) for k, v in e.items()}
+    n_replayed = sum(n for _, n, _ in replays)
+    check(n_replayed <= DEMO_MAX_REPLAYS
+          and all(gap < 1e-4 for *_, gap in replays),
+          f"demo centerpoint_tiny_smoke: replays {replays}")
+    check(tiny_counts["k1_fwd"] == K1_PER_FRAME,
+          f"demo centerpoint_tiny_smoke: launches {tiny_counts}")
+    m = cpu["valid"]
+    check(np.array_equal(card["valid"], m)
+          and np.array_equal(card["labels"][m], cpu["labels"][m]),
+          "demo centerpoint_tiny_smoke: kept sets or labels differ")
+    gap = max(float(np.abs(card[k][m] - cpu[k][m]).max(initial=0.0))
+              for k in ("boxes", "scores"))
+    check(gap <= 1e-3, f"demo centerpoint_tiny_smoke: card {gap} from CPU")
+    log(f"demo centerpoint_tiny_smoke, card against CPU: {int(m.sum())} "
+        f"kept detections, largest gap {gap:.3g}, {n_replayed} decisions "
+        f"replayed ({replays})")
+    return {"demo_centerpoint_nusc": got_counts,
+            "demo_centerpoint_tiny_smoke": tiny_counts}, err
+
+
+def phase_fit_caps(dev):
+    """Phase 60: fit_caps on the card, `centerpoint_nusc --synthetic
+    --frames 8` (ray-cast frames 0-7, cast once a run), its plans built on
+    the card; each frame's four occupancies equal the CPU's
+    (`fit_caps.stage_occupancy` on the CPU), integers, exactly. Prints the
+    fitted caps beside bench.py's REALISTIC_STAGE_CAPS."""
+    from df3d_torch.config import get_preset
+    from df3d_torch.tools import fit_caps
+
+    cast = fit_caps.synthetic_frame
+
+    def cached(seed, n_points, extra):
+        check((n_points, extra) == (NUM_POINTS, 2),
+              f"fit_caps asked for {n_points} points, {extra} features")
+        return raycast_frame(seed)
+
+    fit_caps.synthetic_frame = cached
+    try:
+        t0 = time.perf_counter()
+        with quiet_stdout("fit_caps"):
+            out = fit_caps.main(["--preset", "centerpoint_nusc",
+                                 "--synthetic", "--frames", "8",
+                                 "--max-points", str(NUM_POINTS),
+                                 "--device", str(dev)])
+        card_s = time.perf_counter() - t0
+    finally:
+        fit_caps.synthetic_frame = cast
+    cfg = get_preset("centerpoint_nusc")
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        cpu = np.stack([fit_caps.stage_occupancy(cfg, raycast_frame(s),
+                                                 NUM_POINTS, "cpu")
+                        for s in range(8)])
+    cpu_s = time.perf_counter() - t0
+    check(np.array_equal(out["per_frame"], cpu),
+          f"fit_caps: the card's occupancies {out['per_frame'].tolist()} "
+          f"differ from the CPU's {cpu.tolist()}")
+    log(f"fit_caps centerpoint_nusc --synthetic --frames 8 on the card "
+        f"({card_s:.2f} s; the CPU's {cpu_s:.2f} s): occupancies equal the "
+        f"CPU's, per stage max "
+        f"{out['per_frame'].max(0).tolist()}, mean "
+        f"{[round(float(v), 1) for v in out['per_frame'].mean(0)]}; fitted "
+        f"caps {out['stage_caps']} (p99 x 1.05) beside bench.py's "
+        f"REALISTIC_STAGE_CAPS {list(REALISTIC_STAGE_CAPS)}")
+
+
 def pillow_available():
     import importlib.util
 
@@ -5832,7 +6491,7 @@ def main():
         f"cudnn.benchmark on")
 
     collect_frames = prefetch_frames(SERVING_SEEDS + TRAIN_SEEDS
-                                     + CLI_EXTRA_SEEDS)
+                                     + CLI_EXTRA_SEEDS + FIT_CAPS_SEEDS)
     t0 = time.perf_counter()
     libs = build.build_all()
     log(f"build: {', '.join(libs)} in {time.perf_counter() - t0:.2f} s "
@@ -5848,7 +6507,8 @@ def main():
     t0 = time.perf_counter()
     collect_frames()
     log(f"ray-cast frames (seeds "
-        f"{SERVING_SEEDS + TRAIN_SEEDS + CLI_EXTRA_SEEDS}, one worker "
+        f"{SERVING_SEEDS + TRAIN_SEEDS + CLI_EXTRA_SEEDS + FIT_CAPS_SEEDS}, "
+        "one worker "
         f"process each, begun before the build): ready "
         f"{time.perf_counter() - t0:.2f} s after the build")
 
@@ -6137,15 +6797,34 @@ def main():
                                          Path(tmp))
         kitti_cli, kitti_err = timed_phase(55, phase_cli_kitti_full, dev,
                                            Path(tmp), pillow)
+        # dataset preparation from raw files and the remaining tools
+        # (phases 56-60): "create_data_<run>_<preset>" counts phases 56's
+        # and 57's CLI runs, "cli_ranks" phase 58's launches over both
+        # ranks, "demo_<preset>" phase 59's demo runs (every launch of
+        # phases 56, 57 and 59 held against its plain version)
+        torch.cuda.empty_cache()
+        nusc_raw, nusc_raw_err = timed_phase(56, phase_create_data_nusc, dev,
+                                             Path(tmp))
+        torch.cuda.empty_cache()
+        kitti_raw, kitti_raw_err = timed_phase(57, phase_create_data_kitti,
+                                               dev, Path(tmp))
+        torch.cuda.empty_cache()
+        rank_counts = timed_phase(58, phase_cli_ranks, dev, Path(tmp))
+        demo_counts, demo_err = timed_phase(59, phase_demo, dev, Path(tmp))
+        timed_phase(60, phase_fit_caps, dev)
     for name, (fwd, bwd, k2f, k2b) in small.items():
         k1["launches_by_path"][f"cli_small_{name}"] = fwd + bwd
         k2["launches_by_path"][f"cli_small_{name}"] = k2f + k2b
-    for path, got in {**nusc_cli, **kitti_cli}.items():
+    for path, got in {**nusc_cli, **kitti_cli, **nusc_raw, **kitti_raw,
+                      **demo_counts}.items():
         k1["launches_by_path"][path] = got["k1_fwd"] + got["k1_bwd"]
         k2["launches_by_path"][path] = got["k2_fwd"] + got["k2_bwd"]
         if got["k1_bf16"]:
             k1_bf16["launches_by_path"][path] = got["k1_bf16"]
-    for err in (nusc_err, kitti_err):
+    for entry, kernel in ((k1, "k1"), (k2, "k2")):
+        entry["launches_by_path"]["cli_ranks"] = sum(
+            c[f"{kernel}_fwd"] + c[f"{kernel}_bwd"] for c in rank_counts)
+    for err in (nusc_err, kitti_err, nusc_raw_err, kitti_raw_err, demo_err):
         k1["max_abs_err"] = max(k1["max_abs_err"], err.get("k1", 0.0))
         k2["max_abs_err"] = max(k2["max_abs_err"], err.get("k2", 0.0))
         k1_bf16["max_abs_err"] = max(k1_bf16["max_abs_err"],

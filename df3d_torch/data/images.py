@@ -7,8 +7,9 @@ and `MyPad`, and pcdet's `get_image`. Everything runs in numpy at static
 shapes: the model takes (n_cam, H, W, 3) float32 images and (3, 4)
 lidar -> image projections with the applied resize folded into their
 first two rows. Pillow decodes and resizes (its bilinear filter, as the
-reference's pipelines use); it is imported inside the functions that need
-it, and an image already at its target size needs none.
+reference's pipelines use), reads an image's size from its header and
+writes JPEGs; it is imported inside the functions that need it, and an
+image already at its target size needs none.
 """
 
 from __future__ import annotations
@@ -30,6 +31,24 @@ def decode_image(path) -> np.ndarray:
             f"with --synthetic: {e}") from e
     with Image.open(path) as im:
         return np.asarray(im.convert("RGB"))
+
+
+def read_image_shape(path) -> tuple[int, int]:
+    """An image file's (H, W), read from its header (nothing decoded)."""
+    from PIL import Image
+
+    with Image.open(path) as im:
+        w, h = im.size
+    return h, w
+
+
+def write_jpeg(path, rgb: np.ndarray, quality: int = 90) -> None:
+    """(H, W, 3) uint8 -> a baseline JPEG file, as nuScenes stores its
+    camera images."""
+    from PIL import Image
+
+    Image.fromarray(np.ascontiguousarray(rgb, np.uint8)).save(
+        path, format="JPEG", quality=quality)
 
 
 def resize_normalize_pad(img: np.ndarray, target_hw: tuple[int, int],

@@ -1,2 +1,2 @@
 """Data parallelism over processes (port of df3d/parallel/mesh.py): see
-`ddp`."""
+`ddp`; `launch` starts one process per rank."""

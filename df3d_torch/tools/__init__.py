@@ -1,2 +1,3 @@
 """The port's command-line tools (the JAX package's tools/): `python -m
-df3d_torch.tools.train` and `python -m df3d_torch.tools.test`."""
+df3d_torch.tools.train`, `.test`, `.create_data`, `.demo` and
+`.fit_caps`."""

@@ -13,18 +13,34 @@ its checkpoints' template the same way), the batches by
 `data.pipeline.PrefetchLoader` and `make_batch`, and the `train.loop.
 Runner` takes the steps, logs, checkpoints each epoch under
 `work_dir/ckpt` and resumes from the newest checkpoint there. No
-augmentation is applied, as the JAX CLI applies none. One process trains
-on one device: the card unless `--device cpu` (with no card, the default
-raises). Voxel R-CNN's step draws its RoI sampler noise on the CPU from a
+augmentation is applied, as the JAX CLI applies none. Training runs on
+the card unless `--device cpu` (with no card, the default raises).
+Voxel R-CNN's step draws its RoI sampler noise on the CPU from a
 generator seeded with the step count, so a resumed run, and a run on
 another device, draws what an unbroken run draws.
+
+Data parallel, as the JAX CLI shards each global batch over every local
+device: one rank per visible card by default, `--nprocs N` ranks
+otherwise (`parallel.launch`: N cards over NCCL, or ranks sharing the
+cards over gloo; gloo CPU processes with `--device cpu`), each taking
+`train.trainer.DataParallelTrainStep` on its shard. `--batch-size` stays
+the global batch: rank r loads with `shard_id=r, num_shards=N` and batch
+B / N, so the ranks' samples at step k are the one-process batch k, and
+takes rows r, r + N, ... of the global batch's RoI noise. Every rank
+resumes from the newest checkpoint; rank 0 alone writes checkpoints,
+logs and events, and runs `--eval-after`.
+
+    python -m df3d_torch.tools.train --preset centerpoint_nusc \
+        --data-root /data/nuscenes --info-path infos_train.pkl --nprocs 2
 """
 
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import pathlib
+import sys
 
 import numpy as np
 import torch
@@ -34,8 +50,10 @@ from df3d_torch.config import apply_preset_overrides, get_preset
 from df3d_torch.data.images import finalize_camera_sample
 from df3d_torch.data.pipeline import PrefetchLoader, make_batch
 from df3d_torch.models.build import build_detector
+from df3d_torch.parallel import ddp, launch
 from df3d_torch.train.loop import Runner
 from df3d_torch.train.schedules import adam_onecycle
+from df3d_torch.train.trainer import DataParallelTrainStep
 
 # the RoI sampler's noise of step s is drawn from a generator seeded with
 # (7 << 32) + s, the counterpart of the JAX CLI's fold_in(PRNGKey(7), step)
@@ -78,6 +96,9 @@ def parse_args(argv=None):
     p.add_argument("--device", default=None,
                    help="torch device; default the card (raises without "
                         "one); 'cpu' runs the plain PyTorch path")
+    p.add_argument("--nprocs", type=int, default=None,
+                   help="data-parallel ranks (default: one per visible "
+                        "card; one with --device cpu)")
     return p.parse_args(argv)
 
 
@@ -128,11 +149,14 @@ def roi_noise(step: int, batch: int, rois: int) -> torch.Tensor:
     return torch.rand((batch, rois), generator=g) * 1e-3
 
 
-def build_model_and_step(args, preset, device=None):
+def build_model_and_step(args, preset, device=None, rank: int = 0,
+                         world: int = 1):
     """-> (state, train_step, lidar_cfg, fused_extra): the preset's model
     from `build_detector` (seed 0) with AdamW and OneCycle over the run's
     epochs x steps per epoch, and `train_step(state, batch) -> (state,
-    logs)`; fused_extra (cameras, image shape) or None."""
+    logs)`; fused_extra (cameras, image shape) or None. With `world` > 1
+    the step is `DataParallelTrainStep` over the default process group,
+    `batch` rank `rank`'s shard."""
     total_steps = max(args.epochs * args.steps_per_epoch, 1)
     aux = getattr(args, "aux_loss", False)
     built = build_detector(preset, adam_onecycle(args.lr, total_steps),
@@ -144,8 +168,16 @@ def build_model_and_step(args, preset, device=None):
         base.set_aux(True, built.image_shape, base.aux_seg_weight,
                      base.aux_consistency_weight)
     extra = (built.num_cams, built.image_shape) if built.fused else None
+    grads = base.grads if world == 1 else DataParallelTrainStep(base).grads
     if built.family != "voxelrcnn":
-        return built.state, base, built.lidar_cfg, extra
+        if world == 1:
+            return built.state, base, built.lidar_cfg, extra
+
+        def step(state, batch):
+            logs, g = grads(state, batch)
+            return base.apply(state, g), logs
+
+        return built.state, step, built.lidar_cfg, extra
 
     squeeze = built.fused and built.num_cams == 1
     rois = built.lidar_cfg.train_post_nms
@@ -155,9 +187,11 @@ def build_model_and_step(args, preset, device=None):
             batch = dict(batch, images=batch["images"][:, 0],
                          proj=batch["proj"][:, 0])
         points = batch["points"]
-        noise = roi_noise(state.step, points.shape[0], rois).to(points.device)
-        logs, grads = base.grads(state, batch, noise=noise)
-        return base.apply(state, grads), logs
+        # the global batch's noise; this rank holds rows rank, rank + world..
+        noise = roi_noise(state.step, points.shape[0] * world,
+                          rois)[rank::world].to(points.device)
+        logs, g = grads(state, batch, noise=noise)
+        return base.apply(state, g), logs
 
     return built.state, step, built.lidar_cfg, extra
 
@@ -218,32 +252,68 @@ def to_device(batch: dict, device) -> dict:
 
 def main(argv=None, hooks=()):
     """Train as the flags say -> the `Runner` after its run (`hooks`:
-    `train.loop.Hook`s to register)."""
+    `train.loop.Hook`s to register), or None when ranks ran in processes
+    of their own (`--nprocs` > 1; `hooks` then go to every rank, so they
+    must pickle)."""
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = parse_args(argv)
     device = entry.resolve_device(args.device)
+    world = args.nprocs or (torch.cuda.device_count()
+                            if device.type == "cuda" else 1)
+    if world > 1:
+        if args.batch_size % world:
+            raise ValueError(f"--batch-size {args.batch_size} does not "
+                             f"divide over {world} ranks")
+        launch.spawn(_rank_main, world, argv, tuple(hooks))
+        return None
+    return _train(args, device, hooks)
+
+
+def _rank_main(rank, world, init_method, argv, hooks):
+    """One rank of a data-parallel run of the CLI."""
+    args = parse_args(argv)
+    devices, backend = launch.rank_devices(world, args.device)
+    if devices[rank] == "cpu":
+        torch.set_num_threads(1)
+    device = ddp.init_data_parallel(rank, world, backend=backend,
+                                    init_method=init_method,
+                                    device=devices[rank])
+    try:
+        _train(args, device, hooks, rank, world)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _train(args, device, hooks=(), rank: int = 0, world: int = 1):
     preset = get_preset(args.preset)
     if args.overrides:
         preset = apply_preset_overrides(preset, args.overrides)
     state, train_step, lidar_cfg, fused_extra = build_model_and_step(
-        args, preset, device)
+        args, preset, device, rank, world)
+    if world > 1:
+        ddp.broadcast_state(state)
     dataset, max_points = build_dataset(args, fused_extra, lidar_cfg)
     # gt padding must not exceed the model's target-assignment capacity
     max_gt = min(args.max_gt, getattr(lidar_cfg, "max_objs", args.max_gt))
-    loader = PrefetchLoader(dataset, args.batch_size, collate=make_collate(
-        fused_extra, max_points, max_gt, lidar_cfg.num_point_features))
+    loader = PrefetchLoader(
+        dataset, args.batch_size // world, shard_id=rank, num_shards=world,
+        collate=make_collate(fused_extra, max_points, max_gt,
+                             lidar_cfg.num_point_features))
+    # every rank takes the one-process run's number of steps an epoch
+    steps = len(dataset) // args.batch_size
 
     runner = Runner(train_step, state, args.work_dir, args.epochs,
-                    log_interval=args.log_interval)
+                    log_interval=args.log_interval, main_process=rank == 0)
     for hook in hooks:
         runner.register_hook(hook)
 
     def batches():
         loader.epoch = runner.epoch  # a resumed run goes on in order
-        for batch in loader:
+        for batch in itertools.islice(loader, steps):
             yield to_device(batch, device)
 
     runner.run(batches)
-    if args.eval_after > 0 and not args.synthetic:
+    if rank == 0 and args.eval_after > 0 and not args.synthetic:
         evaluate_last_checkpoints(args, preset)
     return runner
 

@@ -56,16 +56,23 @@ class Runner:
     epoch's batches (its loader's epoch set from `runner.epoch`).
 
     After a run, `timings` holds (global step, data ms, step ms) of each
-    logged step and `ckpt_seconds` each checkpoint's save time."""
+    logged step and `ckpt_seconds` each checkpoint's save time.
+
+    Of the ranks of a data-parallel run, only the one with `main_process`
+    writes: logs, TensorBoard events, checkpoints and profiler traces.
+    Every rank resumes from the newest checkpoint and fires its hooks."""
 
     def __init__(self, train_step: Callable, state, work_dir: str,
                  max_epochs: int, log_interval: int = 50,
                  ckpt_interval_epochs: int = 1, max_ckpt_keep: int = 5,
-                 logger: logging.Logger | None = None):
+                 logger: logging.Logger | None = None,
+                 main_process: bool = True):
         self.train_step = train_step
         self.state = state
         self.work_dir = pathlib.Path(work_dir)
-        self.work_dir.mkdir(parents=True, exist_ok=True)
+        self.main_process = main_process
+        if main_process:
+            self.work_dir.mkdir(parents=True, exist_ok=True)
         self.max_epochs = max_epochs
         self.log_interval = log_interval
         self.ckpt_interval = ckpt_interval_epochs
@@ -86,6 +93,9 @@ class Runner:
         logger = logging.getLogger(f"df3d_torch.{self.work_dir.resolve()}")
         logger.setLevel(logging.INFO)
         logger.propagate = False
+        if not self.main_process:
+            logger.addHandler(logging.NullHandler())
+            return logger
         fmt = logging.Formatter("%(asctime)s %(levelname)s %(message)s")
         for h in (logging.FileHandler(self.work_dir / "log_train.txt"),
                   logging.StreamHandler()):
@@ -167,8 +177,10 @@ class Runner:
 
     def run(self, data_iter_fn: Callable[[], Iterable[dict]]):
         self.resume()
-        self._jsonl = open(self.work_dir / "train_log.jsonl", "a")
-        self._tb = ScalarWriter(self.work_dir / "tensorboard")
+        main = self.main_process
+        if main:
+            self._jsonl = open(self.work_dir / "train_log.jsonl", "a")
+            self._tb = ScalarWriter(self.work_dir / "tensorboard")
         try:
             for self.epoch in range(self.epoch, self.max_epochs):
                 self._fire("before_epoch")
@@ -180,15 +192,16 @@ class Runner:
                     except StopIteration:
                         break
                     t1 = time.perf_counter()
-                    self._maybe_profile()
+                    if main:
+                        self._maybe_profile()
                     self.state, logs = self.train_step(self.state, batch)
-                    if self.global_step % self.log_interval == 0:
+                    if main and self.global_step % self.log_interval == 0:
                         _sync(self.state)
                         t2 = time.perf_counter()
                         self._log(logs, t1 - t0, t2 - t1)
                     self.global_step += 1
                     self._fire("after_iter")
-                if (self.epoch + 1) % self.ckpt_interval == 0:
+                if main and (self.epoch + 1) % self.ckpt_interval == 0:
                     t0 = time.perf_counter()
                     save_checkpoint(self.work_dir / "ckpt", self.state,
                                     self.global_step, self.max_ckpt_keep,
@@ -198,8 +211,9 @@ class Runner:
             if self._profiler is not None:
                 self._stop_profile(*self._profile_window)
         finally:
-            self._jsonl.close()
-            self._tb.close()
+            if main:
+                self._jsonl.close()
+                self._tb.close()
             if self._own_logger:
                 for h in list(self.logger.handlers):
                     h.close()

@@ -387,15 +387,18 @@ class DataParallelTrainStep:
     one-process step on the global batch. Voxel R-CNN's RoI sampler noise
     is drawn for the global batch from `generator` (seeded alike on every
     rank), as the one-process step draws it, and each rank takes its
-    rows."""
+    rows; or it is this rank's rows `noise`, drawn by the caller."""
 
     def __init__(self, step: CenterPointTrainStep):
         self.step = step
 
-    def grads(self, state: TrainState, batch: dict, generator=None):
+    def grads(self, state: TrainState, batch: dict, generator=None,
+              noise: torch.Tensor | None = None):
         """The summed (logs, gradients) of the global batch."""
         kwargs = {}
-        if isinstance(self.step, VoxelRCNNTrainStep):
+        if noise is not None:
+            kwargs["noise"] = noise
+        elif isinstance(self.step, VoxelRCNNTrainStep):
             world = torch.distributed.get_world_size()
             rank = torch.distributed.get_rank()
             b = batch["points"].shape[0]

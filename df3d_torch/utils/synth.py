@@ -190,18 +190,32 @@ def camera_rig(num_cams: int = 6, image_shape=(448, 800)) -> np.ndarray:
     axis (camera z) horizontal along the yaw, image y pointing down, and
     the 1600x900 intrinsics (f ~ 1266 px) scaled to `image_shape` (f ~ 633,
     cx 400, cy 224 at 448x800)."""
+    k = rig_intrinsics(image_shape)
+    out = [k @ np.concatenate([rot, -rot @ center[:, None]], 1)
+           for rot, center in rig_poses(num_cams)]
+    return np.stack(out).astype(np.float32)
+
+
+def rig_intrinsics(image_shape=(900, 1600)) -> np.ndarray:
+    """(3, 3) float64 intrinsics of `camera_rig`'s cameras: the 1600x900
+    ones (f ~ 1266 px, principal point at the centre) scaled to
+    `image_shape`."""
     h, w = image_shape
     f = 1266.0 * w / 1600.0
-    k = np.array([[f, 0.0, w / 2.0], [0.0, f, h / 2.0], [0.0, 0.0, 1.0]])
+    return np.array([[f, 0.0, w / 2.0], [0.0, f, h / 2.0], [0.0, 0.0, 1.0]])
+
+
+def rig_poses(num_cams: int = 6):
+    """[(rotation (3, 3) lidar -> camera axes, camera centre (3,) in the
+    lidar frame)] of `camera_rig`'s first `num_cams` cameras."""
     out = []
     for yaw in np.deg2rad(NUSC_CAM_YAWS_DEG[:num_cams]):
         fwd = np.array([np.cos(yaw), np.sin(yaw), 0.0])
         right = np.array([np.sin(yaw), -np.cos(yaw), 0.0])
         down = np.array([0.0, 0.0, -1.0])
         rot = np.stack([right, down, fwd])          # lidar -> camera axes
-        center = 0.5 * fwd + np.array([0.0, 0.0, -0.3])
-        out.append(k @ np.concatenate([rot, -rot @ center[:, None]], 1))
-    return np.stack(out).astype(np.float32)
+        out.append((rot, 0.5 * fwd + np.array([0.0, 0.0, -0.3])))
+    return out
 
 
 # KITTI's front colour camera (P2 of the raw recordings' calibration,
@@ -343,6 +357,50 @@ def _pad4(m: np.ndarray) -> np.ndarray:
     return out
 
 
+def _kitti_frames(root, samples, image_rng=None, image_shapes=None):
+    """Write each (points (P, 4), boxes (M, 7) lidar gravity centre[,
+    names]) of `samples` as training/velodyne/NNNNNN.bin and
+    training/calib/NNNNNN.txt (`kitti_calib`) under `root` and, with
+    `image_rng`, a PNG of random pixels in training/image_2 (375x1242, or
+    frame i's (H, W) of `image_shapes`). Yields (idx, calib, boxes, the
+    labels' camera boxes (M, 7) x, y, z bottom centre, l, h, w, ry, the
+    annotations `lidar_boxes_to_kitti_annos` gives them on the frame's
+    image, the image's (H, W))."""
+    import pathlib
+
+    from df3d_torch.data.kitti import (
+        lidar_boxes_to_kitti_annos, lidar_to_rect,
+    )
+
+    root = pathlib.Path(root)
+    for d in ("velodyne", "calib", "image_2"):
+        (root / "training" / d).mkdir(parents=True, exist_ok=True)
+    calib = kitti_calib()
+    calib_txt = "\n".join(
+        f"{k}: " + " ".join(f"{v:.9e}" for v in np.ravel(m))
+        for k, m in (("P2", calib["P2"]), ("R0_rect", calib["R0"]),
+                     ("Tr_velo_to_cam", calib["V2C"]))) + "\n"
+    for i, (points, boxes, *_) in enumerate(samples):
+        idx = f"{i:06d}"
+        hw = tuple(image_shapes[i]) if image_shapes else KITTI_IMAGE
+        np.ascontiguousarray(points, np.float32).tofile(
+            root / "training" / "velodyne" / f"{idx}.bin")
+        (root / "training" / "calib" / f"{idx}.txt").write_text(calib_txt)
+        if image_rng is not None:
+            write_png(root / "training" / "image_2" / f"{idx}.png",
+                      image_rng.randint(0, 256, hw + (3,), dtype=np.uint8))
+        boxes = np.asarray(boxes, np.float32).reshape(-1, 7)
+        n = len(boxes)
+        bottom = boxes[:, :3].copy()
+        bottom[:, 2] -= boxes[:, 5] / 2
+        cam = np.concatenate(
+            [lidar_to_rect(calib, bottom), boxes[:, [3, 5, 4]],
+             (-boxes[:, 6] - np.pi / 2)[:, None]], 1).astype(np.float32)
+        det = lidar_boxes_to_kitti_annos(boxes, np.ones(n), np.zeros(n),
+                                         calib, hw, ("Car",))
+        yield idx, calib, boxes, cam, det, hw
+
+
 def write_kitti_dataset(root, samples, split: str = "train",
                         images: bool = False,
                         image_rng: np.random.RandomState | None = None):
@@ -356,37 +414,13 @@ def write_kitti_dataset(root, samples, split: str = "train",
     import pathlib
     import pickle
 
-    from df3d_torch.data.kitti import (
-        camera_box_to_lidar, lidar_boxes_to_kitti_annos, lidar_to_rect,
-    )
+    from df3d_torch.data.kitti import camera_box_to_lidar
 
     root = pathlib.Path(root)
-    for d in ("velodyne", "calib", "image_2"):
-        (root / "training" / d).mkdir(parents=True, exist_ok=True)
-    calib = kitti_calib()
-    calib_txt = "\n".join(
-        f"{k}: " + " ".join(f"{v:.9e}" for v in np.ravel(m))
-        for k, m in (("P2", calib["P2"]), ("R0_rect", calib["R0"]),
-                     ("Tr_velo_to_cam", calib["V2C"]))) + "\n"
     infos = []
-    for i, (points, boxes) in enumerate(samples):
-        idx = f"{i:06d}"
-        np.ascontiguousarray(points, np.float32).tofile(
-            root / "training" / "velodyne" / f"{idx}.bin")
-        (root / "training" / "calib" / f"{idx}.txt").write_text(calib_txt)
-        if images:
-            write_png(root / "training" / "image_2" / f"{idx}.png",
-                      image_rng.randint(0, 256, KITTI_IMAGE + (3,),
-                                        dtype=np.uint8))
-        boxes = np.asarray(boxes, np.float32).reshape(-1, 7)
+    for idx, calib, boxes, cam, det, _ in _kitti_frames(
+            root, samples, image_rng if images else None):
         n = len(boxes)
-        bottom = boxes[:, :3].copy()
-        bottom[:, 2] -= boxes[:, 5] / 2
-        cam = np.concatenate(
-            [lidar_to_rect(calib, bottom), boxes[:, [3, 5, 4]],
-             (-boxes[:, 6] - np.pi / 2)[:, None]], 1).astype(np.float32)
-        det = lidar_boxes_to_kitti_annos(boxes, np.ones(n), np.zeros(n),
-                                         calib, KITTI_IMAGE, ("Car",))
         infos.append({
             "point_cloud": {"lidar_idx": idx, "num_features": 4},
             "calib": {"P2": np.vstack([calib["P2"], [0, 0, 0, 1]]),
@@ -451,3 +485,247 @@ def write_nuscenes_dataset(root, samples, name: str = "train"):
     with open(path, "wb") as f:
         pickle.dump({"infos": infos, "version": "synthetic"}, f)
     return path
+
+
+# ---------------------------------------------------------------------------
+# raw dataset files, as KITTI's and nuScenes' distributions lay them out,
+# for `df3d_torch.tools.create_data`
+
+def write_kitti_raw(root, samples, split: str = "train",
+                    image_rng: np.random.RandomState | None = None,
+                    image_shapes=None) -> list[str]:
+    """Raw KITTI files under `root`: `_kitti_frames`' velodyne, calib and
+    (with `image_rng`) image_2 PNG files, training/label_2/NNNNNN.txt with
+    one line per box (KITTI's 15 columns: type, truncated, occluded, alpha,
+    2D bbox, h, w, l, bottom centre x, y, z in the rectified camera frame,
+    rotation_y; each `samples` entry's names, else "Car"), and
+    ImageSets/<split>.txt. -> the frame ids."""
+    import pathlib
+
+    root = pathlib.Path(root)
+    (root / "training" / "label_2").mkdir(parents=True, exist_ok=True)
+    (root / "ImageSets").mkdir(exist_ok=True)
+    ids = []
+    def wrap(a):  # KITTI's angles lie in [-pi, pi)
+        return (np.asarray(a, np.float64) + np.pi) % (2 * np.pi) - np.pi
+
+    for (idx, _, boxes, cam, det, _), sample in zip(
+            _kitti_frames(root, samples, image_rng, image_shapes), samples):
+        names = sample[2] if len(sample) > 2 else ["Car"] * len(boxes)
+        cam = np.concatenate([cam[:, :6], wrap(cam[:, 6:])], 1)
+        lines = [
+            f"{name} 0.00 0 {a:.2f} "
+            + " ".join(f"{v:.2f}" for v in bb) + " "
+            + f"{c[4]:.2f} {c[5]:.2f} {c[3]:.2f} "
+            + f"{c[0]:.2f} {c[1]:.2f} {c[2]:.2f} {c[6]:.2f}"
+            for name, a, bb, c in zip(names, wrap(det["alpha"]), det["bbox"],
+                                      cam)]
+        (root / "training" / "label_2" / f"{idx}.txt").write_text(
+            "".join(line + "\n" for line in lines))
+        ids.append(idx)
+    (root / "ImageSets" / f"{split}.txt").write_text(
+        "".join(i + "\n" for i in ids))
+    return ids
+
+
+# a raw nuScenes category of each detection class (the first that
+# mmdet3d's NuScenesDataset.NameMapping sends to it)
+NUSC_CATEGORY = {
+    "car": "vehicle.car", "truck": "vehicle.truck",
+    "construction_vehicle": "vehicle.construction",
+    "bus": "vehicle.bus.rigid", "trailer": "vehicle.trailer",
+    "barrier": "movable_object.barrier", "motorcycle": "vehicle.motorcycle",
+    "bicycle": "vehicle.bicycle", "pedestrian": "human.pedestrian.adult",
+    "traffic_cone": "movable_object.trafficcone"}
+# nuScenes' camera channels in `NUSC_CAM_YAWS_DEG`'s order
+NUSC_CAMERAS = ("CAM_FRONT", "CAM_FRONT_RIGHT", "CAM_FRONT_LEFT",
+                "CAM_BACK", "CAM_BACK_LEFT", "CAM_BACK_RIGHT")
+NUSC_IMAGE = (900, 1600)
+# the LiDAR's mounting on the ego vehicle (nuScenes' LIDAR_TOP: 1.84 m up,
+# its x axis turned 90 degrees to the ego's right)
+NUSC_LIDAR_T = (0.943713, 0.0, 1.84023)
+NUSC_LIDAR_YAW = -np.pi / 2
+
+
+def _rot_z(yaw: float) -> np.ndarray:
+    c, s = np.cos(yaw), np.sin(yaw)
+    return np.array([[c, -s, 0.0], [s, c, 0.0], [0.0, 0.0, 1.0]])
+
+
+def _pose(rot: np.ndarray, t) -> np.ndarray:
+    out = np.eye(4)
+    out[:3, :3] = rot
+    out[:3, 3] = t
+    return out
+
+
+def _quaternion(rot: np.ndarray) -> list[float]:
+    """A rotation matrix -> the unit quaternion [w, x, y, z] (w >= 0)."""
+    m = rot
+    w = np.sqrt(max(0.0, 1.0 + m[0, 0] + m[1, 1] + m[2, 2])) / 2
+    x = np.sqrt(max(0.0, 1.0 + m[0, 0] - m[1, 1] - m[2, 2])) / 2
+    y = np.sqrt(max(0.0, 1.0 - m[0, 0] + m[1, 1] - m[2, 2])) / 2
+    z = np.sqrt(max(0.0, 1.0 - m[0, 0] - m[1, 1] + m[2, 2])) / 2
+    x = np.copysign(x, m[2, 1] - m[1, 2])
+    y = np.copysign(y, m[0, 2] - m[2, 0])
+    z = np.copysign(z, m[1, 0] - m[0, 1])
+    q = np.array([w, x, y, z])
+    return (q / np.linalg.norm(q)).tolist()
+
+
+def _pose_row(token: str, pose: np.ndarray, **extra) -> dict:
+    return {"token": token, "translation": pose[:3, 3].tolist(),
+            "rotation": _quaternion(pose[:3, :3]), **extra}
+
+
+def _smooth_image(rng: np.random.RandomState, hw, block: int = 10):
+    """(H, W, 3) uint8: random colours in `block`-pixel squares (a JPEG of
+    pure noise would be ~1 MB)."""
+    h, w = hw
+    low = rng.randint(0, 256, (-(-h // block), -(-w // block), 3),
+                      dtype=np.uint8)
+    return np.repeat(np.repeat(low, block, 0), block, 1)[:h, :w]
+
+
+def write_nuscenes_raw(root, samples, version: str = "v1.0-trainval",
+                       image_rng: np.random.RandomState | None = None,
+                       image_shape=NUSC_IMAGE, seed: int = 0) -> None:
+    """A raw nuScenes distribution under `root`: the devkit's relational
+    JSON tables in `root/version/` (scene, sample, sample_data,
+    ego_pose, calibrated_sensor, sensor, sample_annotation, instance,
+    category: the fields nuScenes' schema gives them) and the files they
+    name, from `samples`, each (frame (N, 5) x, y, z, intensity, sweep
+    time lag in the key frame's LiDAR frame; boxes (M, 9) x, y, z, dx, dy,
+    dz, yaw, vx, vy in that frame; their raw category names).
+
+    Each sample is a scene of its own: the key frame (the rows of lag 0)
+    as samples/LIDAR_TOP/*.pcd.bin and one sweep per other lag as
+    sweeps/LIDAR_TOP/*.pcd.bin, (n, 5) float32 with the ring index 0,
+    each in its own LiDAR frame: the ego drives along the key frame's x at
+    5 m/s and turns 0.01 rad a sweep, so that each sweep's pose chain
+    brings its points back. With `image_rng`, six JPEG cameras of
+    `image_shape` on the rig of `camera_rig` (intrinsics `rig_intrinsics`)
+    at the key frame. Every box is annotated at the key frame and, moved
+    back and forth by its velocity, at a sample 0.5 s before and after it
+    (samples with no sensor data), so that the devkit's central difference
+    gives its velocity. Ego poses, timestamps and the box poses in the
+    global frame come from `seed`."""
+    import json
+    import pathlib
+
+    from df3d_torch.data.images import write_jpeg
+
+    root = pathlib.Path(root)
+    tdir = root / version
+    tdir.mkdir(parents=True, exist_ok=True)
+    for d in ("samples/LIDAR_TOP", "sweeps/LIDAR_TOP",
+              *(f"samples/{c}" for c in NUSC_CAMERAS)):
+        (root / d).mkdir(parents=True, exist_ok=True)
+    rng = np.random.RandomState(seed)
+    t = {k: [] for k in ("scene", "sample", "sample_data", "ego_pose",
+                         "calibrated_sensor", "sensor", "sample_annotation",
+                         "instance", "category")}
+    channels = ("LIDAR_TOP",) + (NUSC_CAMERAS if image_rng is not None
+                                 else ())
+    for ch in channels:
+        t["sensor"].append({"token": f"sensor_{ch}", "channel": ch,
+                            "modality": "lidar" if ch == "LIDAR_TOP"
+                            else "camera"})
+    ego_from_lidar = _pose(_rot_z(NUSC_LIDAR_YAW), NUSC_LIDAR_T)
+    t["calibrated_sensor"].append(_pose_row(
+        "cs_LIDAR_TOP", ego_from_lidar, sensor_token="sensor_LIDAR_TOP",
+        camera_intrinsic=[]))
+    if image_rng is not None:
+        intrinsic = rig_intrinsics(image_shape).tolist()
+        for ch, (rot, center) in zip(NUSC_CAMERAS, rig_poses()):
+            t["calibrated_sensor"].append(_pose_row(
+                f"cs_{ch}", ego_from_lidar @ _pose(rot.T, center),
+                sensor_token=f"sensor_{ch}", camera_intrinsic=intrinsic))
+    categories = {}
+
+    def sample_data(token, sample, ch, ego, ts, filename, key, prev="",
+                    nxt=""):
+        t["ego_pose"].append(_pose_row(f"ep_{token}", ego, timestamp=ts))
+        t["sample_data"].append({
+            "token": token, "sample_token": sample,
+            "ego_pose_token": f"ep_{token}",
+            "calibrated_sensor_token": f"cs_{ch}", "timestamp": ts,
+            "fileformat": "pcd" if ch == "LIDAR_TOP" else "jpg",
+            "is_key_frame": key, "height": 0 if ch == "LIDAR_TOP"
+            else image_shape[0], "width": 0 if ch == "LIDAR_TOP"
+            else image_shape[1], "filename": filename, "prev": prev,
+            "next": nxt})
+
+    for i, (frame, boxes, names) in enumerate(samples):
+        frame = np.asarray(frame, np.float32)
+        boxes = np.asarray(boxes, np.float64).reshape(-1, 9)
+        ts = 1_533_151_603_547_590 + 20_000_000 * i
+        ego = _pose(_rot_z(rng.uniform(-np.pi, np.pi)),
+                    [rng.uniform(300, 2000), rng.uniform(600, 1700), 0.0])
+        lidar_to_global = ego @ ego_from_lidar
+        scene, key = f"scene_{i:04d}", f"sample_{i:04d}"
+        tokens = (f"{key}_prev", key, f"{key}_next")
+        t["scene"].append({
+            "token": scene, "name": f"scene-{i + 1:04d}", "description": "",
+            "log_token": "", "nbr_samples": 3,
+            "first_sample_token": tokens[0], "last_sample_token": tokens[2]})
+        for j, tok in enumerate(tokens):
+            t["sample"].append({
+                "token": tok, "timestamp": ts + 500_000 * (j - 1),
+                "scene_token": scene, "prev": tokens[j - 1] if j else "",
+                "next": tokens[j + 1] if j < 2 else ""})
+
+        # the LiDAR: the key frame, then its sweeps back in time
+        lags = np.unique(frame[:, 4])
+        assert lags[0] == 0, "a frame needs its key frame's rows (lag 0)"
+        sd = [f"lidar_{i:04d}_{s}" for s in range(len(lags))]
+        for s, lag in enumerate(lags):
+            motion = _pose(_rot_z(-0.01 * s), [-5.0 * float(lag), 0.0, 0.0])
+            pts = frame[frame[:, 4] == lag].astype(np.float64)
+            pts[:, :3] = pts[:, :3] @ np.linalg.inv(motion)[:3, :3].T + (
+                np.linalg.inv(motion)[:3, 3])
+            pts[:, 4] = 0.0  # the ring index column of a nuScenes .bin
+            where = "samples" if s == 0 else "sweeps"
+            rel = f"{where}/LIDAR_TOP/{sd[s]}.pcd.bin"
+            pts.astype(np.float32).tofile(root / rel)
+            sample_data(sd[s], key, "LIDAR_TOP",
+                        lidar_to_global @ motion @ np.linalg.inv(
+                            ego_from_lidar),
+                        ts - int(round(float(lag) * 1e6)), rel, s == 0,
+                        prev=sd[s + 1] if s + 1 < len(lags) else "",
+                        nxt=sd[s - 1] if s else "")
+        if image_rng is not None:
+            for ch in NUSC_CAMERAS:
+                token = f"{ch.lower()}_{i:04d}"
+                rel = f"samples/{ch}/{token}.jpg"
+                write_jpeg(root / rel, _smooth_image(image_rng, image_shape))
+                sample_data(token, key, ch, ego, ts, rel, True)
+
+        # the boxes at the key frame and 0.5 s either side of it
+        rot = lidar_to_global[:3, :3]
+        for j, (box, name) in enumerate(zip(boxes, names)):
+            cat = categories.setdefault(name, f"category_{len(categories)}")
+            inst = f"instance_{i:04d}_{j}"
+            centre = rot @ box[:3] + lidar_to_global[:3, 3]
+            vel = rot @ np.array([box[7], box[8], 0.0])
+            quat = _quaternion(rot @ _rot_z(box[6]))
+            ann = [f"ann_{i:04d}_{j}_{k}" for k in range(3)]
+            for k in range(3):
+                t["sample_annotation"].append({
+                    "token": ann[k], "sample_token": tokens[k],
+                    "instance_token": inst, "visibility_token": "4",
+                    "attribute_tokens": [],
+                    "translation": (centre + 0.5 * (k - 1) * vel).tolist(),
+                    "size": [float(box[4]), float(box[3]), float(box[5])],
+                    "rotation": quat, "prev": ann[k - 1] if k else "",
+                    "next": ann[k + 1] if k < 2 else "",
+                    "num_lidar_pts": 1, "num_radar_pts": 0})
+            t["instance"].append({
+                "token": inst, "category_token": cat,
+                "nbr_annotations": 3, "first_annotation_token": ann[0],
+                "last_annotation_token": ann[2]})
+    t["category"] = [{"token": tok, "name": name, "description": ""}
+                     for name, tok in categories.items()]
+    for name, rows in t.items():
+        with open(tdir / f"{name}.json", "w") as f:
+            json.dump(rows, f)

@@ -6,13 +6,16 @@ in the host-side Hungarian assignment (df3d_torch/ops/assign.py, as the
 JAX package and the reference assign with it), PyYAML only in the config
 loader (df3d_torch/config/config.py, inside the functions that parse) and
 Pillow only in the camera-image module (df3d_torch/data/images.py, inside
-the functions that decode and resize); in the package only the reference
+the functions that decode, resize, read an image's header and write a
+JPEG); in the package only the reference
 checkpoint loader (df3d_torch/train/torch_import.py) and the training
 checkpoints (train/checkpoint.py) unpickle with `torch.load`, each with
 torch's `weights_only` loader; no port module names the JAX package's
 prebuilt point-loader library or builds anything next to csrc/'s sources;
 with no CUDA device the entry
-points raise rather than fall back, and the K1 and K2 launchers (K1's input
+points and the command-line tools that run a model (train, over several
+ranks too, test, demo, fit_caps) raise rather than fall back, and the K1
+and K2 launchers (K1's input
 gradient launch too) never answer with their plain versions. The ablation
 scripts' source edits still apply to the kernels they copy."""
 
@@ -63,8 +66,11 @@ def _port_files():
             "images.py", "nuscenes.py", "augment.py", "transforms.py",
             "pipeline.py"} <= {
         f.name for f in files if f.parent.name == "data"}
-    assert {"train.py", "test.py"} <= {
+    assert {"train.py", "test.py", "create_data.py", "demo.py",
+            "fit_caps.py"} <= {
         f.name for f in files if f.parent.name == "tools"}
+    assert {"ddp.py", "launch.py"} <= {
+        f.name for f in files if f.parent.name == "parallel"}
     assert {"presets.py", "config.py"} <= {
         f.name for f in files if f.parent.name == "config"}
     assert ROOT / "df3d_torch" / "models" / "build.py" in files
@@ -131,12 +137,14 @@ def test_yaml_imported_only_where_a_config_is_parsed():
 
 
 def test_pillow_imported_only_inside_image_functions():
-    """Pillow is imported inside `decode_image` and `resize_normalize_pad`
-    of the camera-image module, never at its top level, so importing the
-    port needs no Pillow (nor does an image already at its target size)."""
+    """Pillow is imported inside `decode_image`, `resize_normalize_pad`,
+    `read_image_shape` and `write_jpeg` of the camera-image module, never
+    at its top level, so importing the port needs no Pillow (nor does an
+    image already at its target size)."""
     top, inside = _importing_functions(PIL_ALLOWED, "PIL")
     assert not top
-    assert inside == {"decode_image", "resize_normalize_pad"}
+    assert inside == {"decode_image", "resize_normalize_pad",
+                      "read_image_shape", "write_jpeg"}
 
 
 def test_no_prebuilt_point_loader_and_no_build_in_csrc():
@@ -271,6 +279,28 @@ def test_build_detector_without_cuda_raises():
     with pytest.raises(RuntimeError, match="CUDA"):
         build_detector(get_preset("centerpoint_tiny_smoke"),
                        adam_onecycle(1e-3, 10))
+
+
+@pytest.mark.parametrize("tool, argv", [
+    ("train", ["--preset", "centerpoint_tiny_smoke", "--synthetic"]),
+    ("train", ["--preset", "centerpoint_tiny_smoke", "--synthetic",
+               "--nprocs", "2"]),
+    ("test", ["--preset", "centerpoint_tiny_smoke", "--ckpt", "none"]),
+    ("demo", ["--preset", "centerpoint_tiny_smoke", "--bin", "none.bin"]),
+    ("fit_caps", ["--preset", "centerpoint_nusc", "--synthetic"])],
+    ids=["train", "train_nprocs", "test", "demo", "fit_caps"])
+def test_tools_without_cuda_raise(tool, argv, tmp_path):
+    """Each command-line tool that runs a model takes the card unless
+    `--device cpu` and raises before any work when there is none."""
+    import importlib
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    main = importlib.import_module(f"df3d_torch.tools.{tool}").main
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(argv + (["--work-dir", str(tmp_path)] if tool == "train"
+                     else []))
+    assert list(tmp_path.iterdir()) == []
 
 
 def test_k1_launcher_raises_on_cpu_tensors():

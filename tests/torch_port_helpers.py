@@ -894,6 +894,14 @@ def assert_same(a, b):
 # the narrowed KITTI preset of the runtime tests: tests/
 # test_torch_voxelrcnn_train_step.py's grid and proposal counts as `--set`
 # overrides of `voxel_rcnn_car_kitti`
+# `centerpoint_tiny_smoke` narrowed to the multichip dry run's grid and two
+# tasks (tests/test_torch_runtime.py's NUSC_SMALL_SETS)
+NUSC_SMALL_SETS = [
+    "pc_range=[-16.0, -16.0, -2.4, 16.0, 16.0, 2.4]",
+    "voxel_size=[0.5, 0.5, 0.2]", "grid_size=[24, 64, 64]",
+    "max_voxels=512", "stage_caps=[512, 256, 128, 64]", "tasks=[1, 2]",
+    "max_objs=8", "nms_pre_max_size=32", "nms_post_max_size=4",
+    "post_center_range=[-20.0, -20.0, -4.0, 20.0, 20.0, 4.0]"]
 KITTI_SMALL_SETS = [
     "pc_range=[0.0, -16.0, -2.4, 32.0, 16.0, 2.4]",
     "voxel_size=[0.5, 0.5, 0.2]", "grid_size=[24, 64, 64]",
