@@ -13,7 +13,8 @@ the registry built by name, and "tpu_v5e" on each of them beside
 "exact"; then training and evaluation from datasets on disk through the
 train and test CLIs; then infos made from raw KITTI and nuScenes files
 by `create_data` and trained on, the train CLI over 2 ranks, the demo
-and fit_caps.
+and fit_caps; then PV-RCNN, PointPillars and the TransFusion LC image
+decoder.
 
     python3 chip_smoke.py
 
@@ -392,6 +393,22 @@ any failure raises and the process exits non-zero:
 60. fit_caps on the card: `centerpoint_nusc --synthetic --frames 8`, the
    four stage occupancies of each frame equal to the CPU's; the fitted
    caps beside bench.py's REALISTIC_STAGE_CAPS.
+61. PV-RCNN: a small PV-RCNN (every VSA scale, 128 keypoints) card against
+   CPU with near ties replayed (`voxelrcnn_decisions` on `pv_rcnn`), then
+   `PVRCNNConfig()` at full KITTI width on three KITTI frames
+   (`make_kitti_sample`): every K1 launch of one frame against its plain
+   version (12 a frame), the path (voxelize -> PVRCNN -> proposal_layer
+   -> PVRCNNRoIHead -> post-processing) timed with K1 12 and K2 0
+   launches a frame, its stage split (the keypoint stages FPS, ball
+   queries and BEV sample apart), a one-frame profile and peak memory;
+   each frame's keypoints labelled against its cars.
+62. PointPillars at full width (`PointPillarConfig()`, 16 000 pillars of
+   32 points built with numpy from the KITTI frames): card against CPU,
+   then ms/frame, a split and peak memory.
+63. the TransFusion LC image decoder at `transfusion_3ddf_nusc`'s head
+   width on six 112x200 feature maps of 256 channels, seeded inputs
+   (queries seen by 0, 1 or 2 cameras, the gaussian term on): card
+   against CPU, then ms a call and peak memory.
 
 TF32 is off for matmuls and cuDNN convs: the port serves in f32 (the JAX
 package's "exact" profile) and the comparisons need full f32; the
@@ -420,7 +437,8 @@ shapes, and "launches" adds phases 40-42's; "<preset>_<profile>" in
 "cli_small_<preset>", "cli_train_<preset>" and
 "cli_test_<preset>[_<profile>]" count phases 53-55's CLI runs,
 "create_data_<train|test>_<preset>" phases 56-57's, "cli_ranks" phase
-58's over both ranks and "demo_<preset>" phase 59's) and
+58's over both ranks, "demo_<preset>" phase 59's and "pv_rcnn" phase
+61's; K1's "pv_rcnn" holds phase 61's per-launch numbers) and
 the result line
 {"ok": true, "device": {...}}. With no CUDA device, or outside a checkout,
 the script exits non-zero without them.
@@ -1008,7 +1026,9 @@ def timed_path(label, run, n_boxes, inputs, n_frames, per_frame,
                                     for k, v in overflow.items()))
     with torch.no_grad(), stages.recording() as split:
         run(*inputs[0])
-    log(f"{label} stage split (ms, host clock, synchronised): "
+    log(f"{label} stage split (ms, host clock, synchronised; one more "
+        f"frame, apart from the timed ones, total "
+        f"{sum(split.values()):.3f}): "
         + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
     wall_ms, busy_ms = profile_frame(lambda: run(*inputs[0]))
     if stats is not None:
@@ -2778,17 +2798,19 @@ def _ball_gap(args, _want):
 
 
 @contextlib.contextmanager
-def voxelrcnn_decisions(store, replay):
+def voxelrcnn_decisions(store, replay, head_module=None):
     """Patch Voxel R-CNN's decisions, the proposal and final NMS and the
-    RoI head's two-stage neighbour search: record each call's integer
-    outputs in `store`, in call order; or, with `replay`, give each call
-    the recorded outputs where its own differ. A replay is a near tie on
-    this device (`_nms_gap`, `_collect_gap`, `_ball_gap`: within 1e-4;
-    the caller bounds it). Yields the replays, (kind, entries that differ,
-    gap) per call that had any."""
+    RoI head's two-stage neighbour search (as `head_module` names them:
+    default `voxelrcnn_head`, PV-RCNN's `pv_rcnn`): record each call's
+    integer outputs in `store`, in call order; or, with `replay`, give
+    each call the recorded outputs where its own differ. A replay is a
+    near tie on this device (`_nms_gap`, `_collect_gap`, `_ball_gap`:
+    within 1e-4; the caller bounds it). Yields the replays, (kind, entries
+    that differ, gap) per call that had any."""
     from df3d_torch.models.detectors import voxel_rcnn as V
     from df3d_torch.models.heads import voxelrcnn_head as H
 
+    H = head_module or H
     patched = [(V, "nms_bev", _nms_gap),
                (H, "collect_local_voxels", _collect_gap),
                (H, "grid_ball_query", _ball_gap)]
@@ -6450,6 +6472,344 @@ def phase_fit_caps(dev):
         f"REALISTIC_STAGE_CAPS {list(REALISTIC_STAGE_CAPS)}")
 
 
+# PV-RCNN, PointPillars and the TransFusion LC decoder (phases 61-63).
+# PV-RCNN serves KITTI frames (the seeds of `kitti_frames`, with their
+# scenes' cars); its K1 launches a frame are Voxel R-CNN's 12
+PV_RCNN_SEEDS = (100, 101, 102)
+# the LC decoder's cameras and their feature maps: 448x800 images at the
+# image branch's stride 4, 256 channels (transfusion_3ddf_nusc's FPN P2)
+LC_CAMS, LC_FEATURE_HW, LC_CHANNELS = 6, (112, 200), 256
+LC_TIMED_RUNS = 5
+
+
+def small_pvrcnn_config():
+    """tests/test_torch_pvrcnn.py's tiny PV-RCNN, wider: the 64x64 grid,
+    128 keypoints, every VSA scale, 16 RoIs on a 3^3 grid."""
+    from df3d_torch.models.detectors.pv_rcnn import PVRCNNConfig
+    from df3d_torch.models.detectors.voxel_rcnn import VoxelRCNNConfig
+    from df3d_torch.models.pfe import VSAConfig, VSAScaleCfg
+
+    base = VoxelRCNNConfig(
+        pc_range=(0.0, -16.0, -2.4, 32.0, 16.0, 2.4),
+        voxel_size=(0.5, 0.5, 0.2), grid_size=(24, 64, 64), max_voxels=512,
+        stage_caps=(512, 384, 256, 128), test_pre_nms=128, test_post_nms=16)
+    scales = tuple(VSAScaleCfg(k, ds, r, nsample=8, mlp=(16, 16))
+                   for k, ds, r in (("conv1", 1, 0.8), ("conv2", 2, 1.2),
+                                    ("conv3", 4, 1.6), ("conv4", 8, 2.4)))
+    return PVRCNNConfig(
+        base=base, vsa=VSAConfig(num_keypoints=128, raw_radius=1.0,
+                                 raw_nsample=8, scales=scales,
+                                 out_channels=32),
+        roi_grid_size=3, roi_max_local=64, roi_radius=2.0, roi_nsample=8)
+
+
+def phase_pvrcnn_small(dev):
+    """PV-RCNN's path on a small input (`small_pvrcnn_config`, two samples
+    of 1500 points, half of them in clusters), card against CPU, the same
+    weights: the card replays the CPU's proposal and final NMS and RoI
+    neighbour decisions where its own differ, each a near tie within 1e-4,
+    at most 4 calls (`voxelrcnn_decisions`). Keypoints, cap overflows,
+    roi_mask, valid and labels equal; keypoint features, fg logits, RoIs,
+    the head's cls and reg, boxes and scores to atol = rtol = 1e-3."""
+    from df3d_torch.entry import build_pvrcnn, infer_pvrcnn
+    from df3d_torch.models.detectors import pv_rcnn as PV
+
+    cfg = small_pvrcnn_config()
+    rng = np.random.RandomState(0)
+    n = 1500
+    pts = np.concatenate([rng.uniform(0, 31, (2, n, 1)),
+                          rng.uniform(-15, 15, (2, n, 1)),
+                          rng.uniform(-1.8, 1.8, (2, n, 1)),
+                          rng.uniform(0, 1, (2, n, 1))], -1)
+    centres = np.array([[8.0, 0.0, 0.0], [20.0, 5.0, -0.5], [12.0, -8.0, 0.5],
+                        [25.0, 10.0, 0.0]])
+    pts[:, n // 2:, :3] = (centres[rng.randint(0, 4, (2, n - n // 2))]
+                           + 0.6 * rng.randn(2, n - n // 2, 3))
+    pts = torch.from_numpy(pts.astype(np.float32))
+    valid = torch.ones(pts.shape[:2], dtype=torch.bool)
+    store, out = [], []
+    for d, replay in (("cpu", False), (dev, True)):
+        model, head = build_pvrcnn(cfg, d)
+        with voxelrcnn_decisions(store, replay, PV) as replays:
+            out.append(to_cpu(infer_pvrcnn(model, head, cfg, pts.to(d),
+                                           valid.to(d))))
+    (c_det, c_ov), (g_det, g_ov) = out
+    check(len(replays) <= 4 and all(g < 1e-4 for *_, g in replays),
+          f"small PV-RCNN: more than 4 decisions differ from the CPU's, or "
+          f"one is no tie within 1e-4: {replays}")
+    for k in c_ov:
+        check(torch.equal(c_ov[k], g_ov[k]), f"small PV-RCNN: {k} differs")
+    for k in ("keypoints", "roi_mask", "valid", "labels"):
+        check(torch.equal(c_det[k], g_det[k]), f"small PV-RCNN: {k} differs")
+    check(bool(c_det["roi_mask"].any()), "small PV-RCNN: no RoI")
+    worst = 0.0
+    for k, t in c_det.items():
+        if t.is_floating_point():
+            check(bool(torch.isfinite(g_det[k]).all()),
+                  f"small PV-RCNN: non-finite {k}")
+            torch.testing.assert_close(g_det[k], t, atol=1e-3, rtol=1e-3)
+            worst = max(worst, (g_det[k] - t).abs().max().item())
+    log(f"small PV-RCNN, card against CPU: keypoints equal, "
+        f"{len(store)} NMS and neighbour decisions recorded, replays "
+        f"{replays}; {int(c_det['roi_mask'].sum())} RoIs and "
+        f"{int(c_det['valid'].sum())} kept boxes equal; max diff of the "
+        f"keypoint features, fg logits, RoIs, RCNN head, boxes and scores "
+        f"{worst:.3g}")
+
+
+def phase_pvrcnn(dev):
+    """Phase 61: PV-RCNN. The small input card against CPU
+    (`phase_pvrcnn_small`); then `PVRCNNConfig()` at full KITTI width
+    (0.05 m voxels, 16 000 voxels, stage caps 16k/12k/8k/4k, 2048
+    keypoints over the frame's points, 100 RoIs) on the three KITTI frames
+    of `make_kitti_sample` (seeds `PV_RCNN_SEEDS`, the frames of
+    `kitti_frames`): every K1 launch of one frame against its plain
+    version (`phase_k1`, 12 a frame), then the path timed on the three
+    frames (`timed_path`: K1 12 and K2 0 launches a frame, the stage split
+    voxelize, backbone_3d, neck, rpn, pfe_fps, pfe_ball_query,
+    pfe_bev_sample, point_head, proposal, roi_head, post, a one-frame
+    profile, peak memory), and each frame's keypoints labelled against its
+    cars (`point_fg_labels`) with the point loss finite. Returns (K1's
+    entry at PV-RCNN's shapes, the timed launches)."""
+    from df3d_torch.entry import build_pvrcnn, infer_pvrcnn
+    from df3d_torch.models.detectors.pv_rcnn import PVRCNNConfig
+    from df3d_torch.models.heads.point_head import (
+        point_cls_loss, point_fg_labels,
+    )
+    from df3d_torch.ops import msda_kernel as K2
+    from df3d_torch.ops import sparse_conv_kernel as K1
+    from df3d_torch.utils.synth import make_kitti_sample
+
+    phase_pvrcnn_small(dev)
+    cfg = PVRCNNConfig()
+    model, head = build_pvrcnn(cfg, dev, seed=0)
+    samples = [make_kitti_sample(np.random.RandomState(s))
+               for s in PV_RCNN_SEEDS]
+    frames = [s[0] for s in samples]
+    run = lambda m, c, p, v: infer_pvrcnn(m, head, c, p, v)
+    k1 = phase_k1(model, cfg, frames[0], dev, run, edge_cases=False,
+                  per_frame=K1_PER_KITTI_FRAME)
+    inputs = [kitti_inputs(f, KITTI_IMAGE, dev, 10 + i)[:2]
+              for i, f in enumerate(frames)]
+    stats = {}
+    launches = timed_path("KITTI PV-RCNN path",
+                          lambda *a: run(model, cfg, *a),
+                          cfg.base.final_max_boxes, inputs, len(frames),
+                          {K1: K1_PER_KITTI_FRAME, K2: 0}, box_dim=7,
+                          stats=stats)
+    for i, ((pts, valid), (_, boxes, _, bvalid)) in enumerate(
+            zip(inputs, samples)):
+        det, _ = run(model, cfg, pts, valid)
+        gt = torch.from_numpy(boxes[None]).to(dev)
+        labels = point_fg_labels(det["keypoints"], gt,
+                                 torch.from_numpy(bvalid[None]).to(dev))
+        loss = point_cls_loss(det["point_fg_logits"], labels)
+        check(bool(torch.isfinite(loss)), f"PV-RCNN frame {i}: point loss")
+        check(bool(torch.isfinite(det["kp_feats"]).all()),
+              f"PV-RCNN frame {i}: non-finite keypoint features")
+        n = pts.shape[1]
+        log(f"PV-RCNN frame {i}: {n} points, FPS of "
+            f"{cfg.vsa.num_keypoints} keypoints (sequential steps), ball "
+            f"queries over {cfg.vsa.num_keypoints} x {n} raw pairs and the "
+            f"four stages' rows; {int(labels.sum())} keypoints inside "
+            f"{int(bvalid.sum())} cars (enlarged 0.2 m), point loss "
+            f"{loss.item():.4f}; {int(det['roi_mask'].sum())} RoIs, "
+            f"{int(det['valid'].sum())} kept boxes")
+    split = stats["split"]
+    pfe = sum(v for k, v in split.items() if k.startswith("pfe"))
+    log(f"PV-RCNN per frame: {stats['ms']:.3f} ms, peak "
+        f"{stats['peak_gib']:.3f} GiB, device kernels {stats['busy_ms']:.3f} "
+        f"of {stats['wall_ms']:.3f} ms (idle share {stats['idle']:.3f}); "
+        f"pfe {pfe:.3f} ms of the split (fps {split.get('pfe_fps', 0):.3f}, "
+        f"ball queries {split.get('pfe_ball_query', 0):.3f}, BEV sample "
+        f"{split.get('pfe_bev_sample', 0):.3f})")
+    return k1, launches
+
+
+def pillar_inputs(points, cfg):
+    """A frame (N, F) -> the pillars PointPillars takes, as numpy: (V, P, F)
+    points, (V,) counts, (V, 3) (z, y, x) coords, V = max_voxels and P =
+    max_points_per_voxel: the first P points of each pillar in frame
+    order, the pillars in key order (y * X + x), -1 rows padding (the JAX
+    package has no pillar voxelizer; its tests build pillars so)."""
+    vs, pcr = np.asarray(cfg.voxel_size), np.asarray(cfg.pc_range)
+    _, gy, gx = cfg.grid_size
+    v, p = cfg.max_voxels, cfg.max_points_per_voxel
+    ij = np.floor((points[:, :2] - pcr[:2]) / vs[:2]).astype(np.int64)
+    ok = (((ij >= 0) & (ij < [gx, gy])).all(1) & (points[:, 2] >= pcr[2])
+          & (points[:, 2] < pcr[5]))
+    pts, keys = points[ok], ij[ok, 1] * gx + ij[ok, 0]
+    order = np.argsort(keys, kind="stable")
+    keys, pts = keys[order], pts[order]
+    uniq, start, counts = np.unique(keys, return_index=True,
+                                    return_counts=True)
+    row = np.repeat(np.arange(len(uniq)), counts)
+    rank = np.arange(len(keys)) - start[row]
+    keep = (rank < p) & (row < v)
+    out = np.zeros((v, p, points.shape[1]), np.float32)
+    out[row[keep], rank[keep]] = pts[keep]
+    n = min(len(uniq), v)
+    num = np.zeros(v, np.int32)
+    num[:n] = np.minimum(counts[:n], p)
+    coords = -np.ones((v, 3), np.int32)
+    coords[:n] = np.stack([np.zeros(n), uniq[:n] // gx, uniq[:n] % gx], 1)
+    return out, num, coords
+
+
+def phase_pointpillars(dev):
+    """Phase 62: PointPillars at full width (`PointPillarConfig()`: KITTI's
+    432 x 496 pillars of 0.16 m, 16 000 pillars of 32 points, the 3/5/5
+    neck, 248 x 216 x 2 anchors) on `PV_RCNN_SEEDS`' frames, their pillars
+    built with numpy (`pillar_inputs`): the card against the CPU on the
+    first frame, same weights (anchor-head maps to atol = rtol = 1e-3),
+    then ms/frame on the card (warm-up, then the frames timed), a
+    host-clock split and peak memory. No kernel of the port runs here."""
+    from df3d_torch.models.detectors.pointpillar import (
+        PointPillarConfig, PointPillars,
+    )
+    from df3d_torch.ops import msda_kernel as K2
+    from df3d_torch.ops import sparse_conv_kernel as K1
+    from df3d_torch.utils import stages
+    from df3d_torch.utils.synth import make_kitti_frame
+
+    cfg = PointPillarConfig()
+    inputs = []
+    for s in PV_RCNN_SEEDS:
+        frame = make_kitti_frame(np.random.RandomState(s))
+        pts, num, coords = pillar_inputs(frame, cfg)
+        inputs.append(tuple(torch.from_numpy(x[None])
+                            for x in (pts, num, coords)))
+        log(f"PointPillars frame {s}: {len(frame)} points, "
+            f"{int((num > 0).sum())} pillars of max_voxels {cfg.max_voxels}, "
+            f"{int((num == cfg.max_points_per_voxel).sum())} full at "
+            f"{cfg.max_points_per_voxel} points")
+    g = torch.Generator().manual_seed(0)
+    cpu_model = PointPillars(cfg).init_weights(g).eval()
+    card_model = PointPillars(cfg).to(dev).eval()
+    card_model.load_state_dict(cpu_model.state_dict())
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        want = cpu_model(*inputs[0])
+        cpu_ms = 1e3 * (time.perf_counter() - t0)
+        got = to_cpu(card_model(*[t.to(dev) for t in inputs[0]]))
+    worst = 0.0
+    for k, t in want.items():
+        check(bool(torch.isfinite(got[k]).all()), f"PointPillars: {k}")
+        torch.testing.assert_close(got[k], t, atol=1e-3, rtol=1e-3)
+        worst = max(worst, (got[k] - t).abs().max().item())
+    card_inputs = [[t.to(dev) for t in x] for x in inputs]
+    with torch.no_grad():
+        for x in card_inputs:
+            card_model(*x)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        K1.launches = K2.launches = 0
+        times = []
+        for x in card_inputs:
+            t0 = time.perf_counter()
+            card_model(*x)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        check(K1.launches == 0 and K2.launches == 0,
+              "PointPillars launched K1 or K2")
+        with stages.recording() as split:
+            card_model(*card_inputs[0])
+    log(f"PointPillars, card against CPU: cls, box and dir agree (max diff "
+        f"{worst:.3g}); the CPU's forward {cpu_ms:.1f} ms")
+    log(f"PointPillars on the card: {len(times)} frames, ms/frame mean "
+        f"{np.mean(times):.3f} min {np.min(times):.3f}; per frame "
+        f"{[round(x, 3) for x in times]}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; split (ms, "
+        "host clock, synchronised) "
+        + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
+
+
+def lc_inputs(cfg, nc, hw, channels, seed):
+    """Seeded full-width inputs of the LC decoder on the CPU: the LiDAR
+    decoder's queries (B 1), their BEV positions, first-stage predictions,
+    `nc` cameras' (Hc, Wc) = `hw` feature maps of `channels`, projected
+    centres in feature pixels, a visibility where query p sees p % 3
+    cameras (0, 1 or 2, chosen at random) and projected radii of 1 to 8
+    feature pixels."""
+    g = torch.Generator().manual_seed(seed)
+    p, d = cfg.num_proposals, cfg.hidden_channel
+    (hc, wc), k = hw, cfg.num_classes
+    first = {"center": torch.rand(1, p, 2, generator=g) * 180,
+             "height": torch.randn(1, p, generator=g),
+             "dim": torch.randn(1, p, 3, generator=g),
+             "rot": torch.randn(1, p, 2, generator=g),
+             "vel": torch.randn(1, p, 2, generator=g),
+             "cls": torch.randn(1, p, k, generator=g)}
+    vis = torch.zeros(1, nc, p, dtype=torch.bool)
+    for q in range(p):
+        cams = torch.randperm(nc, generator=g)[:q % 3]
+        vis[0, cams, q] = True
+    uv = torch.rand(1, nc, p, 2, generator=g) * torch.tensor([wc, hc])
+    return (torch.randn(1, p, d, generator=g),
+            torch.rand(1, p, 2, generator=g) * 180, first,
+            torch.randn(1, nc, hc, wc, channels, generator=g), uv, vis,
+            1.0 + 7.0 * torch.rand(1, nc, p, generator=g))
+
+
+def phase_lc_decoder(dev):
+    """Phase 63: the TransFusion LC image decoder at `transfusion_3ddf_nusc`'s
+    head width (200 queries, hidden 128, 8 heads, ten classes) on six
+    cameras' 112 x 200 feature maps of 256 channels (448 x 800 images at
+    the image branch's stride 4), seeded inputs (`lc_inputs`): the card
+    against the CPU, same weights (every refined key to atol = rtol =
+    1e-3; queries no camera sees keep the first stage's predictions,
+    exactly), then ms a call on the card and peak memory. No kernel of
+    the port runs here."""
+    from df3d_torch.models.heads.transfusion_head import TransFusionHeadCfg
+    from df3d_torch.models.heads.transfusion_lc import TransFusionLCDecoder
+    from df3d_torch.models.layers import flax_dense_init_
+    from df3d_torch.ops import msda_kernel as K2
+    from df3d_torch.ops import sparse_conv_kernel as K1
+
+    cfg, nc, hw, ci = TransFusionHeadCfg(), LC_CAMS, LC_FEATURE_HW, LC_CHANNELS
+    g = torch.Generator().manual_seed(0)
+    cpu_model = TransFusionLCDecoder(cfg, ci, num_cams=nc)
+    flax_dense_init_(cpu_model, g)
+    cpu_model.eval()
+    card_model = TransFusionLCDecoder(cfg, ci, num_cams=nc).to(dev).eval()
+    card_model.load_state_dict(cpu_model.state_dict())
+    args = lc_inputs(cfg, nc, hw, ci, seed=63)
+
+    def on(d, a):
+        return [{k: v.to(d) for k, v in x.items()} if isinstance(x, dict)
+                else x.to(d) for x in a]
+
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        want = cpu_model(*args)
+        cpu_ms = 1e3 * (time.perf_counter() - t0)
+        card_args = on(dev, args)
+        got = to_cpu(card_model(*card_args))
+    unseen = ~args[5].any(1)
+    worst = 0.0
+    for k, t in want.items():
+        check(bool(torch.isfinite(got[k]).all()), f"LC decoder: {k}")
+        torch.testing.assert_close(got[k], t, atol=1e-3, rtol=1e-3)
+        check(torch.equal(got[k][unseen], args[2][k][unseen]),
+              f"LC decoder: an unseen query's {k} moved")
+        worst = max(worst, (got[k] - t).abs().max().item())
+    with torch.no_grad():
+        card_model(*card_args)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        K1.launches = K2.launches = 0
+        ms = cuda_ms(lambda: card_model(*card_args), LC_TIMED_RUNS)
+        check(K1.launches == 0 and K2.launches == 0,
+              "the LC decoder launched K1 or K2")
+    log(f"TransFusion LC decoder, card against CPU: {int(unseen.sum())} of "
+        f"{cfg.num_proposals} queries seen by no camera keep the first "
+        f"stage, the rest agree (max diff {worst:.3g}); the CPU's call "
+        f"{cpu_ms:.1f} ms; on the card {ms:.3f} ms a call (mean of "
+        f"{LC_TIMED_RUNS}, CUDA events), peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB over "
+        f"{nc} x {hw[0] * hw[1]} keys")
+
+
 def pillow_available():
     import importlib.util
 
@@ -6829,6 +7189,22 @@ def main():
         k2["max_abs_err"] = max(k2["max_abs_err"], err.get("k2", 0.0))
         k1_bf16["max_abs_err"] = max(k1_bf16["max_abs_err"],
                                      err.get("k1_bf16", 0.0))
+    torch.cuda.empty_cache()
+
+    # PV-RCNN, PointPillars and the TransFusion LC decoder (phases 61-63):
+    # "pv_rcnn" counts phase 61's timed KITTI frames, and K1's "pv_rcnn"
+    # holds phase 61's per-launch numbers at PV-RCNN's shapes
+    pv_k1, pv_launches = timed_phase(61, phase_pvrcnn, dev)
+    torch.cuda.empty_cache()
+    timed_phase(62, phase_pointpillars, dev)
+    torch.cuda.empty_cache()
+    timed_phase(63, phase_lc_decoder, dev)
+    k1["launches_by_path"]["pv_rcnn"] = pv_launches[K1]
+    k2["launches_by_path"]["pv_rcnn"] = pv_launches[K2]
+    k1["pv_rcnn"] = {k: v for k, v in pv_k1.items()
+                     if k not in ("name", "route", "source", "replaces",
+                                  "library_ms")}
+    k1["max_abs_err"] = max(k1["max_abs_err"], pv_k1["max_abs_err"])
     for entry in (k1, k2, k1_bf16):
         entry["launches"] = sum(entry["launches_by_path"].values())
 

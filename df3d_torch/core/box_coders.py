@@ -20,6 +20,8 @@ import dataclasses
 
 import torch
 
+from df3d_torch.core import ieee
+
 
 @dataclasses.dataclass(frozen=True)
 class TransFusionBBoxCoder:
@@ -72,7 +74,7 @@ class ResidualCoder:
                            boxes[..., 6:]], -1)
         xa, ya, za = anchors[..., 0], anchors[..., 1], anchors[..., 2]
         dxa, dya, dza = anchors[..., 3], anchors[..., 4], anchors[..., 5]
-        diag = torch.sqrt(dxa ** 2 + dya ** 2)
+        diag = ieee.sqrt(dxa ** 2 + dya ** 2)
         return torch.stack([
             (boxes[..., 0] - xa) / diag, (boxes[..., 1] - ya) / diag,
             (boxes[..., 2] - za) / dza, torch.log(boxes[..., 3] / dxa),
@@ -83,7 +85,7 @@ class ResidualCoder:
                anchors: torch.Tensor) -> torch.Tensor:
         xa, ya, za = anchors[..., 0], anchors[..., 1], anchors[..., 2]
         dxa, dya, dza = anchors[..., 3], anchors[..., 4], anchors[..., 5]
-        diag = torch.sqrt(dxa ** 2 + dya ** 2)
+        diag = ieee.sqrt(dxa ** 2 + dya ** 2)
         return torch.stack([
             encodings[..., 0] * diag + xa, encodings[..., 1] * diag + ya,
             encodings[..., 2] * dza + za, torch.exp(encodings[..., 3]) * dxa,

@@ -115,3 +115,31 @@ def boxes_to_corners_3d(boxes: torch.Tensor) -> torch.Tensor:
     corners = 0.5 * boxes[..., None, 3:6] * signs
     corners = rotate_points_along_z(corners, boxes[..., 6])
     return corners + boxes[..., None, :3]
+
+
+def points_in_boxes(points: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
+    """Point-in-rotated-box test (pcdet's roiaware points-in-box): points
+    (..., N, 3+), boxes (..., M, 7) -> bool (..., N, M). The offset is
+    rotated by -heading into the box frame and tested against the half
+    sizes, faces included. Rounded as XLA computes it under `jit`, so a
+    point on a face lands on the same side: sin and cos of -heading as
+    XLA's (`xla_sin_cos`), lx = fma(rx, cos, -(ry * sin)) and ly =
+    fma(ry, cos, rx * sin), each product exact in f64 and one f32
+    rounding."""
+    rel = points[..., :, None, :3] - boxes[..., None, :, :3]
+    s, c = xla_sin_cos(-boxes[..., 6])
+    s, c = s[..., None, :].double(), c[..., None, :].double()
+    rx, ry = rel[..., 0].double(), rel[..., 1].double()
+    lx = (rx * c - (ry * s).float().double()).float()
+    ly = (ry * c + (rx * s).float().double()).float()
+    half = 0.5 * boxes[..., None, :, 3:6]
+    return ((lx.abs() <= half[..., 0]) & (ly.abs() <= half[..., 1])
+            & (rel[..., 2].abs() <= half[..., 2]))
+
+
+def enlarge_box3d(boxes: torch.Tensor, extra_width) -> torch.Tensor:
+    """Boxes (..., 7+) with their sizes grown by `extra_width` (dx, dy,
+    dz)."""
+    extra = torch.tensor(extra_width, dtype=boxes.dtype, device=boxes.device)
+    return torch.cat([boxes[..., :3], boxes[..., 3:6] + extra,
+                      boxes[..., 6:]], -1)

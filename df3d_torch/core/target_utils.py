@@ -15,6 +15,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from df3d_torch.core import ieee
+
 
 def gaussian_radius(height: torch.Tensor, width: torch.Tensor,
                     min_overlap: float = 0.5) -> torch.Tensor:
@@ -22,16 +24,16 @@ def gaussian_radius(height: torch.Tensor, width: torch.Tensor,
     min_overlap with the box (det3d center_utils.gaussian_radius)."""
     b1 = height + width
     c1 = width * height * (1 - min_overlap) / (1 + min_overlap)
-    r1 = (b1 + torch.sqrt((b1 ** 2 - 4 * c1).clamp_min(0.0))) / 2
+    r1 = (b1 + ieee.sqrt((b1 ** 2 - 4 * c1).clamp_min(0.0))) / 2
 
     b2 = 2 * (height + width)
     c2 = (1 - min_overlap) * width * height
-    r2 = (b2 + torch.sqrt((b2 ** 2 - 4 * 4.0 * c2).clamp_min(0.0))) / 2
+    r2 = (b2 + ieee.sqrt((b2 ** 2 - 4 * 4.0 * c2).clamp_min(0.0))) / 2
 
     a3 = 4 * min_overlap
     b3 = -2 * min_overlap * (height + width)
     c3 = (min_overlap - 1) * width * height
-    r3 = (b3 + torch.sqrt((b3 ** 2 - 4 * a3 * c3).clamp_min(0.0))) / 2
+    r3 = (b3 + ieee.sqrt((b3 ** 2 - 4 * a3 * c3).clamp_min(0.0))) / 2
     return torch.minimum(torch.minimum(r1, r2), r3)
 
 

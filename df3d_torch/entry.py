@@ -47,6 +47,11 @@
   `TrainState` and the step (`train.trainer.VoxelRCNNTrainStep`):
   `step(state, batch, generator) -> (state, logs)`, the generator drawing
   the RoI sampler's noise on the step's device.
+* `build_pvrcnn(cfg, device, seed)` -> (model, head) and
+  `infer_pvrcnn(model, head, cfg, points, valid)`: PV-RCNN as the JAX
+  package's `detectors/pv_rcnn.py` composes it (voxelize -> PVRCNN ->
+  Voxel R-CNN's proposals -> PVRCNNRoIHead -> post-processing); no preset
+  and no `build_detector` entry, as in the JAX package.
 * `dryrun_multichip(n_devices, device)`: the counterpart of the JAX
   package's `__graft_entry__.dryrun_multichip`: one CenterPoint and one
   CenterPoint + 3D-DF training step over n ranks, one sample each
@@ -87,6 +92,9 @@ from df3d_torch.models.detectors.centerpoint import (
 )
 from df3d_torch.models.detectors.fused import (
     CenterPoint3DDF, FusedConfig, TransFusion3DDF, VoxelRCNN3DDF,
+)
+from df3d_torch.models.detectors.pv_rcnn import (
+    PVRCNN, PVRCNNConfig, PVRCNNRoIHead,
 )
 from df3d_torch.models.detectors.transfusion import (
     TransFusionConfig, TransFusionL, transfusion_predict,
@@ -460,6 +468,42 @@ def infer_voxelrcnn(rpn: VoxelRCNN, head: VoxelRCNNHead,
 
 
 infer_voxelrcnn_fused = infer_voxelrcnn
+
+
+def build_pvrcnn(cfg: PVRCNNConfig, device=None, seed: int = 0
+                 ) -> tuple[PVRCNN, PVRCNNRoIHead]:
+    """(PVRCNN, PVRCNNRoIHead) on `device` with random weights drawn from
+    `seed` (on the CPU, so every device gets the same), in eval mode."""
+    device = resolve_device(device)
+    g = torch.Generator().manual_seed(seed)
+    model = PVRCNN(cfg).init_weights(g).to(device).eval()
+    head = PVRCNNRoIHead(cfg).init_weights(g).to(device).eval()
+    return model, head
+
+
+@torch.no_grad()
+def infer_pvrcnn(model: PVRCNN, head: PVRCNNRoIHead, cfg: PVRCNNConfig,
+                 points: torch.Tensor, valid: torch.Tensor):
+    """PV-RCNN's serving path as the JAX package composes it: voxelize ->
+    `PVRCNN` -> `proposal_layer` (cfg.base's test NMS) -> `PVRCNNRoIHead`
+    -> `voxel_rcnn_post_processing`. points (B, P, 4), valid (B, P) ->
+    (detections with the RoIs, keypoints, their features, fg logits and
+    the head's outputs, cap overflows)."""
+    base = cfg.base
+    res = voxelize_batch(points, valid, base.voxel_size, base.pc_range,
+                         base.grid_size, base.max_voxels,
+                         base.max_points_per_voxel)
+    stages.mark("voxelize")
+    preds, overflow = model(res.features, res.coords, points, valid)
+    rois, _, roi_mask = proposal_layer(base, preds, model.anchors)
+    cls, reg = head(rois, roi_mask, preds["keypoints"], preds["kp_feats"])
+    det = voxel_rcnn_post_processing(base, rois, roi_mask, cls, reg)
+    det.update(rois=rois, roi_mask=roi_mask, keypoints=preds["keypoints"],
+               kp_feats=preds["kp_feats"],
+               point_fg_logits=preds["point_fg_logits"], rcnn_cls=cls,
+               rcnn_reg=reg)
+    stages.mark("post")
+    return det, overflow
 
 
 def small_cfg() -> CenterPointConfig:

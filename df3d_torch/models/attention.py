@@ -11,6 +11,10 @@ kept here:
   reference TransFusion does);
 * masked logits are filled with finfo(f32).min, so a query whose keys are
   all masked gets uniform weights instead of the NaN that -inf would give.
+
+An additive `bias` (flax's `dot_product_attention(..., bias=)`: TransFusion
+LC's view and log-gaussian bias) is added to the logits after the
+1/sqrt(head_dim) scale and before the mask.
 """
 
 from __future__ import annotations
@@ -37,9 +41,11 @@ class FlaxMultiHeadAttention(nn.Module):
 
     def forward(self, inputs_q: torch.Tensor,
                 inputs_kv: torch.Tensor | None = None,
-                mask: torch.Tensor | None = None) -> torch.Tensor:
+                mask: torch.Tensor | None = None,
+                bias: torch.Tensor | None = None) -> torch.Tensor:
         """inputs_q (..., Tq, C); inputs_kv (..., Tk, C), keys and values
-        both (inputs_q when None); mask (..., Tk) True = valid key."""
+        both (inputs_q when None); mask (..., Tk) True = valid key; bias
+        broadcastable to the logits (..., heads, Tq, Tk)."""
         if inputs_kv is None:
             inputs_kv = inputs_q
         *lead, tq, c = inputs_q.shape
@@ -51,6 +57,8 @@ class FlaxMultiHeadAttention(nn.Module):
         v = self.value(inputs_kv).view(*lead, tk, h, hd)
         q = q / math.sqrt(hd)
         logits = torch.einsum("...qhd,...khd->...hqk", q, k)
+        if bias is not None:
+            logits = logits + bias
         if mask is not None:
             logits = logits.masked_fill(~mask[..., None, None, :],
                                         torch.finfo(logits.dtype).min)

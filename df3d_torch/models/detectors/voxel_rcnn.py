@@ -33,7 +33,7 @@ from df3d_torch.models.heads.anchor_head import (
 from df3d_torch.models.heads.voxelrcnn_head import (
     VoxelRCNNHead, VoxelRCNNHeadCfg, decode_rcnn_boxes, rcnn_loss,
 )
-from df3d_torch.models.layers import flax_trunc_normal_
+from df3d_torch.models.layers import flax_dense_init_
 from df3d_torch.models.necks import BEVBackbone
 from df3d_torch.ops.sparse import SparseTensor
 from df3d_torch.utils import stages
@@ -139,10 +139,7 @@ class VoxelRCNN(nn.Module):
         truncated-normal for the anchor head's 1x1 convs with zero biases
         but the class prior (-log 99), identity norms."""
         init_detector_weights(self, "dense_head.", generator)
-        for m in self.dense_head.modules():
-            if isinstance(m, nn.Linear):
-                flax_trunc_normal_(m.weight, m.in_features, 1.0, generator)
-                m.bias.zero_()
+        flax_dense_init_(self.dense_head, generator)
         self.dense_head.conv_cls.bias.fill_(-math.log(99.0))
         return self
 
@@ -152,11 +149,7 @@ def init_head_weights(head: VoxelRCNNHead,
                       generator: torch.Generator) -> VoxelRCNNHead:
     """The RCNN head's random weights as flax's Dense initializer draws
     them (LeCun truncated-normal, zero biases), identity norms."""
-    for m in head.modules():
-        if isinstance(m, nn.Linear):
-            flax_trunc_normal_(m.weight, m.in_features, 1.0, generator)
-            if m.bias is not None:
-                m.bias.zero_()
+    flax_dense_init_(head, generator)
     return head
 
 

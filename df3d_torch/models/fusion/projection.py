@@ -1,9 +1,9 @@
 """Voxel <-> image projection for the fusion layers (port of
 df3d/models/fusion/projection.py): voxel centers to normalized image
 coordinates with an in-frustum mask, and the nearest-pixel splat of voxel
-features onto an image grid. Static shapes: invalid voxels are masked,
-never dropped. The bilinear `sample_image_features` is not on the
-CenterPoint + 3D-DF path and is not ported.
+features onto an image grid, and the bilinear sample of a feature map at
+normalized coordinates (PV-RCNN's BEV features at its keypoints). Static
+shapes: invalid voxels are masked, never dropped.
 """
 
 from __future__ import annotations
@@ -67,3 +67,31 @@ def splat_to_image(uv_norm: torch.Tensor, feats: torch.Tensor,
     flat = torch.where(ok, yi * w + xi, h * w)
     grid = scatter_rows_last(feats.new_zeros(b, h * w, c), flat, feats)
     return grid.view(b, h, w, c)
+
+
+def sample_image_features(img_feats: torch.Tensor, uv_norm: torch.Tensor,
+                          mask: torch.Tensor) -> torch.Tensor:
+    """Bilinear sample of channel-last maps (B, H, W, C) at normalized
+    (u, v) in [0, 1] (B, N, 2), as grid_sample with align_corners False and
+    zeros padding; rows outside `mask` (B, N) come out zero -> (B, N, C).
+    The pixel coordinate is u * W - 0.5 as written (a caller's u = px / W
+    does not round back to px), and the four corners are summed in the JAX
+    package's order."""
+    b, h, w, c = img_feats.shape
+    px = uv_norm[..., 0] * w - 0.5
+    py = uv_norm[..., 1] * h - 0.5
+    x0, y0 = torch.floor(px), torch.floor(py)
+    dx, dy = px - x0, py - y0
+    flat_feats = img_feats.reshape(b, h * w, c)
+    out = 0.0
+    for cx, cy, cw in ((x0, y0, (1 - dx) * (1 - dy)),
+                       (x0 + 1, y0, dx * (1 - dy)),
+                       (x0, y0 + 1, (1 - dx) * dy),
+                       (x0 + 1, y0 + 1, dx * dy)):
+        inb = (cx >= 0) & (cx < w) & (cy >= 0) & (cy < h)
+        xi = cx.clamp(0, w - 1).long()
+        yi = cy.clamp(0, h - 1).long()
+        flat = (yi * w + xi).reshape(b, -1, 1).expand(-1, -1, c)
+        g = flat_feats.gather(1, flat).view(*xi.shape, c)
+        out = out + g * (cw * inb)[..., None]
+    return out * mask[..., None]

@@ -229,6 +229,17 @@ def flax_trunc_normal_(w: torch.Tensor, fan_in: int, scale: float,
     w.copy_(draw)
 
 
+@torch.no_grad()
+def flax_dense_init_(module: nn.Module, generator: torch.Generator) -> None:
+    """flax's Dense initializer on every Linear of `module`: LeCun
+    truncated-normal weights, zero biases."""
+    for m in module.modules():
+        if isinstance(m, nn.Linear):
+            flax_trunc_normal_(m.weight, m.in_features, 1.0, generator)
+            if m.bias is not None:
+                m.bias.zero_()
+
+
 def same_pads(size: int, kernel: int, stride: int) -> tuple[int, int]:
     """flax/XLA "SAME" padding (lo, hi) for one spatial dim: asymmetric
     when the total is odd (lo = total // 2)."""
@@ -272,3 +283,24 @@ class DeconvBNReLU2d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return torch.relu(self.bn(self.deconv(x)))
+
+
+class MLP(nn.Module):
+    """ReLU MLP over the last axis (the JAX package's `MLP`): Linear layers
+    of `hidden` widths, a ReLU between them, and after the last with
+    `activate_final`. flax names the layers `Dense_<i>`, here `layers.<i>`."""
+
+    def __init__(self, in_features: int, hidden, activate_final: bool = False):
+        super().__init__()
+        widths = (in_features, *hidden)
+        self.layers = nn.ModuleList(nn.Linear(a, b) for a, b in
+                                    zip(widths[:-1], widths[1:]))
+        self.activate_final = activate_final
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        last = len(self.layers) - 1
+        for i, layer in enumerate(self.layers):
+            x = layer(x)
+            if i < last or self.activate_final:
+                x = torch.relu(x)
+        return x

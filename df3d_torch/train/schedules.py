@@ -23,6 +23,8 @@ from typing import Callable
 import numpy as np
 import torch
 
+from df3d_torch.core import ieee
+
 F32 = np.float32
 
 
@@ -76,7 +78,7 @@ class AdamState:
 def global_norm(grads: list[torch.Tensor]) -> torch.Tensor:
     """sqrt of the sum of every squared gradient entry (optax's
     `global_norm`)."""
-    return torch.sqrt(torch.stack([g.square().sum() for g in grads]).sum())
+    return ieee.sqrt(torch.stack([g.square().sum() for g in grads]).sum())
 
 
 @dataclasses.dataclass
@@ -122,7 +124,7 @@ class AdamOneCycle:
         mu_hat = torch._foreach_div(state.mu, float(F32(1) - b1 ** F32(count)))
         nu_hat = torch._foreach_div(
             state.nu, float(F32(1) - F32(self.b2) ** F32(count)))
-        denom = torch._foreach_sqrt(nu_hat)
+        denom = ieee.foreach_sqrt(nu_hat)
         torch._foreach_add_(denom, self.eps)
         upd = torch._foreach_div(mu_hat, denom)
         torch._foreach_add_(upd, torch._foreach_mul(params,

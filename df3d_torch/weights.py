@@ -22,6 +22,11 @@ checkpoint's) into a `state_dict` for `model`:
   `actr_out_proj`), which flax puts under the backbone (CenterPoint's and
   Voxel R-CNN's `backbone`, TransFusion's `middle_encoder`), live under
   the backbone's `fusion_hook` module;
+* PV-RCNN (`PVRCNN`, `PVRCNNRoIHead`), PointPillars and the TransFusion
+  LC decoder carry by the names flax gives their layers (the decoder's
+  unnamed `LayerNorm_0`, `Dense_0`, `Dense_1` and `LayerNorm_1` are its
+  `norm1`, `ff1`, `ff2` and `norm2`; an `MLP`'s `Dense_<i>` its
+  `layers.<i>`);
 * a fused detector's auxiliary segmentation head (`aux_seg`, the `Conv_0`
   and `Conv_1` of a `--aux-loss` checkpoint) and the Swin image branch
   (`image_branch/swin`, whose window attention's `rel_bias` is copied as
@@ -55,8 +60,9 @@ from df3d_torch.models.heads.center_head import CenterHead, SepHeadBranch
 from df3d_torch.models.heads.transfusion_head import (
     DecoderLayer, PositionEmbeddingLearned,
 )
+from df3d_torch.models.heads.transfusion_lc import TransFusionLCDecoder
 from df3d_torch.models.layers import (
-    ConvBNReLU2d, DeconvBNReLU2d, FlaxBatchNorm, MaskedBatchNorm,
+    MLP, ConvBNReLU2d, DeconvBNReLU2d, FlaxBatchNorm, MaskedBatchNorm,
     SparseBasicBlock, SparseConv3d, SparseConvBNReLU, SubMConv3d,
 )
 from df3d_torch.models.image.swin import (
@@ -88,6 +94,8 @@ _CHILD_NAMES = {
     FusionEncoderLayer: {"LayerNorm_0": "norm_attn", "LayerNorm_1": "norm_i",
                          "LayerNorm_2": "norm_p"},
     AuxSegHead: {"Conv_0": "conv", "Conv_1": "out"},
+    TransFusionLCDecoder: {"LayerNorm_0": "norm1", "Dense_0": "ff1",
+                           "Dense_1": "ff2", "LayerNorm_1": "norm2"},
     SwinTransformer: {"LayerNorm_0": "patch_norm"},
     SwinBlock: {"LayerNorm_0": "norm1", "LayerNorm_1": "norm2"},
 }
@@ -109,6 +117,11 @@ def _child(module: nn.Module, name: str) -> tuple[nn.Module, str]:
         attr = f"tasks.{int(task)}.{branch}"
     elif isinstance(module, BEVBackbone):
         attr = f"blocks.{name}"
+    elif isinstance(module, MLP):
+        kind, i = name.rsplit("_", 1)
+        if kind != "Dense":
+            raise KeyError(name)
+        attr = f"layers.{int(i)}"
     else:
         attr = _CHILD_NAMES.get(type(module), {}).get(name, name)
     return module.get_submodule(attr), attr

@@ -1,6 +1,7 @@
 """Rules of the PyTorch port: df3d_torch (its training package, the
 reference-checkpoint importers, the evaluators, the presets, configs and
-`build_detector` too), chip_smoke.py, k1_ablate.py, k2_ablate.py and
+`build_detector` too, PV-RCNN, PointPillars and the TransFusion LC
+decoder), chip_smoke.py, k1_ablate.py, k2_ablate.py and
 lidar_wall.py import nothing of JAX, optax or the JAX package, scipy only
 in the host-side Hungarian assignment (df3d_torch/ops/assign.py, as the
 JAX package and the reference assign with it), PyYAML only in the config
@@ -74,6 +75,13 @@ def _port_files():
     assert {"presets.py", "config.py"} <= {
         f.name for f in files if f.parent.name == "config"}
     assert ROOT / "df3d_torch" / "models" / "build.py" in files
+    models = ROOT / "df3d_torch" / "models"
+    assert {models / "pfe.py", models / "vfe.py",
+            models / "heads" / "point_head.py",
+            models / "heads" / "transfusion_lc.py",
+            models / "detectors" / "pv_rcnn.py",
+            models / "detectors" / "pointpillar.py",
+            ROOT / "df3d_torch" / "core" / "ieee.py"} <= set(files)
     return files + [
         ROOT / "chip_smoke.py", ROOT / "k1_ablate.py",
         ROOT / "k2_ablate.py", ROOT / "lidar_wall.py"]
@@ -267,6 +275,17 @@ def test_voxelrcnn_entries_without_cuda_raise():
             fcfg.n_levels) == (1, (384, 1280), "deeplabv3", 3)
     with pytest.raises(RuntimeError, match="CUDA"):
         entry_mod.build_voxelrcnn3ddf(preset["lidar"], fcfg)
+
+
+def test_pvrcnn_entries_without_cuda_raise():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    from df3d_torch.models.detectors.pv_rcnn import PVRCNNConfig
+    with pytest.raises(RuntimeError, match="CUDA"):
+        entry_mod.build_pvrcnn(PVRCNNConfig())
+    model, head = entry_mod.build_pvrcnn(PVRCNNConfig(), device="cpu")
+    assert not model.training and not head.training
+    assert next(model.parameters()).device.type == "cpu"
 
 
 def test_build_detector_without_cuda_raises():

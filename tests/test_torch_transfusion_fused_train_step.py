@@ -34,11 +34,34 @@ the attention-weight kernels, whose output gradient sums to 0 over each
 softmax, scale with the size of the terms their gradient sums, max
 |dy|^T |x| from the port's step, in place of max|ref| (the first layer's
 gradient comes to 0.016 from terms of up to 0.042, 4.3e-6 apart, within
-5.2e-6).
+5.2e-6); so do the ACTR gates' biases, whose gradient sums the gate
+logit's gradient over every row, with the sum of its |dy| (with the aux
+head, layer 0's `a_gate` bias comes to 0.033 from terms summing to 0.81;
+one ulp more on every point's intensity moves the port's f32 leaf by 2.4
+times its `_tol`).
 
 ReLU decisions: as in tests/test_torch_transfusion_train_step.py, each of
 the port's ReLUs takes JAX's decision where the two disagree, at most a
 few elements, each within 1e-4 of 0 (`test_relu_decisions`).
+
+The f32 rounding of this step: the port's step also runs in f64 (model
+and batch, the same replayed decisions). Every gradient leaf of that step
+is held to JAX's at the tolerance above, and the port's f32 leaf to JAX's
+at 3 times it. The derivation: with g the exact gradient, JAX's f32 leaf
+is g + e_J and the port's f32 leaf g + e_P, and the f64 step is g to
+within ~1e-9 of the tolerance; so |f32 - JAX| <= |e_P| + |e_J| =
+|f32 - f64| + |f64 - JAX|. On an AVX-512 host (AMD EPYC, torch on one
+thread; the test prints the three per run), in units of `_grad_tol`, over
+both cases: |f64 - JAX| <= 0.475 (an attention-weight kernel),
+|f32 - f64| <= 2.043 (the backbone below the hook, ACTR's LT and
+`q_proj`), so |f32 - JAX| <= 2.52, within 3; it reads 2.15. The port's
+f32 error is rounding noise, not a fault: one ulp more on every point's
+intensity (`np.nextafter(points[..., 3], 2)` in the batch of `jax_run`,
+the step run again) moved the f32 leaves by up to 1.60 `_tol` without
+the aux head (2.4 on layer 0's `a_gate` bias with it) and the f64 leaves
+by 0.005. The BLAS kernels a host picks set that rounding: at
+1 times the tolerance the f32 comparison held on one kind of host and
+not on another.
 
 The frozen image branch: JAX gives it zero gradients, but optax's `adamw`
 decays every leaf, so its step moves the branch by -lr * weight_decay * p
@@ -212,6 +235,9 @@ def step_run(request, jax_run):
         if name.endswith(".self_attn.attention_weights"):
             handles.append(mod.register_forward_hook(
                 _summed_terms(f"{name}.weight", terms)))
+        elif name.endswith((".gate.a_gate", ".gate.b_gate")):
+            handles.append(mod.register_forward_hook(
+                _summed_bias_terms(f"{name}.bias", terms)))
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(thead, "hungarian_match",
                    _recorder(thead.hungarian_match, tcalls))
@@ -226,7 +252,26 @@ def step_run(request, jax_run):
     return dict(model=model, state=state, logs=logs, grads=grads, new=new,
                 jlogs=jlogs, before=before, jqueries=jax_run["jqueries"],
                 queries=queries[0], jcalls=jcalls, tcalls=tcalls,
-                flips=flips, terms=terms, aux=aux)
+                flips=flips, terms=terms, aux=aux,
+                grads64=_f64_grads(cfg, aux, variables, batch,
+                                   jax_run["jrelus"]))
+
+
+def _f64_grads(cfg, aux, variables, batch, jrelus):
+    """The port's step in f64 (model and batch) from the same variables,
+    its ReLUs replaying JAX's decisions: gradients by name, as numpy."""
+    model = TransFusion3DDF(cfg, FusedConfig(actr=ACTRConfig(**ACTR_CFG),
+                                             with_aux_seg=aux, **FUSED))
+    state = train_state_from_flax(model, variables["params"],
+                                  variables["batch_stats"],
+                                  adam_onecycle(LR_MAX, TOTAL_STEPS))
+    model.double()
+    step = make_fused_train_step(cfg, aux=aux, image_hw=FUSED["image_shape"])
+    b = {k: torch.from_numpy(v) for k, v in batch.items()}
+    with replayed_relus(jrelus, getattr(model, "aux_seg", None)):
+        _, grads = step.grads(state, {k: v.double() if v.is_floating_point()
+                                      else v for k, v in b.items()})
+    return {n: g.numpy() for n, g in zip(state.param_names, grads)}
 
 
 def _jax_step_and_queries(jmodel, jplain, jcfg):
@@ -270,6 +315,18 @@ def _summed_terms(name, store):
     return hook
 
 
+def _summed_bias_terms(name, store):
+    """A forward hook on a Linear layer that stores under `name` the
+    largest entry of the sum of |dy| over its rows: the size of the terms
+    its bias's gradient, the sum of dy, sums, whatever they cancel to."""
+    def hook(mod, inp, out):
+        def on_grad(dy):
+            dy = dy.detach().reshape(-1, dy.shape[-1]).abs()
+            store[name] = float(dy.sum(0).max())
+        out.register_hook(on_grad)
+    return hook
+
+
 def _tol(ref):
     return 1e-4 * np.abs(ref).max() + 1e-6
 
@@ -282,7 +339,8 @@ def _grad_tol(name, ref, terms):
     bias, 1e-8) gets a floor of 1e-5. The attention-weight kernels
     (`terms`), whose output gradient sums to 0 over each softmax, scale
     with the terms their gradient sums (max |dy|^T |x|: 0.042 where the
-    first layer's gradient comes to 0.016) in place of max|ref|."""
+    first layer's gradient comes to 0.016) in place of max|ref|; so do the
+    gates' biases (the sum of |dy| over the rows)."""
     big = max(np.abs(ref).max(), terms.get(name, 0.0))
     floor = 1e-5 if np.abs(ref).max() < 1e-5 else 1e-6
     return 1e-4 * big + floor
@@ -332,20 +390,34 @@ def test_logs(step_run):
 
 
 def test_every_trainable_gradient_leaf(step_run):
-    """Every leaf the port trains against JAX's gradient; the frozen image
-    branch is not in the port's state and has zero gradients in JAX."""
+    """Every leaf the port trains against JAX's gradient: the port's f64
+    step at the tolerance, its f32 step at 3 times it (derived in the
+    module docstring); the frozen image branch is not in the port's state
+    and has zero gradients in JAX. Prints the largest |f32 - f64|,
+    |f64 - JAX| and |f32 - JAX| over the leaves, in tolerances."""
     r = step_run
     want = params_from_flax(r["model"], r["new"].opt_state[0])
     trainable = {n for n in want if not _frozen(n)}
-    assert trainable == set(r["grads"])
-    assert len(r["terms"]) == 2, r["terms"]
+    assert trainable == set(r["grads"]) == set(r["grads64"])
+    assert sorted(k.rsplit(".", 2)[-2] for k in r["terms"]) == [
+        "a_gate", "a_gate", "attention_weights", "attention_weights",
+        "b_gate"], r["terms"]
     for name in set(want) - trainable:
         assert not want[name].any(), name
+    worst = dict.fromkeys(("f32 - f64", "f64 - JAX", "f32 - JAX"), (0, ""))
     for name, g in r["grads"].items():
-        ref = want[name].numpy()
-        np.testing.assert_allclose(g.numpy(), ref, rtol=0,
-                                   atol=_grad_tol(name, ref, r["terms"]),
+        ref, exact = want[name].numpy(), r["grads64"][name]
+        tol = _grad_tol(name, ref, r["terms"])
+        for k, (a, b) in (("f32 - f64", (g.numpy(), exact)),
+                          ("f64 - JAX", (exact, ref)),
+                          ("f32 - JAX", (g.numpy(), ref))):
+            worst[k] = max(worst[k], (np.abs(a - b).max() / tol, name))
+        np.testing.assert_allclose(exact, ref, rtol=0, atol=tol,
+                                   err_msg=f"{name} (f64 step)")
+        np.testing.assert_allclose(g.numpy(), ref, rtol=0, atol=3 * tol,
                                    err_msg=name)
+    print("largest gaps over the leaves, in tolerances: " + ", ".join(
+        f"|{k}| {v:.3f} ({n})" for k, (v, n) in worst.items()))
 
 
 def test_unreached_leaves(step_run):
